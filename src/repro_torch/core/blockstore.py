@@ -1,0 +1,163 @@
+"""Block storage for the relation engine: one LRU core, three wrappers.
+
+The engine retains produced relation blocks in two places with different
+granularities:
+
+  - :class:`SegmentCache` — host-side numpy blocks keyed ``(relation,
+    segment)``, evicted one segment at a time (DESIGN.md §3).
+  - :class:`DevBlockPool` — device-resident blocks keyed the same way but
+    *backed* by whole launch tensors: a batched launch produces one stacked
+    ``(B, R, deg)`` tensor holding many segments, and retaining any one of
+    them retains the launch. Eviction therefore runs at launch granularity
+    (touching any entry pins the whole backing tensor as most-recent),
+    which is what bounds device memory by *tensors*, not segments
+    (DESIGN.md §6).
+
+:class:`BlockStore` composes the two. This engine has one shard, so the
+store holds one pool; the reference's per-shard routing comes with the
+port of segment sharding.
+
+Thread-safety: none of these classes lock; the engine serialises access
+under its single condition lock (DESIGN.md §8). Every mutating surface
+(``get`` touches LRU recency too) is annotated ``# contract: holds-lock``
+so contractcheck's lock-discipline rule verifies the callers.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+
+class _LRUCore:
+    """Ordered-map LRU shared by the cache and the pool.
+
+    ``get`` marks the key most-recent; ``put`` inserts (or re-touches) and
+    evicts least-recent entries past ``capacity``, returning them so the
+    caller can release derived state (the pool drops per-segment entries of
+    an evicted backing tensor). ``evictions`` counts evicted entries.
+    """
+
+    def __init__(self, capacity: int):
+        self.capacity = max(1, int(capacity))
+        self._store: "OrderedDict[Any, Any]" = OrderedDict()
+        self.evictions = 0
+
+    def get(self, key: Any) -> Any:
+        # contract: holds-lock
+        val = self._store.get(key)
+        if val is not None:
+            self._store.move_to_end(key)
+        return val
+
+    def put(self, key: Any, value: Any) -> List[Tuple[Any, Any]]:
+        # contract: holds-lock
+        if key in self._store:
+            self._store.move_to_end(key)
+        self._store[key] = value
+        evicted = []
+        while len(self._store) > self.capacity:
+            evicted.append(self._store.popitem(last=False))
+            self.evictions += 1
+        return evicted
+
+    def __contains__(self, key: Any) -> bool:
+        return key in self._store
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+
+class SegmentCache:
+    """Host LRU over per-segment blocks ``(relation, segment) -> (M, L, n)``.
+
+    External code must not touch the backing ``_store`` directly (the
+    ``store-encapsulation`` contractcheck rule enforces this).
+    """
+
+    def __init__(self, capacity: int):
+        self._core = _LRUCore(capacity)
+        self._store = self._core._store
+
+    @property
+    def evictions(self) -> int:
+        return self._core.evictions
+
+    def get(self, key):
+        # contract: holds-lock
+        return self._core.get(key)
+
+    def put(self, key, value) -> None:
+        # contract: holds-lock
+        self._core.put(key, value)
+
+    def __contains__(self, key) -> bool:
+        return key in self._core
+
+    def __len__(self) -> int:
+        return len(self._core)
+
+
+class DevBlockPool:
+    """Device-side LRU over launch-backed blocks.
+
+    Entries map ``(relation, segment) -> (backing tensor id, row index)``;
+    the LRU itself runs over *backing tensors* (``_arrays``: ``id(M) ->
+    (M, L, keys)``), so a single eviction frees a whole launch and every
+    segment it carried. Touching any entry moves its backing tensor to
+    most-recent — the launch-granularity pin. Single-segment uploads are
+    tensors of their own with ``idx None``.
+    """
+
+    def __init__(self, max_arrays: int):
+        self._core = _LRUCore(max_arrays)
+        self._arrays = self._core._store  # id(M) -> (M, L, set of keys)
+        self._entries: Dict[Tuple[str, int], Tuple[int, Optional[int]]] = {}
+
+    def get(self, key):
+        # contract: holds-lock
+        ent = self._entries.get(key)
+        if ent is None:
+            return None
+        aid, idx = ent
+        M, L, _ = self._core.get(aid)  # pins the whole backing launch
+        return M, L, idx
+
+    def put(self, key, M, L, idx) -> None:
+        # contract: holds-lock
+        aid = id(M)
+        if aid in self._arrays:
+            self._core.get(aid)  # re-touch: most-recent
+            evicted = []
+        else:
+            evicted = self._core.put(aid, (M, L, set()))
+        for _, (_, _, keys) in evicted:
+            for k in keys:
+                self._entries.pop(k, None)
+        old = self._entries.get(key)
+        if old is not None and old[0] != aid:
+            prev = self._arrays.get(old[0])
+            if prev is not None:
+                prev[2].discard(key)
+        self._arrays[aid][2].add(key)
+        self._entries[key] = (aid, idx)
+
+
+class BlockStore:
+    """The engine's storage layer: one host cache + one device pool.
+
+    Presents the :class:`DevBlockPool` ``get``/``put`` surface (the
+    engine's ``_dev_pool`` *is* the store) next to the host ``cache``.
+    """
+
+    def __init__(self, cache_segments: int, pool_arrays: int):
+        self.cache = SegmentCache(cache_segments)
+        self.pool = DevBlockPool(pool_arrays)
+
+    def get(self, key):
+        # contract: holds-lock
+        return self.pool.get(key)
+
+    def put(self, key, M, L, idx) -> None:
+        # contract: holds-lock
+        self.pool.put(key, M, L, idx)

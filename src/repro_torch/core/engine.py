@@ -1,0 +1,813 @@
+"""The GALE relation engine: task-parallel localized relation computation
+(paper §4.4–4.6) on PyTorch and CUDA.
+
+Roles, mapped from the paper:
+
+  consumer        -> the analysis algorithm calling :meth:`get` /
+                     :meth:`get_batch` / :meth:`get_full_dev_many`
+  leader producer -> :meth:`_dispatch`: drains the per-relation queue
+                     (multi-queue design, §4.5), extends the batch with
+                     *lookahead* segments along the traversal order, and
+                     launches ONE batched kernel per relation type
+  worker producer -> the CUDA grid (``kernels/csrc/segment_relations.cu``,
+                     one thread block per segment), or the plain torch arm
+
+Asynchronous consumer contract
+------------------------------
+
+The producer NEVER blocks: a kernel launch returns as soon as it is queued
+on the device's current stream, and its not-yet-ready output tensors are
+recorded in an **in-flight futures table** keyed by ``(relation, segment)``.
+Right after the launch the engine queues the outputs' copy to pinned host
+memory and records a CUDA event; the event says when both are done.
+
+  - :meth:`prefetch` / :meth:`prefetch_many` enqueue traversal-order hints
+    and dispatch launches round-robin across relations, returning
+    immediately.
+  - :meth:`get` / :meth:`get_batch` block only when they read a block that
+    is still computing; the wait is accounted in ``stats.t_sync`` (the
+    paper's Fig. 10 "waiting" metric). ``stats.t_kernel`` records only the
+    host-side dispatch cost.
+  - A segment is never produced twice: requests are de-duplicated against
+    the cache, the in-flight table, and the pending queues.
+
+Multi-consumer thread safety (docs/DESIGN.md §8)
+------------------------------------------------
+
+All shared-state mutation sits behind ONE lock + condition variable
+(``self._cond``): every public consumer method acquires it once at entry,
+and every internal step (queues, cache, in-flight table, device block pool,
+stats) runs with it held. The only wait that releases the lock is the
+device sync: the first consumer needing a launch becomes its *syncer*
+(``launch.syncing``), drops the lock for ``event.synchronize()``, then
+re-acquires and integrates exactly once; other consumers needing the same
+launch wait on the condition variable until ``launch.done``. A block is
+never produced twice for any thread interleaving, stat updates are never
+lost (``merged_worker_stats() == stats``), and results are bit-identical
+for any number of consumer threads.
+
+This is the reference engine's single-shard path with no fault policy and
+no kernel-parameter tuning: its built-in defaults (``batch_max=64``,
+``lookahead=8``, ``cache_segments=512``, ``dev_pool_segments=256``,
+``inflight_max=8``) give the reference's ``tune="off"`` launch sequence.
+Sharding and the fault-recovery ladder come with later ports.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..errors import RelationWidthError
+from ..kernels import ops
+from .blockstore import BlockStore
+from .segtables import OFFLOADED_RELATIONS, Preconditioned, RELATION_TABLES
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Engine accounting (paper Tables 5/6/7 + Fig. 10). Counter semantics:
+
+    - ``requests``: simplex-block reads issued through :meth:`RelationEngine.
+      get` / ``get_batch`` / ``get_full_dev_many`` (one per (relation,
+      segment) read).
+    - ``cache_hits`` / ``cache_misses``: whether a read found its block
+      already produced (or in flight — ``inflight_hits`` is that subset).
+    - ``kernel_launches`` / ``segments_produced``: producer-side dispatch
+      counts. A segment is never produced twice for the same relation, so
+      ``segments_produced`` is also the number of distinct blocks computed.
+    """
+
+    requests: int = 0
+    kernel_launches: int = 0
+    segments_produced: int = 0
+    cache_hits: int = 0
+    inflight_hits: int = 0   # subset of cache_hits served from in-flight
+    cache_misses: int = 0
+    evictions: int = 0
+    # Device block pool (get_full_dev_many): reads served from still-
+    # device-resident launch results vs host-cache blocks re-uploaded.
+    devpool_hits: int = 0
+    devpool_uploads: int = 0
+    # Waiting-time breakdown (seconds), paper Fig. 10 phases.
+    t_enqueue: float = 0.0
+    t_queue: float = 0.0
+    t_prepare: float = 0.0
+    t_kernel: float = 0.0    # host-side kernel DISPATCH time only
+    t_sync: float = 0.0      # time the consumer waited on in-flight results
+    t_integrate: float = 0.0
+
+    def bump(self, **deltas) -> None:
+        """Add counter deltas in place. The engine routes every stat update
+        through this (under its lock), so concurrent consumers never lose
+        increments."""
+        for k, v in deltas.items():
+            setattr(self, k, getattr(self, k) + v)
+
+    @staticmethod
+    def merged(parts: Iterable["EngineStats"]) -> "EngineStats":
+        """Sum every field over ``parts`` into a fresh ``EngineStats``
+        (deterministic for a fixed iteration order)."""
+        out = EngineStats()
+        for p in parts:
+            out.bump(**dataclasses.asdict(p))
+        return out
+
+
+class StatsHost:
+    """Thread-safe stats accounting: a single lock/condition (``self._cond``)
+    guards every counter update, and each update is attributed to the
+    calling *worker thread* (:meth:`worker_scope`), so ``worker_stats``
+    carries the per-consumer breakdown of docs/DESIGN.md §8 and
+    ``merged_worker_stats() == stats`` holds at all times (exactly for int
+    counters, up to float-summation order for the ``t_*`` phases)."""
+
+    def _init_stats(self) -> None:
+        self.stats = EngineStats()
+        self.worker_stats: Dict[str, EngineStats] = {}
+        self._cond = threading.Condition()
+        self._tl = threading.local()
+
+    @contextlib.contextmanager
+    def worker_scope(self, name: str):
+        """Attribute this thread's stat updates to worker ``name`` (the
+        scheduler wraps each worker loop in one; unscoped updates land on
+        the ``"main"`` worker)."""
+        prev = getattr(self._tl, "worker", None)
+        self._tl.worker = str(name)
+        try:
+            yield
+        finally:
+            self._tl.worker = prev
+
+    def _bump(self, **deltas) -> None:
+        # contract: holds-lock
+        """Stat update; the caller must hold ``self._cond``."""
+        w = getattr(self._tl, "worker", None) or "main"
+        ws = self.worker_stats.get(w)
+        if ws is None:
+            ws = self.worker_stats[w] = EngineStats()
+        self.stats.bump(**deltas)
+        ws.bump(**deltas)
+
+    def merged_worker_stats(self) -> EngineStats:
+        """Deterministic merge of the per-worker breakdown (sorted worker
+        key order); equals ``stats``."""
+        with self._cond:
+            return EngineStats.merged(
+                self.worker_stats[k] for k in sorted(self.worker_stats))
+
+
+@dataclasses.dataclass
+class ConsumerBatch:
+    """Device-resident view of one consumer batch (docs/DESIGN.md §6): the
+    *internal* relation rows of a batch of segments, stacked across several
+    relations that share a subject simplex kind, served straight from the
+    producer's device block pool.
+
+    Rows are the segments' internal simplices in traversal order (segment by
+    segment, ascending global id within each), padded to a power-of-two row
+    bucket (``ops.bucket_rows``). Padding rows carry ``gid == -1`` and
+    all-(-1) relation entries; their results are the caller's to discard.
+    ``M``/``L`` are fresh gather outputs, not views of the pooled launch
+    tensors."""
+
+    kind: str                        # subject simplex kind (V/E/F/T)
+    segments: Tuple[int, ...]        # segment ids served, in row order
+    n_rows: int                      # real rows (before bucket padding)
+    gid: np.ndarray                  # (n_rows,) host global ids for scatter
+    gid_dev: torch.Tensor            # (rows_pad,) int32 gids, -1 padding
+    M: Dict[str, torch.Tensor]       # relation -> (rows_pad, width)
+    L: Dict[str, torch.Tensor]       # relation -> (rows_pad,)
+
+    def width(self, relation: str) -> int:
+        return self.M[relation].shape[1]
+
+
+# contract: device-resident
+def _gather_internal(pool_M: torch.Tensor, pool_L: torch.Tensor,
+                     flat: torch.Tensor, gid: torch.Tensor, w: int):
+    """One device gather per (relation, batch): pick the internal rows
+    (``flat`` indexes the flattened slot-rows), trim columns to the width
+    ``w``, and mask bucket-padding rows (``gid == -1``) to the documented
+    all-(-1) / zero-count padding."""
+    Mr = pool_M.reshape(-1, pool_M.shape[-1]).index_select(0, flat)[:, :w]
+    Lr = pool_L.reshape(-1).index_select(0, flat)
+    return (torch.where(gid[:, None] >= 0, Mr, -1),
+            torch.where(gid >= 0, Lr, 0))
+
+
+class _Launch:
+    """One dispatched batched kernel whose results may not be ready yet."""
+
+    __slots__ = ("relation", "segments", "M", "L", "M_host", "L_host",
+                 "event", "n_rows", "done", "syncing")
+
+    def __init__(self, relation, segments, M, L, M_host, L_host, event,
+                 n_rows):
+        self.relation = relation
+        self.segments = segments      # real (unpadded) segment ids
+        self.M = M                    # (B_padded, R, deg) device tensor
+        self.L = L                    # (B_padded, R) device tensor
+        self.M_host = M_host          # host copies, filled by the stream
+        self.L_host = L_host
+        self.event = event            # recorded after the copies (or None)
+        self.n_rows = n_rows          # per-segment internal row counts
+        self.done = False
+        self.syncing = False          # a consumer thread owns the sync wait
+
+    def is_ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+
+class RelationEngine(StatsHost):
+    """GALE: GPU-Aided Localized data structurE.
+
+    Runs on ``device`` (``cuda`` unless the caller asks for another; a
+    missing card raises). ``backend=None`` launches the CUDA kernels on a
+    card and the plain torch arm on the CPU; ``backend="torch"`` runs the
+    plain arm on the card too. Safe for concurrent use by multiple consumer
+    threads: every public consumer method acquires the engine lock exactly
+    once; internal ``_``-prefixed steps assume it is held."""
+
+    def __init__(
+        self,
+        pre: Preconditioned,
+        relations: Sequence[str],
+        backend: Optional[str] = None,
+        device=None,
+        lookahead: int = 8,
+        batch_max: int = 64,
+        cache_segments: int = 512,
+        deg: Optional[Dict[str, int]] = None,
+        inflight_max: int = 8,
+        dev_pool_segments: int = 256,
+        shards: int = 1,
+        fault_policy=None,
+    ):
+        if pre.tables is None:
+            raise ValueError("precondition(..., build_tables=True) required")
+        if shards != 1:
+            raise NotImplementedError(
+                "segment sharding is not ported yet (ROADMAP queue 1 item 9)")
+        if fault_policy is not None:
+            raise NotImplementedError(
+                "fault recovery is not ported yet (ROADMAP queue 1 item 10)")
+        self.device = ops.resolve_device(device)
+        self.backend = ops.resolve_backend(backend, self.device)
+        self.pre = pre
+        self.smesh = pre.smesh
+        self.tables = pre.tables
+        self.lookahead = lookahead
+        self.batch_max = int(batch_max)
+        self.inflight_max = max(1, inflight_max)
+        self.relations = tuple(r for r in relations
+                               if r in OFFLOADED_RELATIONS)
+        self.deg = dict(ops.DEFAULT_DEG)
+        if deg:
+            self.deg.update(deg)
+
+        # Multi-queue: one pending-request queue per offloaded relation
+        # (paper §4.5 'Justification of design choices').
+        self.queues: Dict[str, List[int]] = {r: [] for r in self.relations}
+        # Block storage: one host segment cache + one device block pool.
+        # Pool entries reference retained launch tensors (idx row) or
+        # one-block uploads (idx None); ``dev_pool_segments`` is a segment
+        # budget converted at launch granularity. Evictions only drop
+        # device references; the host cache keeps the data.
+        self.store = BlockStore(
+            cache_segments, max(1, dev_pool_segments // max(1, batch_max)))
+        self.cache = self.store.cache
+        self._dev_pool = self.store
+        # In-flight futures: (relation, segment) -> _Launch whose device
+        # tensors may still be computing.
+        self._inflight: Dict[Tuple[str, int], _Launch] = {}
+        self._flights: "collections.deque[_Launch]" = collections.deque()
+        self._init_stats()   # stats + per-worker breakdown + lock
+
+        # Device-resident stacked tables (copied once, like the paper
+        # copying initialized arrays to GPU global memory).
+        t = self.tables
+        put = (lambda a: torch.from_numpy(np.ascontiguousarray(a))
+               .to(self.device))
+        self._dev: Dict[str, torch.Tensor] = {
+            "T_local": put(t.T_local), "LT_global": put(t.LT_global),
+            "LV_global": put(t.LV_global)}
+        for name in ("E_local", "LE_global", "F_local", "LF_global"):
+            if getattr(t, name) is not None:
+                self._dev[name] = put(getattr(t, name))
+
+    # -- consumer-side API --------------------------------------------------
+
+    @contextlib.contextmanager
+    def _consumer_entry(self, method: str):
+        """Public consumer-method entry: rejects re-entrant entry, then
+        acquires the engine lock exactly once. The lock is not re-entrant,
+        so a nested public call from a thread already inside one would
+        deadlock; the thread-local entry marker turns that into an
+        immediate ``RuntimeError`` naming both methods."""
+        held = getattr(self._tl, "engine_method", None)
+        if held is not None:
+            raise RuntimeError(
+                f"re-entrant call into RelationEngine.{method}() from "
+                f"RelationEngine.{held}() on the same thread: the engine "
+                f"lock (docs/DESIGN.md §8) is not re-entrant, so this call "
+                f"would deadlock. Finish the {held}() call first.")
+        self._tl.engine_method = method
+        try:
+            with self._cond:
+                yield
+        finally:
+            self._tl.engine_method = None
+
+    def _request(self, relation: str, segments: Sequence[int]) -> None:
+        # contract: holds-lock
+        t0 = time.perf_counter()
+        q = self.queues[relation]
+        qs = set(q)
+        for s in segments:
+            s = int(s)
+            if ((relation, s) not in self.cache
+                    and (relation, s) not in self._inflight
+                    and s not in qs):
+                q.append(s)
+                qs.add(s)
+        self._bump(t_enqueue=time.perf_counter() - t0)
+
+    def get(self, relation: str, segment: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Fetch the (M, L) relation block for one segment as host arrays.
+
+        Rows are the segment's *internal* simplices of the relation's subject
+        kind, in global-id order starting at ``interval[kind][segment]``.
+        Returns at once on a cache hit; on an in-flight hit it blocks until
+        that launch is ready; on a miss it queue-jumps the segment,
+        dispatches one batched launch, and waits for it."""
+        with self._consumer_entry("get"):
+            segment = int(segment)
+            self._bump(requests=1)
+            self._count(relation, segment)
+            return self._fetch(relation, segment)
+
+    def _dev_entry(self, relation: str, segment: int):
+        # contract: holds-lock
+        """Pooled device block entry ``(M, L, idx_or_None)`` for one
+        segment, producing/uploading on miss (one request count per call).
+        Lock held."""
+        self._bump(requests=1)
+        self._count(relation, segment)
+        key = (relation, segment)
+        ent = self._dev_pool.get(key)
+        if ent is None:
+            launch = self._inflight.get(key)
+            if launch is not None:
+                # integration fills the device pool for the whole launch
+                self._sync(launch)
+                ent = self._dev_pool.get(key)
+        if ent is None:
+            Mh, Lh = self._fetch(relation, segment, full=True)
+            # a cold miss dispatches a launch whose integration fills the
+            # device pool — re-check before paying a host->device upload
+            ent = self._dev_pool.get(key)
+            if ent is None:
+                ent = (torch.from_numpy(Mh).to(self.device),
+                       torch.from_numpy(Lh).to(self.device), None)
+                self._dev_pool.put(key, *ent)
+                self._bump(devpool_uploads=1)
+                return ent
+        self._bump(devpool_hits=1)
+        return ent
+
+    def _stack_entries(self, ents) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stack resolved device-pool entries into ``(S, R, deg)`` /
+        ``(S, R)`` tensors, rows in ``ents`` order: one gather per retained
+        launch plus one permutation."""
+        S = len(ents)
+        groups: Dict[int, Tuple[torch.Tensor, torch.Tensor, list, list]] = {}
+        for out_pos, (M, L, i) in enumerate(ents):
+            if i is None:      # uploaded full block: make it a 1-batch group
+                M, L, i = M[None], L[None], 0
+            g = groups.setdefault(id(M), (M, L, [], []))
+            g[2].append(i)
+            g[3].append(out_pos)
+        parts_M, parts_L = [], []
+        perm = np.empty(S, dtype=np.int64)
+        at = 0
+        for M, L, idx, outs in groups.values():
+            take = torch.tensor(idx, dtype=torch.int64, device=M.device)
+            parts_M.append(M.index_select(0, take))
+            parts_L.append(L.index_select(0, take))
+            perm[np.asarray(outs)] = at + np.arange(len(idx))
+            at += len(idx)
+        pool_M = torch.cat(parts_M)
+        pool_L = torch.cat(parts_L)
+        if len(groups) > 1 or np.any(perm != np.arange(S)):
+            ix = torch.from_numpy(perm).to(pool_M.device)
+            pool_M = pool_M.index_select(0, ix)
+            pool_L = pool_L.index_select(0, ix)
+        return pool_M, pool_L
+
+    def get_full_dev_many(self, relations: Sequence[str],
+                          segments: Sequence[int],
+                          cols: Optional[Dict[str, int]] = None
+                          ) -> ConsumerBatch:
+        """Multi-relation device-batch read: one :class:`ConsumerBatch`
+        serving the internal rows of ``segments`` across every relation in
+        ``relations`` (all sharing one subject simplex kind) straight from
+        the device block pool — the consumer pipeline's read primitive
+        (docs/DESIGN.md §6).
+
+        All misses are dispatched first through one round-robin prefetch,
+        then each relation's internal rows are compacted into one
+        ``(rows_pad, width)`` device tensor with one gather off the retained
+        launch tensor (batches mixing several launches or uploaded blocks
+        go through :meth:`_stack_entries` first) — no host copy of any
+        block. ``cols`` optionally trims a relation's columns to a proven
+        degree bound (entries past the true max row count are all ``-1``,
+        so trimming is lossless). Counting is one pool read per
+        ``(relation, segment)``."""
+        relations = tuple(relations)
+        kind = relations[0][0]       # subject kind ("VV" subjects are V)
+        for r in relations:
+            if r[0] != kind:
+                raise ValueError(
+                    f"get_full_dev_many needs one subject kind per batch: "
+                    f"{relations} mixes {kind!r} and {r[0]!r}")
+        segments = [int(s) for s in segments]
+        # host-side index assembly reads only immutable per-mesh tables, so
+        # it runs OUTSIDE the engine lock
+        n_int, _ = self.tables.counts(kind)
+        iv = self.pre.interval(kind)
+        ns_rows = [int(n_int[s]) for s in segments]
+        n_rows = sum(ns_rows)
+        rows_pad = ops.bucket_rows(n_rows)
+        gid = np.empty(n_rows, dtype=np.int64)
+        flat = np.zeros(rows_pad, dtype=np.int64)
+        at = 0
+        for s, n in zip(segments, ns_rows):
+            gid[at:at + n] = np.arange(iv[s], iv[s] + n)
+            flat[at:at + n] = np.arange(n)      # + slot * R below
+            at += n
+        gid_pad = np.full(rows_pad, -1, dtype=np.int32)
+        gid_pad[:n_rows] = gid
+        gid_dev = torch.from_numpy(gid_pad).to(self.device)
+
+        # producer interaction under the lock: prefetch + pool-entry
+        # resolution (which may sync in-flight launches)
+        with self._consumer_entry("get_full_dev_many"):
+            self._prefetch_many({r: segments for r in relations})
+            ents_by_rel = {r: [self._dev_entry(r, s) for s in segments]
+                           for r in relations}
+
+        # the gathers run on held tensor references — outside the lock
+        M: Dict[str, torch.Tensor] = {}
+        L: Dict[str, torch.Tensor] = {}
+        for r in relations:
+            ents = ents_by_rel[r]
+            aid = id(ents[0][0])
+            if (all(e[2] is not None for e in ents)
+                    and all(id(e[0]) == aid for e in ents)):
+                # steady state: every block lives in ONE retained launch
+                pool_M, pool_L = ents[0][0], ents[0][1]
+                slots = [i for _, _, i in ents]
+            else:        # mixed launches / uploads: stacked gather
+                pool_M, pool_L = self._stack_entries(ents)
+                slots = range(len(ents))
+            R = pool_M.shape[1]
+            off = np.zeros(rows_pad, dtype=np.int64)
+            at = 0
+            for i, n in zip(slots, ns_rows):
+                off[at:at + n] = i * R
+                at += n
+            flat_dev = torch.from_numpy(flat + off).to(self.device)
+            w = pool_M.shape[2]
+            if cols and r in cols:
+                w = min(w, max(int(cols[r]), 1))
+            M[r], L[r] = _gather_internal(pool_M, pool_L, flat_dev,
+                                          gid_dev, w)
+        return ConsumerBatch(kind=kind, segments=tuple(segments),
+                             n_rows=n_rows, gid=gid, gid_dev=gid_dev,
+                             M=M, L=L)
+
+    def get_batch(self, relation: str, segments: Sequence[int]):
+        """Fetch several segments' (M, L) host blocks as a list.
+
+        All misses are enqueued first and produced in one batched launch
+        (plus lookahead), then each block is read as in :meth:`get`.
+        Duplicate segment ids are served from the same produced block."""
+        with self._consumer_entry("get_batch"):
+            segments = [int(s) for s in segments]
+            self._bump(requests=len(segments))
+            for s in segments:
+                self._count(relation, s)
+            missing = [s for s in segments
+                       if (relation, s) not in self.cache
+                       and (relation, s) not in self._inflight]
+            if missing:
+                self._request(relation, missing)
+                self._drain([relation])
+            return [self._fetch(relation, s) for s in segments]
+
+    def prefetch(self, relation: str, segments: Sequence[int]) -> None:
+        """Traversal-order hint: enqueue + dispatch without blocking.
+        Segments already cached / in flight / pending are skipped."""
+        with self._consumer_entry("prefetch"):
+            self._request(relation, segments)
+            self._drain([relation])
+
+    def prefetch_many(self, requests: Dict[str, Sequence[int]]) -> None:
+        """Prefetch several relations at once without blocking; launches are
+        dispatched round-robin across relations. Unknown relations are
+        ignored."""
+        with self._consumer_entry("prefetch_many"):
+            self._prefetch_many(requests)
+
+    def _prefetch_many(self, requests: Dict[str, Sequence[int]]) -> None:
+        # contract: holds-lock
+        for r, segs in requests.items():
+            if r in self.queues:
+                self._request(r, segs)
+        self._drain([r for r in requests if r in self.queues])
+
+    # -- leader-producer side -----------------------------------------------
+
+    def _count(self, relation: str, segment: int) -> None:
+        # contract: holds-lock
+        key = (relation, segment)
+        if key in self.cache:
+            self._bump(cache_hits=1)
+        elif key in self._inflight:
+            self._bump(cache_hits=1, inflight_hits=1)
+        else:
+            self._bump(cache_misses=1)
+
+    def _fetch(self, relation: str, segment: int, full: bool = False
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        # contract: holds-lock
+        """Stat-free read: serve from cache, else sync the in-flight launch,
+        else queue-jump + dispatch + sync. ``full`` keeps external + padding
+        rows. Lock held (only :meth:`_sync` may release it while waiting on
+        the device)."""
+        key = (relation, segment)
+        while True:
+            hit = self.cache.get(key)
+            if hit is not None:
+                break
+            launch = self._inflight.get(key)
+            if launch is None:
+                t0 = time.perf_counter()
+                # a blocking miss jumps the queue; at the queue front it
+                # integrates last (MRU), so its own launch can never evict
+                # it and the loop terminates
+                q = self.queues[relation]
+                if segment in q:
+                    q.remove(segment)
+                q.insert(0, segment)
+                self._bump(t_queue=time.perf_counter() - t0)
+                launch = self._dispatch(relation)
+            if launch is not None:
+                self._sync(launch)
+            # loop: a prefetched launch's own integration may have
+            # LRU-evicted this segment, in which case it is re-dispatched
+        M, L, n_rows = hit
+        t0 = time.perf_counter()
+        out = (M, L) if full else (M[:n_rows], L[:n_rows])
+        self._bump(t_integrate=time.perf_counter() - t0)
+        return out
+
+    def _drain(self, relations: Optional[Sequence[str]] = None) -> None:
+        # contract: holds-lock
+        """Round-robin one bounded pass over the pending queues, dispatching
+        up to ``batch_max`` segments per relation per turn. The budget is
+        fixed at entry: lookahead overflow requeued by a dispatch does not
+        extend this pass."""
+        rels = [r for r in (relations or self.relations) if self.queues[r]]
+        budgets = {r: len(self.queues[r]) for r in rels}
+        progress = True
+        while progress:
+            progress = False
+            for r in rels:
+                if budgets[r] <= 0 or not self.queues[r]:
+                    continue
+                before = len(self.queues[r])
+                self._dispatch(r)
+                budgets[r] -= max(1, before - len(self.queues[r]))
+                progress = True
+        self._harvest()
+
+    def _harvest(self) -> None:
+        # contract: holds-lock
+        """Retire completed in-flight launches into the cache without
+        blocking. Launches a consumer thread is already syncing are left to
+        that thread."""
+        for launch in self._flights:
+            if not launch.done and not launch.syncing and launch.is_ready():
+                self._integrate(launch)
+        if any(l.done for l in self._flights):
+            self._flights = collections.deque(
+                l for l in self._flights if not l.done)
+
+    def _sync(self, launch: _Launch) -> None:
+        # contract: holds-lock
+        """Block until a dispatched launch is ready and integrate it exactly
+        once.
+
+        Lock held exactly once on entry. The first consumer to need the
+        launch becomes its *syncer*: it releases the lock for the device
+        wait, re-acquires, and integrates. Concurrent consumers needing the
+        same launch wait on the condition variable instead; each accounts
+        its own wall-clock wait in ``t_sync``. If the syncer fails before
+        integrating (a :class:`RelationWidthError`), a waiter takes over and
+        surfaces the same error instead of hanging."""
+        if launch.done:
+            return
+        t0 = time.perf_counter()
+        if launch.syncing:
+            while launch.syncing and not launch.done:
+                self._cond.wait()   # contract: syncer-handoff
+            if not launch.done:       # syncer failed: take over the sync
+                return self._sync(launch)
+            self._bump(t_sync=time.perf_counter() - t0)
+            return
+        launch.syncing = True
+        try:
+            self._cond.release()
+            try:
+                # the ONE device wait that runs lock-free (released above,
+                # re-acquired below)  # contract: syncer-handoff
+                if launch.event is not None:
+                    launch.event.synchronize()  # contract: syncer-handoff
+            finally:
+                self._cond.acquire()
+        finally:
+            launch.syncing = False
+            self._cond.notify_all()
+        self._bump(t_sync=time.perf_counter() - t0)
+        self._integrate(launch)
+        self._cond.notify_all()
+
+    def _integrate(self, launch: _Launch) -> None:
+        # contract: holds-lock
+        if launch.done:
+            return
+        t0 = time.perf_counter()
+        # The host copies were queued right behind the kernel and are
+        # complete once the launch is ready, so these are plain numpy views
+        # of pinned memory: no device wait under the lock.
+        Mh = launch.M_host.numpy()   # contract: syncer-handoff (ready)
+        Lh = launch.L_host.numpy()   # contract: syncer-handoff (ready)
+        # Preallocated-width contract (paper §4.6): L is the TRUE row count
+        # while M holds at most deg entries, so L > deg means the compaction
+        # dropped neighbours. Fail loudly with the fix.
+        worst = int(Lh.max()) if Lh.size else 0
+        deg = self.deg[launch.relation]
+        if worst > deg:
+            raise RelationWidthError(
+                f"relation {launch.relation!r} produced a row with {worst} "
+                f"entries but the preallocated width is "
+                f"deg[{launch.relation!r}]={deg}; the compacted M row would "
+                f"silently drop neighbours. Construct the engine with "
+                f"deg={{{launch.relation!r}: {worst}}} (or larger).",
+                relation=launch.relation)
+        # Reverse order so the explicitly requested segments (batch front)
+        # are most-recently-used and cannot be LRU-evicted by their own
+        # lookahead when the cache is small.
+        for i, s in reversed(list(enumerate(launch.segments))):
+            self._inflight.pop((launch.relation, s), None)
+            self.cache.put((launch.relation, s),
+                           (Mh[i], Lh[i], launch.n_rows[i]))
+            # device pool: keep the still-device-resident rows addressable
+            # for get_full_dev_many (holds a reference to the launch)
+            self._dev_pool.put((launch.relation, s), launch.M, launch.L, i)
+        launch.done = True
+        self._bump(evictions=self.cache.evictions - self.stats.evictions,
+                   t_integrate=time.perf_counter() - t0)
+
+    def _lookahead_segments(self, relation: str, batch: List[int]) -> List[int]:
+        # contract: holds-lock
+        """Extend a drained batch with subsequent segments (paper §4.5
+        proactive precomputation), de-duplicated against the cache, the
+        in-flight table AND the relation's pending queue."""
+        hi = self.smesh.n_segments
+        out: List[int] = []
+        seen = set(batch)
+        queued = set(self.queues[relation])
+        for s in batch:
+            for d in range(1, self.lookahead + 1):
+                n = s + d
+                if (n < hi and n not in seen and n not in queued
+                        and (relation, n) not in self.cache
+                        and (relation, n) not in self._inflight):
+                    seen.add(n)
+                    out.append(n)
+        return out
+
+    def _dispatch(self, relation: str) -> Optional[_Launch]:
+        # contract: holds-lock
+        """Drain the queue for ``relation`` (up to ``batch_max``), add
+        lookahead, and dispatch one batched kernel. Never blocks: the
+        returned launch holds device-tensor futures registered in the
+        in-flight table."""
+        t0 = time.perf_counter()
+        q = self.queues[relation]
+        batch: List[int] = []
+        while q and len(batch) < self.batch_max:
+            s = q.pop(0)
+            # stale entry: produced since it was queued
+            if (relation, s) in self.cache or (relation, s) in self._inflight:
+                continue
+            batch.append(s)
+        if not batch:
+            self._bump(t_prepare=time.perf_counter() - t0)
+            return None
+        look = self._lookahead_segments(relation, batch)
+        room = self.batch_max - len(batch)
+        batch = batch + look[:room]
+        if look[room:]:
+            # the launch is capped at batch_max; overflow lookahead is
+            # requeued so proactive production continues in later launches
+            qs = set(q)
+            q.extend(s for s in look[room:] if s not in qs)
+        self._bump(t_prepare=time.perf_counter() - t0)
+        return self._launch_device(relation, batch)
+
+    def _launch_device(self, relation: str, batch: List[int]) -> _Launch:
+        # contract: holds-lock
+        """One kernel launch: pad to the power-of-two bucket, gather the
+        batch's tables on the device, launch, queue the host copies, record
+        the readiness event, and register the in-flight launch."""
+        t0 = time.perf_counter()
+        # pad the launch to a power-of-two bucket (duplicating the last
+        # segment): O(log batch_max) launch shapes, as the reference
+        b_pad = ops.bucket_rows(len(batch))
+        padded = batch + [batch[-1]] * (b_pad - len(batch))
+        segs = torch.tensor(padded, dtype=torch.int64, device=self.device)
+
+        kx, ky = RELATION_TABLES[relation]
+        deg = self.deg[relation]
+        nvl = self.tables.NV
+        if relation == "VV":
+            tabX = self._dev["T_local"].index_select(0, segs)
+            tabY = tabX
+            colg = self._dev["LV_global"].index_select(0, segs)
+        else:
+            tabX = self._table_dev(kx, segs)
+            tabY = self._table_dev(ky, segs)
+            colg = self._dev[_GLOBAL_NAME[ky]].index_select(0, segs)
+        self._bump(t_prepare=time.perf_counter() - t0)
+
+        t1 = time.perf_counter()
+        M, L = ops.relation_block(relation, tabX, tabY, colg, nvl, deg=deg,
+                                  backend=self.backend)
+        if self.device.type == "cuda":
+            # queued behind the kernel on the same stream; the event marks
+            # kernel + copies done, so integration never waits on a later
+            # launch the way a copy issued at read time would
+            M_host = torch.empty(M.shape, dtype=M.dtype, pin_memory=True)
+            L_host = torch.empty(L.shape, dtype=L.dtype, pin_memory=True)
+            M_host.copy_(M, non_blocking=True)
+            L_host.copy_(L, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        else:
+            M_host, L_host, event = M, L, None
+        dt = time.perf_counter() - t1
+        self._bump(t_kernel=dt, kernel_launches=1,
+                   segments_produced=len(batch))
+
+        n_int, _ = self.tables.counts(kx if relation != "VV" else "V")
+        launch = _Launch(relation, batch, M, L, M_host, L_host, event,
+                         [int(n_int[s]) for s in batch])
+        for s in batch:
+            self._inflight[(relation, s)] = launch
+        self._flights.append(launch)
+        # backpressure on genuinely unfinished launches only (reads retire
+        # launches via _sync without removing them from here)
+        if any(l.done for l in self._flights):
+            self._flights = collections.deque(
+                l for l in self._flights if not l.done)
+        if len(self._flights) > self.inflight_max:
+            self._sync(self._flights.popleft())
+        return launch
+
+    def _table_dev(self, kind: str, segs: torch.Tensor) -> torch.Tensor:
+        # contract: holds-lock
+        """Stacked per-segment table for ``kind`` on the device."""
+        if kind == "V":
+            # virtual vertex table: tab[v] = (v,) with -1 past n_loc
+            lv = self._dev["LV_global"].index_select(0, segs)   # (B, NV)
+            iota = torch.arange(self.tables.NV, dtype=torch.int32,
+                                device=self.device)
+            return torch.where(lv >= 0, iota[None, :], -1)[..., None]
+        name = {"E": "E_local", "F": "F_local", "T": "T_local"}[kind]
+        return self._dev[name].index_select(0, segs)
+
+
+_GLOBAL_NAME = {"V": "LV_global", "E": "LE_global",
+                "F": "LF_global", "T": "LT_global"}

@@ -1,0 +1,210 @@
+"""Relation-block dispatch: the plain PyTorch arm of the sparse entry
+assembly and the backend fork onto the hand-written CUDA kernels.
+
+Backends:
+  - ``"torch"`` : plain PyTorch on the tensors' own device — the entry
+                  inversion (sort, dedup, row-boundary search, gather) of
+                  :func:`_invert_entries`; the CPU path, and on a card the
+                  yardstick the kernels are held against
+  - ``"cuda"``  : the hand-written Hopper kernels of
+                  ``kernels/csrc/segment_relations.cu`` through
+                  :func:`~repro_torch.kernels.segment_relations.relation_entries_cuda`;
+                  CUDA tensors only
+
+Both arms are bit-identical to the reference package's ``xla`` and
+``pallas`` arms for VV/VE/VF/VT. The other relations (TT, EF/ET/FT, and
+the EE/FF and oversize-key dense fallback) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+# Maximum relation-list width (the paper's preallocated relation-array width).
+# RelationEngine._integrate raises RelationWidthError (naming the deg=
+# override) whenever a produced row's true count L exceeds this width.
+DEFAULT_DEG = {
+    "VV": 32, "VE": 32, "VF": 96, "VT": 64,
+    "EF": 16, "ET": 16, "FT": 4, "TT": 8, "EE": 64, "FF": 48,
+}
+
+# (shared count k, exact match?) — see core.segtables.RELATION_PREDICATE.
+PREDICATE = {
+    "VE": (1, True), "VF": (1, True), "VT": (1, True),
+    "EF": (2, True), "ET": (2, True), "FT": (3, True),
+    "VV": (1, False), "EE": (1, True), "FF": (2, True), "TT": (3, True),
+}
+
+BACKENDS = ("torch", "cuda")
+
+_BIG = int(np.iinfo(np.int32).max)
+
+
+def bucket_rows(n: int, floor: int = 1) -> int:
+    """Round a batch-sized leading dimension up to a power-of-two bucket.
+
+    Launch batches and stacked consumer rows pad to this bucket, so ragged
+    tails give O(log n) distinct shapes; ``floor`` sets the minimum bucket.
+    The same buckets as the reference, so both engines launch the same
+    padded batches."""
+    return 1 << max(int(max(n, floor, 1)) - 1, 0).bit_length()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. Asking for ``cuda`` without a card raises — the port never
+    falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' to run the plain torch arm")
+    return dev
+
+
+def resolve_backend(backend: Optional[str], device: torch.device) -> str:
+    """``backend=None`` picks the kernels on a card and the plain arm on the
+    CPU; ``"cuda"`` on a CPU device raises."""
+    if backend is None:
+        backend = "cuda" if device.type == "cuda" else "torch"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' runs the CUDA kernels and needs a CUDA device, "
+            f"got {str(device)!r}")
+    return backend
+
+
+def _invert_entries(row, order, val, valid, R: int, O: int, deg: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse relation assembly: per-batch entry lists -> the padded
+    ``(M (B, R, deg), L (B, R))`` block.
+
+    ``row``/``order``/``val``/``valid``: (B, E) entry columns — the block
+    row, the intra-row sort key (local column index, so M rows come out in
+    ascending local order), and the global id to store. Entries sharing
+    ``(row, order)`` are stored/counted once (they always carry the same
+    ``val``); ``L`` is the TRUE count, so overflow past ``deg`` stays
+    detectable by the engine's width check.
+
+    The same steps as the CUDA kernels' ``emit_entries``: sort by key
+    ``row * O + order`` (int32: the caller's :func:`sparse_arm_ok` keeps
+    ``R * O + O < 2**31``), re-key duplicates to the sentinel and sort
+    again, lower-bound the ``R + 1`` row starts ``r * O``, and gather
+    ``M[r, d] = val[starts[r] + d]``. Every key family is tie-insensitive
+    (equal keys carry equal values), so the sort need not be stable."""
+    B, E = row.shape
+    dev = row.device
+    key = torch.where(valid, row.to(torch.int32) * O + order.to(torch.int32),
+                      _BIG)
+    val = val.to(torch.int32)
+    key, perm = torch.sort(key, dim=1)
+    val = torch.gather(val, 1, perm)
+    dup = torch.zeros_like(valid)
+    dup[:, 1:] = key[:, 1:] == key[:, :-1]
+    key = key.masked_fill(dup, _BIG)
+    key, perm = torch.sort(key, dim=1)
+    val = torch.gather(val, 1, perm)
+
+    queries = (torch.arange(R + 1, device=dev, dtype=torch.int32) * O
+               ).expand(B, R + 1).contiguous()
+    starts = torch.searchsorted(key, queries)            # (B, R+1) int64
+    L = starts[:, 1:] - starts[:, :-1]                   # true counts
+    d = torch.arange(deg, device=dev)
+    idx = (starts[:, :R, None] + d).clamp(max=E - 1)     # (B, R, deg)
+    vals = torch.gather(val, 1, idx.reshape(B, R * deg)).reshape(B, R, deg)
+    M = torch.where(d < L.clamp(max=deg)[..., None], vals, -1)
+    return M.to(torch.int32), L.to(torch.int32)
+
+
+def _block_member_v(tabY, col_global, nvl: int, deg: int):
+    """VE/VF/VT block via entry inversion: local vertex ``v`` relates to
+    simplex ``y`` iff ``v ∈ verts(y)`` (the exact ``C == 1`` predicate — a
+    simplex lists distinct vertices), so the ``(B, NY, arity)`` table IS
+    the entry list."""
+    B, NY, a = tabY.shape
+    yid = torch.arange(NY, device=tabY.device, dtype=torch.int32)
+    return _invert_entries(
+        tabY.clamp(min=0).reshape(B, -1),
+        yid[None, :, None].expand(B, NY, a).reshape(B, -1),
+        col_global[:, :, None].expand(B, NY, a).reshape(B, -1),
+        (tabY >= 0).reshape(B, -1), R=nvl, O=NY, deg=deg)
+
+
+_TET_PAIRS = tuple((a, b) for a in range(4) for b in range(4) if a != b)
+
+
+def _block_vv(T_local, col_global, nvl: int, deg: int):
+    """VV block via entry inversion: ``v ~ w`` iff some local tet contains
+    both (the ``C >= 1`` off-diagonal predicate). The 12 ordered vertex
+    pairs of each tet are the entries; a tet's vertices are distinct, so
+    the diagonal never appears, and repeated pairs from different tets
+    dedup inside :func:`_invert_entries`."""
+    B = T_local.shape[0]
+    ia = torch.tensor([a for a, _ in _TET_PAIRS], device=T_local.device)
+    ib = torch.tensor([b for _, b in _TET_PAIRS], device=T_local.device)
+    va = T_local[:, :, ia].transpose(1, 2).reshape(B, -1)   # pair-major
+    vb = T_local[:, :, ib].transpose(1, 2).reshape(B, -1)
+    vals = torch.gather(col_global, 1, vb.clamp(min=0).long())
+    return _invert_entries(va.clamp(min=0), vb.clamp(min=0), vals,
+                           (va >= 0) & (vb >= 0), R=nvl, O=nvl, deg=deg)
+
+
+def sparse_arm_ok(relation: str, tabX, tabY, nvl: int) -> bool:
+    """True when ``relation`` has a sparse entry-assembly arm AND its entry
+    keys fit int32 — the reference's guard, so both packages take the
+    sparse/dense fork under identical conditions."""
+    if relation == "VV":
+        return nvl * nvl + nvl < 2 ** 31
+    if relation in ("VE", "VF", "VT"):
+        NY = tabY.shape[1]
+        return nvl * NY + NY < 2 ** 31
+    if relation == "TT":
+        NT = tabX.shape[1]
+        return nvl ** 3 < 2 ** 31 and NT * NT + NT < 2 ** 31
+    if relation in ("EF", "ET", "FT"):
+        NX, NY = tabX.shape[1], tabY.shape[1]
+        ax = tabX.shape[2]
+        return nvl ** ax * 2 < 2 ** 31 and NX * NY + NY < 2 ** 31
+    return False
+
+
+def relation_block(
+    relation: str,
+    tabX: torch.Tensor,       # (B, NX, ax) rows table (or T_local for VV)
+    tabY: torch.Tensor,       # (B, NY, ay) cols table (ignored for VV)
+    col_global: torch.Tensor,  # (B, NY) local->global map for columns
+    nvl: int,
+    deg: Optional[int] = None,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Entries -> ``(M (B, R, deg), L (B, R))`` int32, on the tables' device.
+
+    For VV, pass ``tabX = tabY = T_local`` and ``col_global = LV_global``;
+    rows/cols are local vertices. ``backend=None`` launches the CUDA
+    kernels on CUDA tensors and runs the plain torch arm on CPU tensors;
+    ``backend="torch"`` forces the plain arm on any device, and
+    ``backend="cuda"`` on CPU tensors raises."""
+    if relation not in ("VV", "VE", "VF", "VT"):
+        raise NotImplementedError(
+            f"relation {relation!r} has no port yet: TT/EF/ET/FT come with "
+            f"ROADMAP queue 1 items 4-5, EE/FF with item 7")
+    deg = DEFAULT_DEG[relation] if deg is None else deg
+    if not sparse_arm_ok(relation, tabX, tabY, nvl):
+        raise NotImplementedError(
+            f"relation {relation!r} at nvl={nvl} needs the dense fallback "
+            f"(keys overflow int32), which comes with ROADMAP queue 1 item 7")
+    backend = resolve_backend(backend, tabX.device)
+    colg = col_global.to(torch.int32)
+    if backend == "cuda":
+        from .segment_relations import relation_entries_cuda
+        return relation_entries_cuda(relation, tabX, tabY, colg,
+                                     nvl=nvl, deg=deg)
+    if relation == "VV":
+        return _block_vv(tabX, colg, nvl, deg)
+    return _block_member_v(tabY, colg, nvl, deg)

@@ -1,0 +1,162 @@
+"""Python wrapper of the hand-written Hopper kernels for the sparse relation
+entry assembly (``csrc/segment_relations.cu``).
+
+One thread block per batched segment emits that segment's padded
+``(M (B, nvl, deg), L (B, nvl))`` block straight from its local tables: the
+entry lanes are generated, sorted, deduplicated and inverted in shared
+memory. Two arms:
+
+  - ``"VV"``     — the 12 ordered vertex pairs of every local tet;
+  - ``"member"`` — VE/VF/VT, where the ``(NY, arity)`` table is the entry
+                   list.
+
+They replace the TPU kernels of the reference's
+``kernels/segment_relations.py`` (``_vv_entries_kernel`` and
+``_member_entries_kernel`` with ``_emit_entries``). The plain version of
+each arm is :func:`repro_torch.kernels.ops._block_vv` /
+:func:`~repro_torch.kernels.ops._block_member_v`; the kernels are
+bit-identical to it.
+
+The wrapper takes CUDA int32 tensors only and raises on anything else; it
+allocates the outputs (and, when a segment's lanes exceed the per-block
+shared-memory limit, a lane workspace in device memory), launches on the
+current stream without synchronising, and raises on a refused launch.
+``LAUNCHES`` counts kernel launches per arm.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, Tuple
+
+import torch
+
+from . import _build
+
+LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0}
+_LAUNCH_LOCK = threading.Lock()
+_SMEM_LIMIT: Dict[int, int] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("segment_relations")
+    if not getattr(lib, "_repro_bound", False):
+        lib.sr_smem_optin_limit.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.sr_smem_optin_limit.restype = _I
+        lib.sr_error_string.argtypes = [_I]
+        lib.sr_error_string.restype = ctypes.c_char_p
+        lib.sr_vv_entries.argtypes = [_I, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_vv_entries.restype = _I
+        lib.sr_member_entries.argtypes = [_I, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_member_entries.restype = _I
+        lib._repro_bound = True
+    return lib
+
+
+def _check_rc(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.sr_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} failed: cudaError {rc} ({msg})")
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def lane_ints(E: int, nvl: int) -> int:
+    """int32 words of one segment's lanes: keys, values, row starts."""
+    return 2 * E + nvl + 1
+
+
+def smem_limit(device: torch.device) -> int:
+    """Shared memory one block may opt into on ``device``, in bytes."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMEM_LIMIT:
+        lib = _lib()
+        out = _I(0)
+        _check_rc(lib, lib.sr_smem_optin_limit(idx, ctypes.byref(out)),
+                  "cudaDeviceGetAttribute")
+        _SMEM_LIMIT[idx] = out.value
+    return _SMEM_LIMIT[idx]
+
+
+def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def relation_entries_cuda(relation: str, tabX: torch.Tensor,
+                          tabY: torch.Tensor, col_global: torch.Tensor, *,
+                          nvl: int, deg: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(M (B, nvl, deg), L (B, nvl))`` int32 for VV (``tabX`` is the
+    ``(B, NT, 4)`` tet table, ``col_global`` the ``(B, NV)`` vertex map)
+    or VE/VF/VT (``tabY`` is the ``(B, NY, arity)`` table, ``col_global``
+    its ``(B, NY)`` map). The caller guarantees local ids ``< nvl`` and
+    keys that fit int32 (``ops.sparse_arm_ok``)."""
+    if relation == "VV":
+        arm, tab = "VV", tabX
+        if tab.dim() != 3:
+            raise ValueError(f"tabX must be (B, NT, 4), got {tuple(tab.shape)}")
+        B, N, a = tab.shape
+        _check(tab, "tabX", (B, N, 4))
+        _check(col_global, "col_global", (B, col_global.shape[-1]))
+        E = next_pow2(12 * N)
+    elif relation in ("VE", "VF", "VT"):
+        arm, tab = "member", tabY
+        if tab.dim() != 3:
+            raise ValueError(f"tabY must be (B, NY, arity), got "
+                             f"{tuple(tab.shape)}")
+        B, N, a = tab.shape
+        _check(tab, "tabY", (B, N, a))
+        _check(col_global, "col_global", (B, N))
+        E = next_pow2(a * N)
+    else:
+        raise KeyError(f"no CUDA entry kernel for relation {relation!r}")
+    if col_global.device != tab.device:
+        raise ValueError("tables and col_global must share one device")
+    if max(nvl, deg) < 1 or nvl * deg >= 2 ** 31 \
+            or 2 * E + nvl + 1 >= 2 ** 31:
+        raise ValueError(f"nvl={nvl}, deg={deg}, E={E} out of range")
+    dev = tab.device
+    M = torch.empty((B, nvl, deg), dtype=torch.int32, device=dev)
+    L = torch.empty((B, nvl), dtype=torch.int32, device=dev)
+    if B == 0:
+        return M, L
+    lib = _lib()
+    per = lane_ints(E, nvl)
+    work = None
+    if 4 * per > smem_limit(dev):
+        work = torch.empty(B * per, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    wp = work.data_ptr() if work is not None else None
+    if arm == "VV":
+        rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
+                               M.data_ptr(), L.data_ptr(), wp, B, N,
+                               col_global.shape[1], nvl, deg, E, stream)
+    else:
+        rc = lib.sr_member_entries(idx, tab.data_ptr(),
+                                   col_global.data_ptr(), M.data_ptr(),
+                                   L.data_ptr(), wp, B, N, a, nvl, deg, E,
+                                   stream)
+    _check_rc(lib, rc, f"{arm} entry kernel launch")
+    with _LAUNCH_LOCK:
+        LAUNCHES[arm] += 1
+    return M, L

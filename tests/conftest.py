@@ -20,3 +20,11 @@ try:
         settings.load_profile("ci")
 except ImportError:  # lean containers run the tests/_ht.py fallback instead
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA card and nvcc (the CUDA kernels of "
+        "repro_torch); skips with a reason where torch.cuda.is_available() "
+        "is False")
