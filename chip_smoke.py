@@ -1,23 +1,35 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     PYTHONPATH=src python3 chip_smoke.py        # from the repository root
 
 Phases, one JSON line each:
 
-  1. device: the card, the kernel build from ``src/repro_torch/kernels/csrc``
-     (nvcc, sm_90a) and its ptxas report.
-  2. kernels: each CUDA kernel arm held bit for bit against its plain torch
-     version on the card, at the main path's shapes (B=64, NT=896, NV=256,
-     real tables of the 96^3 mesh) and on edge cases (B=1; prime sizes
-     1/7/127; a fully valid lane vector; rows with L > deg; lanes too large
-     for shared memory, which run from a device workspace). Times from CUDA
-     events beside the bytes bound and the plain version's time.
-  3. main path: ``structured_grid(96, 96, 96)`` with the quickstart's
-     Gaussian field -> ``segment_mesh(capacity=64)`` -> ``precondition``
-     -> ``RelationEngine(backend="cuda")`` -> ``critical_points``, with the
-     kernels' launch counters zeroed just before and read just after; the
-     same run on the plain torch arm must give identical ``types``, and the
-     counts must equal the JAX reference's (pinned below).
+  1. device: the card, and the kernel build from
+     ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
+     together, sm_90a) with its ptxas report.
+  2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
+     field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
+     VV/VE/VF/VT/FT/TT, once; both paths below share it.
+  3. kernels: each relation-entry kernel arm (VV, member, TT, sub-join for
+     FT/EF/ET) held bit for bit against its plain torch version on the
+     card, on the 96^3 tables at B=64 and on edge cases (B=1; prime sizes;
+     a fully valid lane vector; rows with L > deg; lanes too large for
+     shared memory, which run from a device workspace). Times from CUDA
+     events beside the bound and the plain version's time.
+  4. critical-points path: ``RelationEngine(["VV","VT"])`` ->
+     ``critical_points`` on the kernels and on the plain torch arm, with
+     the launch counters zeroed just before the kernels' run and read just
+     after; ``types`` equal to the JAX reference's (pinned below).
+  5. gradient -> Morse-Smale path: ``RelationEngine(["VE","VF","VT","FT",
+     "TT"])`` -> ``discrete_gradient(co_prefetch=("TT",))`` ->
+     ``morse_smale`` on the kernels, counters zeroed just before and read
+     just after; Euler = chi, counts and SHA-256 digests equal to the JAX
+     reference's; ``morse_smale(adjacency="ft")`` (the sub-join kernel over
+     every segment) equal to the TT route; the plain torch arm equal too.
+  6. completion gather: the resolve + gather kernel held bit for bit
+     against its plain version on a real completion chunk of phase 5 (the
+     plan of 1024 paired tets, the pool from ``get_full_dev_batch``, the T
+     inverse maps) and on edge cases; timed like phase 3.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -27,6 +39,7 @@ before that line; without a card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import math
 import subprocess
@@ -35,8 +48,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-N = 96                       # grid vertices per axis on the main path
+N = 96                       # grid vertices per axis on both paths
 BATCH = 64                   # the engine's batch_max: the launch shape
+CHUNK = 1024                 # morse_smale's completion chunk (64 * 16)
+RELS = ["VV", "VE", "VF", "VT", "FT", "TT"]
+MS_RELS = ["VE", "VF", "VT", "FT", "TT"]
 
 # The JAX reference at N=96 (xla arm, tune="off", device consumer arm, one
 # worker), computed on a CPU with:
@@ -49,20 +65,60 @@ REF_COUNTS = {"minima": 322, "saddles1": 570, "saddles2": 345, "maxima": 23,
 REF_TYPES_SHA256 = ("46b39eccfd74eda185ac49442a81d318"
                     "a3959b05cadcc3b0239aa12a294395bd")
 
+# The JAX reference's gradient and Morse-Smale complex at N=96 and N=48,
+# computed on a CPU with:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c '<build the quickstart mesh
+#   at n; precondition(sm, ["VV","VE","VF","VT","FT","TT"]);
+#   eng = RelationEngine(pre, ["VE","VF","VT","FT","TT"], lookahead=8,
+#   dev_pool_segments=4096, backend="xla", tune="off");
+#   g = discrete_gradient(eng, pre, total_order(sm.scalars),
+#   batch_segments=16, co_prefetch=("TT",)); ms = morse_smale(eng, pre, g);
+#   print the counts and digest(g, GRAD_FIELDS), digest(ms, MS_FIELDS)>'
+# (digest as defined below). At N=96: 5833 launches, 78512 segments
+# produced, 5144245 completion queries, Euler characteristic 1.
+GRAD_FIELDS = ("pair_v2e", "pair_e2f", "pair_f2t", "pair_e2v", "pair_f2e",
+               "pair_t2f", "crit_v", "crit_e", "crit_f", "crit_t")
+MS_FIELDS = ("dest_min", "dest_max", "saddle1_ends", "saddle2_ends")
+REF_MS = {
+    96: {"grad": {"crit_v": 322, "crit_e": 663, "crit_f": 347, "crit_t": 5},
+         "ms": {"saddle1": 663, "saddle2": 347, "basins_min": 322,
+                "basins_max": 5, "arcs": 636},
+         "grad_sha256": ("6eaf1a50521185ce4cc0e906643231c8"
+                         "1d7cf66877d67090ea69ca499d11ce2a"),
+         "ms_sha256": ("3ca5c8a9ff948955215d4e08b344e312"
+                       "136a6786f9c19d4867e9262f48d9c27c")},
+    48: {"grad": {"crit_v": 11, "crit_e": 23, "crit_f": 15, "crit_t": 2},
+         "ms": {"saddle1": 23, "saddle2": 15, "basins_min": 11,
+                "basins_max": 2, "arcs": 23},
+         "grad_sha256": ("ab00c59ec42e415a2b29916dd1a5dab9"
+                         "ba6a107d5398863209b628d2d313df9d"),
+         "ms_sha256": ("e1e19bfeb3dcfd92673548454d5a5d44"
+                       "67520f0cda52b0458829d87f5bd4753d")},
+}
+# the plain torch arm of phase 5 runs at this size
+PLAIN_N = 96
+
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
 # notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
 # entry for the kernels' int32 compare/select work.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 
+SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
+CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
 KERNELS = {
-    "VV": {"name": "vv_entries_kernel", "arm": "VV", "relation": "VV",
+    "VV": {"name": "vv_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:360"},
-    "member": {"name": "member_entries_kernel", "arm": "member",
-               "relation": "VT",
+    "member": {"name": "member_entries_kernel", "source": SR_SOURCE,
                "replaces": "src/repro/kernels/segment_relations.py:343"},
+    "TT": {"name": "tt_entries_kernel", "source": SR_SOURCE,
+           "replaces": "src/repro/kernels/segment_relations.py:381"},
+    "sub": {"name": "sub_entries_kernel", "source": SR_SOURCE,
+            "replaces": "src/repro/kernels/segment_relations.py:413"},
+    "gather": {"name": "resolve_gather_kernel", "source": CG_SOURCE,
+               "replaces": "src/repro/kernels/completion_gather.py:209"},
 }
-SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
+_ARITY = {"E": 2, "F": 3, "T": 4}
 
 
 def emit(obj) -> None:
@@ -86,6 +142,16 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def digest(obj, names) -> str:
+    """SHA-256 over the named array fields, each as int64, in order."""
+    import numpy as np
+    h = hashlib.sha256()
+    for n in names:
+        h.update(np.ascontiguousarray(
+            np.asarray(getattr(obj, n)).astype(np.int64)).tobytes())
+    return h.hexdigest()
+
+
 def time_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
     calls, from CUDA events, after a warm-up call."""
@@ -105,16 +171,19 @@ def time_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
     return out[len(out) // 2]
 
 
-def bound_ms(tab, colg, M, L, valid_per_segment) -> tuple:
-    """Least time for the work: each input read once and each output
-    written once at the HBM rate, or the comparisons a comparison sort of
-    this run's valid entries needs (n log2 n per segment) at the int32
-    proxy rate, whichever is larger."""
-    nbytes = sum(t.numel() * t.element_size() for t in (tab, colg, M, L))
-    ops = sum(n * math.log2(n) for n in valid_per_segment if n > 1)
+def bound_ms(nbytes: float, sorts) -> tuple:
+    """Least time for the work: ``nbytes`` (each input read once, each
+    output written once) at the HBM rate, or the comparisons comparison
+    sorts of this run's valid entries need (n log2 n for each sort of n
+    entries) at the int32 proxy rate, whichever is larger."""
+    ops = sum(n * math.log2(n) for n in sorts if n > 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def main() -> int:
@@ -132,73 +201,84 @@ def main() -> int:
     from repro_torch.algorithms.consume import degree_cols
     from repro_torch.algorithms.critical_points import critical_points, \
         total_order
+    from repro_torch.algorithms.discrete_gradient import discrete_gradient
+    from repro_torch.algorithms.morse_smale import morse_smale
+    from repro_torch.core.adjacency import plan_completion
     from repro_torch.core.engine import RelationEngine
     from repro_torch.core.mesh import segment_mesh
     from repro_torch.core.segtables import precondition
     from repro_torch.data.meshgen import structured_grid
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import completion_gather as cg
     from repro_torch.kernels import segment_relations as sr
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    t_start = time.perf_counter()
 
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build(["segment_relations"])["segment_relations"]
+    libs = _build.build(["segment_relations", "completion_gather"])
     t_build = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             (lib.parent / "build.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {n: [ln.strip() for ln in
+                 (p.parent / "build.log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for n, p in libs.items()}
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(t_build, 3), "ptxas": ptxas,
           "smem_optin_bytes": sr.smem_limit(dev)})
 
-    # the main path's mesh (its tables are the kernels' inputs in phase 2)
+    # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
+    def quickstart_mesh(n):
+        return structured_grid(n, n, n, scalar_fn=fields.gaussians(
+            0, k=4, sigma=3.0, scale=n))
+
     t0 = time.perf_counter()
-    mesh = structured_grid(N, N, N, scalar_fn=fields.gaussians(
-        0, k=4, sigma=3.0, scale=N))
+    mesh = quickstart_mesh(N)
     sm = segment_mesh(mesh, capacity=64)
     t1 = time.perf_counter()
-    pre = precondition(sm, relations=["VV", "VT"])
+    pre = precondition(sm, relations=RELS)
     t2 = time.perf_counter()
-    # the consumer's exact column widths: one-time host work cached on
-    # ``pre``, done here so that it lands in neither main-path wall below
-    degree_cols(pre, ("VV", "VT"))
+    # the consumers' exact column widths: one-time host work cached on
+    # ``pre``, done here so that it lands in no path wall below
+    degree_cols(pre, ("VV", "VE", "VF", "VT"))
     t3 = time.perf_counter()
     tabs = pre.tables
-    emit({"phase": "mesh", "vertices": mesh.n_vertices, "tets": mesh.n_tets,
-          "segments": sm.n_segments, "NV": tabs.NV, "NT": tabs.NT,
-          "T_local_bytes": int(tabs.T_local.nbytes),
+    chi = sm.n_vertices - pre.n_edges + pre.n_faces - sm.n_tets
+    rank = total_order(sm.scalars)
+    emit({"phase": "mesh", "vertices": mesh.n_vertices,
+          "edges": pre.n_edges, "faces": pre.n_faces, "tets": mesh.n_tets,
+          "chi": chi, "segments": sm.n_segments, "NV": tabs.NV,
+          "NE": tabs.NE, "NF": tabs.NF, "NT": tabs.NT,
           "segment_s": round(t1 - t0, 3), "precondition_s": round(t2 - t1, 3),
           "degree_bound_s": round(t3 - t2, 3)})
 
-    # -- 2. each kernel arm against its plain version --------------------------
+    # -- 3. each relation-entry kernel arm against its plain version --------
     rng = np.random.default_rng(0)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    T = cu(tabs.T_local[:BATCH])
-    inputs = {"VV": (T, cu(tabs.LV_global[:BATCH])),
-              "VT": (T, cu(tabs.LT_global[:BATCH]))}
-    max_err = {"VV": 0, "member": 0}
+    max_err = {k: 0 for k in KERNELS}
+    arm_of = {"VV": "VV", "VE": "member", "VF": "member", "VT": "member",
+              "TT": "TT", "EF": "sub", "ET": "sub", "FT": "sub"}
 
-    def plain(relation, tab, colg, nvl, deg):
-        if relation == "VV":
-            return ops._block_vv(tab, colg, nvl, deg)
-        return ops._block_member_v(tab, colg, nvl, deg)
+    def plain(relation, tx, ty, colg, nvl, deg):
+        return ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
+                                  backend="torch")
 
-    def compare(case, relation, tab, colg, nvl, deg):
-        got = sr.relation_entries_cuda(relation, tab, tab, colg,
-                                       nvl=nvl, deg=deg)
-        want = plain(relation, tab, colg, nvl, deg)
+    def compare(case, relation, tx, ty, colg, nvl, deg):
+        got = sr.relation_entries_cuda(relation, tx, ty, colg, nvl=nvl,
+                                       deg=deg)
+        want = plain(relation, tx, ty, colg, nvl, deg)
         torch.cuda.synchronize()
-        arm = "VV" if relation == "VV" else "member"
+        arm = arm_of[relation]
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         max_err[arm] = max(max_err[arm], err)
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
         emit({"phase": "kernel_case", "case": case, "relation": relation,
-              "shape": list(tab.shape), "deg": deg, "equal": ok,
+              "shape": [list(tx.shape), list(ty.shape)], "deg": deg,
+              "equal": ok,
               "max_L": int(want[1].max()) if want[1].numel() else 0})
         check(ok, f"{relation} kernel disagrees with the plain arm ({case})")
         return want
@@ -208,69 +288,177 @@ def main() -> int:
         n = NT if valid_all else max(1, int(NT * fill))
         for b in range(B):
             tab[b, :n] = np.argsort(rng.random((n, nvl)), axis=1)[:, :4]
-        return cu(tab)
+        return tab
+
+    def next_prime(n):
+        while n < 2 or any(n % d == 0 for d in range(2, int(n ** 0.5) + 1)):
+            n += 1
+        return n
+
+    def sub_tables(tets, pad):
+        """Edge and face tables of each segment's tets (every sub-simplex
+        once, vertex and row order shuffled), padded with -1 rows to a
+        prime count at least ``pad`` past the longest."""
+        B = tets.shape[0]
+        out = {"T": tets}
+        for k, combos in (("E", list(itertools.combinations(range(4), 2))),
+                          ("F", list(itertools.combinations(range(4), 3)))):
+            per = []
+            for b in range(B):
+                t = np.sort(tets[b][(tets[b] >= 0).all(-1)], axis=1)
+                rows = np.unique(t[:, combos].reshape(-1, _ARITY[k]), axis=0)
+                rows = rng.permuted(rows[rng.permutation(len(rows))], axis=1)
+                per.append(rows)
+            n = next_prime(max(len(r) for r in per) + pad)
+            tab = np.full((B, n, _ARITY[k]), -1, dtype=np.int32)
+            for b, rows in enumerate(per):
+                tab[b, :len(rows)] = rows
+            out[k] = tab
+        return out
+
+    def colg_for(tab):
+        c = rng.integers(0, 10 ** 6, tab.shape[:2]).astype(np.int32)
+        c[(tab < 0).all(-1)] = -1
+        return c
 
     nvl = tabs.NV
-    for relation, (tab, colg) in inputs.items():
+    T = cu(tabs.T_local[:BATCH])
+    main_inputs = {
+        "VV": (T, T, cu(tabs.LV_global[:BATCH])),
+        "VT": (cu(tabs.table("V")[0][:BATCH]), T, cu(tabs.LT_global[:BATCH])),
+        "TT": (T, T, cu(tabs.LT_global[:BATCH])),
+        "FT": (cu(tabs.F_local[:BATCH]), T, cu(tabs.LT_global[:BATCH])),
+        "EF": (cu(tabs.E_local[:BATCH]), cu(tabs.F_local[:BATCH]),
+               cu(tabs.LF_global[:BATCH])),
+        "ET": (cu(tabs.E_local[:BATCH]), T, cu(tabs.LT_global[:BATCH])),
+    }
+    for relation, (tx, ty, colg) in main_inputs.items():
         deg = ops.DEFAULT_DEG[relation]
-        compare("main", relation, tab, colg, nvl, deg)
-        compare("B=1", relation, tab[:1].contiguous(),
+        compare("main", relation, tx, ty, colg, nvl, deg)
+        compare("B=1", relation, tx[:1].contiguous(), ty[:1].contiguous(),
                 colg[:1].contiguous(), nvl, deg)
-        want = compare("L>deg", relation, tab, colg, nvl, 4)
-        check(int(want[1].max()) > 4, "the L > deg case has no such row")
+        narrow = {"VV": 4, "VT": 4, "TT": 2, "FT": 1, "EF": 2, "ET": 2}
+        want = compare("L>deg", relation, tx, ty, colg, nvl, narrow[relation])
+        check(int(want[1].max()) > narrow[relation],
+              f"the {relation} L > deg case has no such row")
     for n in (1, 7, 127):
-        tt = rand_tets(2, n, max(8, n))
-        cv = cu(rng.integers(0, 10 ** 6, (2, max(8, n))).astype(np.int32))
+        nv_ = max(8, n)
+        tt = rand_tets(2, n, nv_)
+        cv = cu(rng.integers(0, 10 ** 6, (2, nv_)).astype(np.int32))
         ct = cu(rng.integers(0, 10 ** 6, (2, n)).astype(np.int32))
-        compare(f"prime {n}", "VV", tt, cv, max(8, n), 8)
-        compare(f"prime {n}", "VT", tt, ct, max(8, n), 8)
-    # fully valid lane vector: 4 * 128 entries, a power of two, none padding
-    tt = rand_tets(3, 128, 64, valid_all=True)
-    compare("fully valid lanes", "VT", tt,
+        compare(f"prime {n}", "VV", cu(tt), cu(tt), cv, nv_, 8)
+        compare(f"prime {n}", "VT", cu(tt), cu(tt), ct, nv_, 8)
+        compare(f"prime {n}", "TT", cu(tt), cu(tt), ct, nv_, 8)
+        st = sub_tables(rand_tets(2, n, 11), pad=3)
+        for relation in ("FT", "EF", "ET"):
+            tx, ty = st[relation[0]], st[relation[1]]
+            compare(f"prime {n}", relation, cu(tx), cu(ty), cu(colg_for(ty)),
+                    11, 8)
+    # fully valid lane vectors: every lane a real entry, none padding
+    tt = rand_tets(3, 128, 64, valid_all=True)       # 4 * 128 member lanes
+    compare("fully valid lanes", "VT", cu(tt), cu(tt),
             cu(np.arange(3 * 128, dtype=np.int32).reshape(3, 128)), 64, 64)
-    # NT=1408: 8*E = 256 KB of lanes > the opt-in limit -> device workspace
-    big = 1408
+    compare("fully valid lanes", "TT", cu(tt), cu(tt),   # EJ = 4 * 128
+            cu(np.arange(3 * 128, dtype=np.int32).reshape(3, 128)), 64, 64)
+    fx = rng.integers(0, 40, (3, 64, 3)).astype(np.int32)   # 64 + 4 * 16
+    ft = np.stack([np.stack([rng.choice(40, 4, replace=False)
+                             for _ in range(16)]) for _ in range(3)]) \
+        .astype(np.int32)
+    compare("fully valid lanes", "FT", cu(fx), cu(ft), cu(colg_for(ft)),
+            40, 16)
+    # lanes past the shared-memory opt-in limit -> device workspace
+    big = 1408                       # VV: 8 * E = 256 KB of lanes
     check(4 * sr.lane_ints(sr.next_pow2(12 * big), 256) > sr.smem_limit(dev),
-          "the workspace case fits shared memory")
+          "the VV workspace case fits shared memory")
     tt = rand_tets(2, big, 256)
-    compare("device-workspace lanes", "VV", tt,
+    compare("device-workspace lanes", "VV", cu(tt), cu(tt),
             cu(rng.integers(0, 10 ** 6, (2, 256)).astype(np.int32)), 256, 256)
-    compare("device-workspace lanes", "VT",
-            rand_tets(2, 2 ** 14 // 4 + 64, 256),
-            cu(rng.integers(0, 10 ** 6, (2, 2 ** 14 // 4 + 64))
-               .astype(np.int32)), 256, 128)
+    tv = rand_tets(2, 2 ** 14 // 4 + 64, 256)
+    compare("device-workspace lanes", "VT", cu(tv), cu(tv),
+            cu(rng.integers(0, 10 ** 6, (2, tv.shape[1])).astype(np.int32)),
+            256, 128)
+    # TT: four real segments' tets as one (NT = 3584, EJ = 16384,
+    # E = 32768), so faces are shared as in the mesh. Each segment's local
+    # vertices are shifted to a range of their own: a face keeps at most
+    # two cofacet tets, the kernels' precondition (with more, the order of
+    # equal face keys would decide the entries)
+    tt = tabs.T_local[:8].copy()
+    for s in range(8):
+        tt[s][tt[s] >= 0] += (s % 4) * nvl
+    tt = tt.reshape(2, 4 * tabs.NT, 4)
+    check(4 * sr.lane_ints(2 * sr.next_pow2(4 * tt.shape[1]), tt.shape[1])
+          > sr.smem_limit(dev), "the TT workspace case fits shared memory")
+    want = compare("device-workspace lanes", "TT", cu(tt), cu(tt),
+                   cu(colg_for(tt)), 4 * nvl, 8)
+    check(int(want[1].max()) >= 4, "the TT workspace case shares no faces")
+    st = sub_tables(rand_tets(2, 2600, 200), pad=5)  # FT: E = 32768
+    check(4 * sr.lane_ints(sr.next_pow2(st["F"].shape[1]
+                                        + 4 * st["T"].shape[1]),
+                           st["F"].shape[1]) > sr.smem_limit(dev),
+          "the FT workspace case fits shared memory")
+    compare("device-workspace lanes", "FT", cu(st["F"]), cu(st["T"]),
+            cu(colg_for(st["T"])), 200, 4)
 
     timing = {}
-    for relation, (tab, colg) in inputs.items():
-        arm = "VV" if relation == "VV" else "member"
-        deg = ops.DEFAULT_DEG[relation]
-        k_ms = time_ms(torch, lambda: sr.relation_entries_cuda(
-            relation, tab, tab, colg, nvl=nvl, deg=deg))
-        p_ms = time_ms(torch, lambda: plain(relation, tab, colg, nvl, deg))
-        M, L = plain(relation, tab, colg, nvl, deg)
-        if relation == "VV":
-            va = (tab >= 0).sum(-1)                  # valid verts per tet
-            valid = (va * (va - 1)).sum(-1)          # ordered pairs
-        else:
-            valid = (tab >= 0).sum((1, 2))
-        b_ms, b_by = bound_ms(tab, colg, M, L, valid.tolist())
-        timing[arm] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
-        emit({"phase": "kernel_time", "arm": arm, "relation": relation,
-              "shape": list(tab.shape), "deg": deg, **timing[arm],
-              "entries": int(valid.sum())})
 
-    # -- 3. the main path ------------------------------------------------------
-    # warm both arms up on a small mesh first (module loading, allocator
-    # pools), so that the two walls below compare like with like
-    wsm = segment_mesh(structured_grid(16, 16, 16), capacity=64)
-    wpre = precondition(wsm, relations=["VV", "VT"])
+    def time_arm(arm, relation, tx, ty, colg, deg, sorts):
+        k_ms = time_ms(torch, lambda: sr.relation_entries_cuda(
+            relation, tx, ty, colg, nvl=nvl, deg=deg))
+        p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nvl,
+                                            deg))
+        M, L = plain(relation, tx, ty, colg, nvl, deg)
+        # the tables the arm reads: VV and TT the tets, the member arm the
+        # coface table, the sub-join both
+        read = {"VV": (tx,), "member": (ty,), "TT": (tx,),
+                "sub": (tx, ty)}[arm]
+        b_ms, b_by = bound_ms(nbytes(*read, colg, M, L), sorts)
+        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        emit({"phase": "kernel_time", "arm": arm, "relation": relation,
+              "shape": [list(tx.shape), list(ty.shape)], "deg": deg, **row,
+              "sorted_entries": int(sum(sorts))})
+        return row
+
+    def valid_rows(t):
+        return (t >= 0).all(-1).sum(-1)               # per segment
+
+    for relation, arm in (("VV", "VV"), ("VT", "member"), ("TT", "TT"),
+                          ("FT", "sub"), ("EF", "sub"), ("ET", "sub")):
+        tx, ty, colg = main_inputs[relation]
+        deg = ops.DEFAULT_DEG[relation]
+        L = plain(relation, tx, ty, colg, nvl, deg)[1]
+        emitted = L.sum(-1)
+        if relation == "VV":
+            va = (tx >= 0).sum(-1)
+            first = (va * (va - 1)).sum(-1)           # ordered pairs
+        elif arm == "member":
+            first = (ty >= 0).sum((1, 2))
+        elif relation == "TT":
+            first = 4 * valid_rows(tx)                # face keys
+        else:
+            n_sub = math.comb(ty.shape[2], tx.shape[2])
+            first = valid_rows(tx) + n_sub * valid_rows(ty)
+        # each kernel sorts its entry lanes twice (emit_entries); TT and
+        # the sub-join sort their join lanes once before that
+        sorts = first.tolist() * 2 if arm in ("VV", "member") else \
+            first.tolist() + emitted.tolist() * 2
+        row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
+        if relation in ("VV", "VT", "TT", "FT"):
+            timing[arm] = row
+
+    # -- 4. the critical-points path -----------------------------------------
+    # warm the arms up on a small mesh first (module loading, allocator
+    # pools), so that the walls below compare like with like
+    wsm = segment_mesh(quickstart_mesh(16), capacity=64)
+    wpre = precondition(wsm, relations=RELS)
     for backend in ("cuda", "torch"):
         critical_points(RelationEngine(wpre, ["VV", "VT"], device="cuda",
                                        backend=backend),
                         wpre, total_order(wsm.scalars))
-    rank = total_order(sm.scalars)
-    runs = {}
+        weng = RelationEngine(wpre, MS_RELS, device="cuda", backend=backend)
+        morse_smale(weng, wpre, discrete_gradient(
+            weng, wpre, total_order(wsm.scalars), batch_segments=16,
+            co_prefetch=("TT",)))
     for backend in ("cuda", "torch"):
         if backend == "cuda":
             for k in sr.LAUNCHES:
@@ -283,11 +471,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if backend == "cuda":
-            launches = dict(sr.LAUNCHES)
+            cp_launches = {k: sr.LAUNCHES[k] for k in ("VV", "member")}
+            cp_types = types
         s = eng.stats
-        runs[backend] = types
-        digest = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
-        emit({"phase": "main_path", "backend": backend, "n": N,
+        digest_t = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
+        emit({"phase": "critical_points_path", "backend": backend, "n": N,
               "counts": counts, "kernel_launches": s.kernel_launches,
               "segments_produced": s.segments_produced,
               "cache_hits": s.cache_hits, "cache_misses": s.cache_misses,
@@ -295,23 +483,209 @@ def main() -> int:
               "devpool_uploads": s.devpool_uploads,
               "wall_s": round(wall, 3), "t_sync_s": round(s.t_sync, 3),
               "t_kernel_s": round(s.t_kernel, 3),
-              "types_sha256": digest,
-              **({"kernel_counters": launches} if backend == "cuda" else {})})
+              "types_sha256": digest_t,
+              **({"kernel_counters": cp_launches}
+                 if backend == "cuda" else {})})
         check(types.shape == (mesh.n_vertices,), "types has the wrong shape")
         check(counts == REF_COUNTS,
               f"{backend} counts {counts} != reference {REF_COUNTS}")
-        check(digest == REF_TYPES_SHA256,
+        check(digest_t == REF_TYPES_SHA256,
               f"{backend} types differ from the reference's")
         check(s.segments_produced == 2 * sm.n_segments,
               "a block was produced twice or not at all")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched on the main path: {launches}")
-    check(np.array_equal(runs["cuda"], runs["torch"]),
-          "cuda and plain torch arms give different types")
+        check(backend == "cuda" or np.array_equal(types, cp_types),
+              "cuda and plain torch arms give different types")
+    check(all(v > 0 for v in cp_launches.values()),
+          f"a kernel was not launched on the critical-points path: "
+          f"{cp_launches}")
 
-    # -- 4. summary ------------------------------------------------------------
+    # -- 5. the gradient -> Morse-Smale path ---------------------------------
+    def ms_path(p, r, backend, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = RelationEngine(p, MS_RELS, lookahead=8, dev_pool_segments=4096,
+                             device="cuda", backend=backend)
+        g = discrete_gradient(eng, p, r, batch_segments=16,
+                              co_prefetch=("TT",))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms = morse_smale(eng, p, g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s = eng.stats
+        out = {"phase": "gradient_ms_path", "backend": backend, "n": n,
+               "euler": g.euler(), "grad": g.counts(), "ms": ms.counts(),
+               "grad_sha256": digest(g, GRAD_FIELDS),
+               "ms_sha256": digest(ms, MS_FIELDS),
+               "gradient_wall_s": round(t1 - t0, 3),
+               "ms_wall_s": round(t2 - t1, 3),
+               "kernel_launches": s.kernel_launches,
+               "segments_produced": s.segments_produced,
+               "requests": s.requests, "cache_hits": s.cache_hits,
+               "cache_misses": s.cache_misses,
+               "devpool_hits": s.devpool_hits,
+               "devpool_uploads": s.devpool_uploads,
+               "completion_queries": s.completion_queries,
+               "completion_fanout_blocks": s.completion_fanout_blocks,
+               "completion_raw_neighbors": s.completion_raw_neighbors,
+               "completion_neighbors": s.completion_neighbors,
+               "completion_dedup_ratio": round(s.completion_dedup_ratio, 6),
+               "t_sync_s": round(s.t_sync, 3),
+               "t_kernel_s": round(s.t_kernel, 3)}
+        ref = REF_MS[n]
+        check(g.euler() == 1, f"{backend}: Euler {g.euler()} != chi 1")
+        check(out["grad"] == ref["grad"] and out["ms"] == ref["ms"],
+              f"{backend} counts {out['grad']} {out['ms']} != reference "
+              f"{ref['grad']} {ref['ms']}")
+        check(out["grad_sha256"] == ref["grad_sha256"],
+              f"{backend} gradient field differs from the reference's")
+        check(out["ms_sha256"] == ref["ms_sha256"],
+              f"{backend} Morse-Smale complex differs from the reference's")
+        return eng, g, ms, out
+
+    for k in sr.LAUNCHES:
+        sr.LAUNCHES[k] = 0
+    cg.LAUNCHES["gather"] = 0
+    check(chi == 1, f"the mesh's Euler characteristic is {chi}, not 1")
+    eng, g, ms, out = ms_path(pre, rank, "cuda", N)
+    ms_launches = {k: sr.LAUNCHES[k] for k in ("member", "TT", "sub")}
+    ms_launches["gather"] = cg.LAUNCHES["gather"]
+    emit({**out, "kernel_counters": ms_launches})
+    check(all(v > 0 for v in ms_launches.values()),
+          f"a kernel was not launched on the gradient -> Morse-Smale path: "
+          f"{ms_launches}")
+    launches = {"VV": cp_launches["VV"],
+                "member": cp_launches["member"] + ms_launches["member"],
+                **{k: ms_launches[k] for k in ("TT", "sub", "gather")}}
+
+    # the FT-gather route: the sub-join kernel over every segment
+    t0 = time.perf_counter()
+    sub_before = sr.LAUNCHES["sub"]
+    ms_ft = morse_smale(eng, pre, g, adjacency="ft")
+    torch.cuda.synchronize()
+    emit({"phase": "ms_ft_route", "wall_s": round(time.perf_counter() - t0,
+                                                  3),
+          "sub_launches": sr.LAUNCHES["sub"] - sub_before,
+          "ms_sha256": digest(ms_ft, MS_FIELDS)})
+    check(digest(ms_ft, MS_FIELDS) == out["ms_sha256"],
+          "morse_smale(adjacency='ft') differs from the TT route")
+
+    # the plain torch arm of the same path
+    if PLAIN_N == N:
+        ppre, prank = pre, rank
+    else:
+        psm = segment_mesh(quickstart_mesh(PLAIN_N), capacity=64)
+        ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
+    _, _, _, pout = ms_path(ppre, prank, "torch", PLAIN_N)
+    emit(pout)
+
+    # -- 6. the completion gather kernel against its plain version ----------
+    paired = np.nonzero(g.pair_t2f >= 0)[0]
+    ids = paired[len(paired) // 2:len(paired) // 2 + CHUNK]
+    plan = plan_completion(eng, "TT", ids, prefetch=False)
+    S = ops.bucket_rows(len(plan.segments))
+    pool_M, pool_L = eng.get_full_dev_batch("TT", plan.segments, pad_to=S)
+    inv_seg, inv_gid, inv_row, inv_key, n_glob = eng.dev_inverse("T")
+    P = len(plan.pair_seg)
+    P_pad = ops.bucket_rows(P)
+    slot = np.full(P_pad, -1, np.int32)
+    slot[:P] = np.searchsorted(plan.segments, plan.pair_seg)
+    seg = np.zeros(P_pad, np.int32)
+    seg[:P] = plan.pair_seg
+    gid = np.full(P_pad, -1, np.int32)
+    gid[:P] = plan.ids[plan.pair_query]
+    pairs = (cu(slot), cu(seg), cu(gid))
+
+    def gather_compare(case, *args, inv=None, key=None, n_global=0):
+        inv = inv or (inv_seg, inv_gid, inv_row)
+        a = (pool_M, pool_L, *inv, *args)
+        got = cg.resolve_gather_cuda(*a, inv_key=key, n_global=n_global)
+        want = cg.resolve_gather_torch(*a, inv_key=key, n_global=n_global)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+                  for x, y in zip(got, want))
+        max_err["gather"] = max(max_err["gather"], err)
+        emit({"phase": "kernel_case", "case": case, "relation": "gather",
+              "pairs": int(args[0].shape[0]), "K": int(inv[0].shape[0]),
+              "key_search": key is not None, "equal": ok,
+              "resolved": int((want[1] > 0).sum())})
+        check(ok, f"the gather kernel disagrees with the plain arm ({case})")
+        return want
+
+    check(inv_key is None, "the 96^3 T keys fit int32: no lex case")
+    check(inv_seg.shape[0] & (inv_seg.shape[0] - 1) != 0,
+          "K is a power of two")
+    want = gather_compare("main chunk", *pairs)
+    check(int((want[1] > 0).sum()) >= len(ids), "the chunk resolved no rows")
+    gather_compare("P=1", *(t[:1].contiguous() for t in pairs))
+    gather_compare("P not a block multiple", *(t[:P - 3].contiguous()
+                                               for t in pairs))
+    far = seg.copy()                                 # a far segment: the
+    far[:P:3] = (far[:P:3] + sm.n_segments // 2) % sm.n_segments  # tet is
+    gather_compare("unresolved pairs", pairs[0], cu(far), pairs[2])  # absent
+    past = seg.copy()
+    past[:P:5] = sm.n_segments + 3                   # lo == K
+    gather_compare("past the last key", pairs[0], cu(past), pairs[2])
+    # maps cut just below the chunk's pair at the 90th percentile of
+    # (seg, gid) order: K is odd, and the pairs at or past the cut end
+    # their search at lo == K
+    q = np.sort(seg[:P].astype(np.int64) * n_glob + gid[:P])[P * 9 // 10]
+    qs, qg = int(q // n_glob), int(q % n_glob)
+    K2 = int(((inv_seg < qs) | ((inv_seg == qs) & (inv_gid < qg))).sum())
+    K2 -= 1 - K2 % 2
+    gather_compare("K odd, cut inside the chunk", *pairs,
+                   inv=tuple(t[:K2].contiguous() for t in
+                             (inv_seg, inv_gid, inv_row)))
+    # the single-key search, on the 16^3 mesh whose keys fit int32
+    weng = RelationEngine(wpre, ["TT"], device="cuda")
+    wids = np.arange(0, wsm.n_tets, 3)[:CHUNK]
+    wplan = plan_completion(weng, "TT", wids, prefetch=False)
+    wM, wL = weng.get_full_dev_batch(
+        "TT", wplan.segments, pad_to=ops.bucket_rows(len(wplan.segments)))
+    ws, wg, wr, wk, wn = weng.dev_inverse("T")
+    check(wk is not None, "the 16^3 T keys do not fit int32")
+    wslot = np.searchsorted(wplan.segments, wplan.pair_seg).astype(np.int32)
+    wa = (cu(wslot), cu(wplan.pair_seg.astype(np.int32)),
+          cu(wplan.ids[wplan.pair_query].astype(np.int32)))
+    got = cg.resolve_gather_cuda(wM, wL, ws, wg, wr, *wa, inv_key=wk,
+                                 n_global=wn)
+    want = cg.resolve_gather_torch(wM, wL, ws, wg, wr, *wa, inv_key=wk,
+                                   n_global=wn)
+    lex = cg.resolve_gather_cuda(wM, wL, ws, wg, wr, *wa)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, y) for x, y in zip(got, want)) and \
+        all(torch.equal(x, y) for x, y in zip(lex, want))
+    emit({"phase": "kernel_case", "case": "single-key search (16^3)",
+          "relation": "gather", "pairs": int(wa[0].shape[0]),
+          "K": int(ws.shape[0]), "key_search": True, "equal": ok})
+    check(ok, "the gather kernel's key search disagrees with the plain arm")
+
+    k_ms = time_ms(torch, lambda: cg.resolve_gather_cuda(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
+    p_ms = time_ms(torch, lambda: cg.resolve_gather_torch(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
+    cand, clen = cg.resolve_gather_torch(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs)
+    degp = pool_M.shape[2]
+    steps = math.ceil(math.log2(max(int(inv_seg.shape[0]), 2))) + 1
+    # bytes this chunk's work needs: the pair columns in, each pair's
+    # bisection reads (seg and gid per step, then its row), its pool row
+    # and length, and cand + clen out
+    need = (nbytes(*pairs) + P_pad * (steps * 8 + 4)
+            + P_pad * (degp + 1) * 4 + nbytes(cand, clen))
+    b_ms, b_by = bound_ms(need, [])
+    timing["gather"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
+    emit({"phase": "kernel_time", "arm": "gather", "pairs": P_pad,
+          "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
+          **timing["gather"]})
+
+    # -- 7. summary ------------------------------------------------------------
+    emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
+                                            3)})
     emit({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": SOURCE,
+        {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[arm],
          "max_abs_err": max_err[arm], "ms": timing[arm]["ms"],
          "plain_ms": timing[arm]["plain_ms"],

@@ -33,6 +33,17 @@ def consumer_mode(ds, consumer: str = "auto") -> str:
     return consumer
 
 
+def shard_plan(ds, shards=None):
+    """Resolve a driver's ``shards=`` argument against the data structure.
+    The port's engine has one shard, so this returns None; a count other
+    than 1 raises, because segment sharding is not ported yet."""
+    if shards is not None and int(shards) != 1:
+        raise NotImplementedError(
+            f"shards={shards}: segment sharding is not ported yet (ROADMAP "
+            f"queue 1 item 9)")
+    return None
+
+
 def degree_bound(pre, relation: str) -> int:
     """Exact per-mesh maximum row count of a coboundary/adjacency relation,
     from host-side bincounts over the global tables.

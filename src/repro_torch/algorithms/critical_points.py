@@ -24,6 +24,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..core.adjacency import complete_adjacency
+from ..core.mesh import _FACE_COMBOS
 from ..core.scheduler import run_partitioned, segment_batches
 from ..kernels import ops
 from . import consume
@@ -54,6 +56,73 @@ def _fp32_matmul():
             _FP32_USERS[0] -= 1
             if _FP32_USERS[0] == 0:
                 torch.backends.cuda.matmul.allow_tf32 = _FP32_USERS[1]
+
+
+# contract: device-resident
+def _boundary_mask(M: torch.Tensor,      # (nt, deg) completed TT, -1 pad
+                   T: torch.Tensor,      # (nt, 4) global TV
+                   nv: int) -> torch.Tensor:
+    """Device boundary-vertex mask from completed TT: a face of tet ``t`` is
+    interior iff some TT neighbour contains all three of its vertices (a tet
+    containing a face's vertex triple shares that face); vertices of the
+    remaining faces are boundary. Same faces/vertices as the host arm's
+    ``boundary_TF`` id matching — bit-identical mask."""
+    nbT = torch.where(M[..., None] >= 0, T[M.clamp(min=0).long()],
+                      -1)                                       # (nt,deg,4)
+    faces = torch.stack([T[:, [int(i) for i in c]] for c in _FACE_COMBOS],
+                        dim=1)                                  # (nt,4,3)
+    # (nt, 4 faces, 3 verts) vs neighbour vertex sets
+    shared = (faces[:, :, :, None, None] == nbT[:, None, None, :, :]).any(-1)
+    interior = shared.all(2).any(-1)                            # (nt, 4)
+    bvert = torch.where(~interior[:, :, None], faces, -1)
+    ids = torch.where(bvert >= 0, bvert, nv).reshape(-1).long()
+    mask = torch.zeros(nv + 1, dtype=torch.bool, device=M.device)
+    mask[ids] = True
+    return mask[:nv]
+
+
+def boundary_vertices(ds, pre, batch: int = 4096,
+                      consumer: str = "auto", workers: int = 1,
+                      shards=None) -> np.ndarray:
+    """Boolean mask of mesh-boundary vertices, via completed TT.
+
+    A tet has one completed-TT neighbour per *interior* face, so a tet with
+    fewer than 4 neighbours carries at least one boundary face; a face of
+    such a tet is boundary iff no TT neighbour also contains it. Banchoff
+    link classification is only exact for interior vertices, so callers use
+    this mask to qualify critical points on the domain boundary.
+
+    Requires a ``RelationEngine`` whose relation set includes TT; TT rows
+    are requested in pipelined batches. The device consumer arm keeps the
+    completed rows on the device and derives the mask there; the host arm
+    is the numpy reference. Both arms are bit-identical."""
+    sm = pre.smesh
+    consume.shard_plan(ds, shards)
+    mask = np.zeros(sm.n_vertices, dtype=bool)
+    if sm.n_tets == 0:
+        return mask
+    if (consume.consumer_mode(ds, consumer) == "device"
+            and hasattr(ds, "get_full_dev")):
+        M, _ = complete_adjacency(ds, "TT", np.arange(sm.n_tets),
+                                  batch=batch, path="device", out="dev",
+                                  workers=workers)
+        T = torch.from_numpy(sm.tets.astype(np.int32)).to(M.device)
+        return _boundary_mask(M, T, sm.n_vertices).cpu().numpy()
+    M, L = complete_adjacency(ds, "TT", np.arange(sm.n_tets), batch=batch,
+                              workers=workers)
+    cand = np.nonzero(L < 4)[0]            # tets with >= 1 boundary face
+    if len(cand) == 0:
+        return mask
+    Mc = M[cand]
+    deg = Mc.shape[1]
+    tf_t = ds.boundary_TF(cand)            # (c, 4) the candidates' faces
+    tf_nb = ds.boundary_TF(np.maximum(Mc, 0).reshape(-1)) \
+        .reshape(len(cand), deg, 4)        # (c, deg, 4) neighbours' faces
+    shared = (tf_t[:, :, None, None] == tf_nb[:, None, :, :]).any(-1)
+    interior = (shared & (Mc >= 0)[:, None, :]).any(-1)   # (c, 4)
+    bf = tf_t[~interior]                   # boundary face ids
+    mask[pre.F[bf].reshape(-1)] = True
+    return mask
 
 
 def total_order(scalars: np.ndarray) -> np.ndarray:
@@ -152,6 +221,7 @@ def critical_points(
     flag_boundary: bool = False,
     consumer: str = "auto",
     workers: int = 1,
+    shards=None,
 ) -> Tuple[np.ndarray, Dict[str, int]]:
     """Run the algorithm over all segments through data structure ``ds``,
     on ``ds.device`` (the engine's device).
@@ -172,11 +242,12 @@ def critical_points(
     classifications are reduced in segment order, so the result is
     bit-identical for any worker count.
 
-    ``flag_boundary=True`` needs TT completion, which is not ported yet."""
-    if flag_boundary:
-        raise NotImplementedError(
-            "flag_boundary needs TT completion, which is not ported yet "
-            "(ROADMAP queue 1 item 5)")
+    With ``flag_boundary=True`` (requires an engine with TT in its relation
+    set, see :func:`boundary_vertices`) the counts gain a
+    ``boundary_critical`` entry: non-regular vertices lying on the domain
+    boundary, where the interior link classification is only approximate.
+    ``shards`` other than None or 1 raises."""
+    consume.shard_plan(ds, shards)
     sm = pre.smesh
     mode = consume.consumer_mode(ds, consumer)
     dev = ds.device
@@ -247,4 +318,8 @@ def critical_points(
         "degenerate": int((types == DEGENERATE).sum()),
         "regular": int((types == REGULAR).sum()),
     }
+    if flag_boundary:
+        on_bd = boundary_vertices(ds, pre, consumer=consumer,
+                                  workers=workers)
+        counts["boundary_critical"] = int((on_bd & (types != REGULAR)).sum())
     return types, counts

@@ -46,10 +46,12 @@ never produced twice for any thread interleaving, stat updates are never
 lost (``merged_worker_stats() == stats``), and results are bit-identical
 for any number of consumer threads.
 
-This is the reference engine's single-shard path with no fault policy and
-no kernel-parameter tuning: its built-in defaults (``batch_max=64``,
-``lookahead=8``, ``cache_segments=512``, ``dev_pool_segments=256``,
-``inflight_max=8``) give the reference's ``tune="off"`` launch sequence.
+This is the reference engine's single-shard path, with the completion
+API (full-block reads, device inverse maps, boundary relations), and with
+no fault policy and no kernel-parameter tuning: its built-in defaults
+(``batch_max=64``, ``lookahead=8``, ``cache_segments=512``,
+``dev_pool_segments=256``, ``inflight_max=8``) give the reference's
+``tune="off"`` launch sequence.
 Sharding and the fault-recovery ladder come with later ports.
 """
 
@@ -68,6 +70,7 @@ import torch
 from ..errors import RelationWidthError
 from ..kernels import ops
 from .blockstore import BlockStore
+from .mesh import _EDGE_COMBOS, _FACE_COMBOS, edge_lookup, face_lookup
 from .segtables import OFFLOADED_RELATIONS, Preconditioned, RELATION_TABLES
 
 
@@ -83,6 +86,11 @@ class EngineStats:
     - ``kernel_launches`` / ``segments_produced``: producer-side dispatch
       counts. A segment is never produced twice for the same relation, so
       ``segments_produced`` is also the number of distinct blocks computed.
+    - ``completion_*``: cross-segment adjacency completion
+      (``core/adjacency.py``): completed queries, fan-out block
+      consultations (distinct per plan), and raw vs deduplicated neighbour
+      entries (the dedup ratio is how much cross-segment overlap the union
+      removed).
     """
 
     requests: int = 0
@@ -96,6 +104,11 @@ class EngineStats:
     # device-resident launch results vs host-cache blocks re-uploaded.
     devpool_hits: int = 0
     devpool_uploads: int = 0
+    # Cross-segment adjacency completion (core/adjacency.py).
+    completion_queries: int = 0        # simplex ids completed
+    completion_fanout_blocks: int = 0  # block consultations
+    completion_raw_neighbors: int = 0  # gathered entries before dedup/self
+    completion_neighbors: int = 0      # entries in the final completed rows
     # Waiting-time breakdown (seconds), paper Fig. 10 phases.
     t_enqueue: float = 0.0
     t_queue: float = 0.0
@@ -103,6 +116,14 @@ class EngineStats:
     t_kernel: float = 0.0    # host-side kernel DISPATCH time only
     t_sync: float = 0.0      # time the consumer waited on in-flight results
     t_integrate: float = 0.0
+
+    @property
+    def completion_dedup_ratio(self) -> float:
+        """Raw gathered entries per surviving completed entry (>= 1.0 once
+        any completion ran; 0.0 before)."""
+        if self.completion_neighbors == 0:
+            return 0.0
+        return self.completion_raw_neighbors / self.completion_neighbors
 
     def bump(self, **deltas) -> None:
         """Add counter deltas in place. The engine routes every stat update
@@ -156,6 +177,12 @@ class StatsHost:
             ws = self.worker_stats[w] = EngineStats()
         self.stats.bump(**deltas)
         ws.bump(**deltas)
+
+    def stat_bump(self, **deltas) -> None:
+        """Thread-safe counter update for out-of-engine accounting (the
+        completion pipeline in ``core/adjacency.py``)."""
+        with self._cond:
+            self._bump(**deltas)
 
     def merged_worker_stats(self) -> EngineStats:
         """Deterministic merge of the per-worker breakdown (sorted worker
@@ -303,6 +330,24 @@ class RelationEngine(StatsHost):
         for name in ("E_local", "LE_global", "F_local", "LF_global"):
             if getattr(t, name) is not None:
                 self._dev[name] = put(getattr(t, name))
+        # Device-resident inverse maps (docs/DESIGN.md §5): per-kind sorted
+        # (segment, gid) appearance lists mirroring tables.inverse, as int32
+        # (seg, gid, row) columns, for the device completion gather
+        # (kernels/completion_gather.py). When the combined key
+        # ``seg * n_global + gid`` fits int32 it is staged too, as
+        # ``inv_key_*``, for the single-key search.
+        self._inv_nglob: Dict[str, int] = {}
+        for kind, (keys, rows, n_glob) in (t.inverse or {}).items():
+            if kind == "V":   # completion only spans E/F/T kinds
+                continue
+            self._dev[f"inv_seg_{kind}"] = put(
+                (keys // n_glob).astype(np.int32))
+            self._dev[f"inv_gid_{kind}"] = put(
+                (keys % n_glob).astype(np.int32))
+            self._dev[f"inv_row_{kind}"] = put(rows.astype(np.int32))
+            self._inv_nglob[kind] = int(n_glob)
+            if len(keys) == 0 or int(keys[-1]) < 2 ** 31:
+                self._dev[f"inv_key_{kind}"] = put(keys.astype(np.int32))
 
     # -- consumer-side API --------------------------------------------------
 
@@ -355,6 +400,68 @@ class RelationEngine(StatsHost):
             self._count(relation, segment)
             return self._fetch(relation, segment)
 
+    def get_full(self, relation: str, segment: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Like :meth:`get`, but returns ALL local rows of the block —
+        internal simplices first (global-id order), then the segment's
+        external simplices, then table padding (rows with ``L == 0``).
+        Cross-segment adjacency completion reads external rows through
+        this method; misses take the normal dispatch path and are
+        counted."""
+        with self._consumer_entry("get_full"):
+            segment = int(segment)
+            self._bump(requests=1)
+            self._count(relation, segment)
+            return self._fetch(relation, segment, full=True)
+
+    def get_full_dev(self, relation: str, segment: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Like :meth:`get_full`, but the block stays on the device: served
+        from the device block pool (``devpool_hits``) or uploaded once from
+        the host cache and pooled (``devpool_uploads``)."""
+        with self._consumer_entry("get_full_dev"):
+            M, L, i = self._dev_entry(relation, int(segment))
+        return (M, L) if i is None else (M[i], L[i])
+
+    def get_full_dev_batch(self, relation: str, segments: Sequence[int],
+                           pad_to: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stacked full device blocks ``(M (S, R, deg), L (S, R))`` for
+        several segments, rows in the given order (optionally padded to
+        ``pad_to`` slots by repeating the first block — padding slots are
+        the caller's to ignore). Counting is one :meth:`get_full_dev` per
+        segment; blocks sharing a retained launch are assembled with one
+        device gather per launch plus one permutation — the completion
+        gather's pool builder."""
+        with self._consumer_entry("get_full_dev_batch"):
+            segments = [int(s) for s in segments]
+            ents = [self._dev_entry(relation, s) for s in segments]
+            return self._stack_entries(ents, pad_to)
+
+    def dev_inverse(self, kind: str, shard: Optional[int] = None):
+        """Device inverse-map columns for simplex kind ``E``/``F``/``T``:
+        ``(inv_seg, inv_gid, inv_row, inv_key_or_None, n_global)``.
+        ``inv_key`` is staged only when the combined ``seg * n_global +
+        gid`` key fits int32; the split columns always support the
+        lexicographic search. One shard only: ``shard`` must be None or 0."""
+        if shard not in (None, 0):
+            raise NotImplementedError(
+                "per-shard inverse maps come with segment sharding "
+                "(ROADMAP queue 1 item 9)")
+        if kind not in self._inv_nglob:
+            raise KeyError(f"no device inverse map for kind {kind!r}")
+        return (self._dev[f"inv_seg_{kind}"], self._dev[f"inv_gid_{kind}"],
+                self._dev[f"inv_row_{kind}"],
+                self._dev.get(f"inv_key_{kind}"), self._inv_nglob[kind])
+
+    def local_rows(self, kind: str, segs: np.ndarray,
+                   gids: np.ndarray) -> np.ndarray:
+        """Vectorized ``(segment, global id) -> local block row`` for simplex
+        kind ``V``/``E``/``F``/``T`` (``-1`` where absent) via the inverse
+        maps built at table time — the row index to use with
+        :meth:`get_full`. Host-side, lock-free."""
+        return self.tables.local_rows(kind, segs, gids)
+
     def _dev_entry(self, relation: str, segment: int):
         # contract: holds-lock
         """Pooled device block entry ``(M, L, idx_or_None)`` for one
@@ -384,11 +491,14 @@ class RelationEngine(StatsHost):
         self._bump(devpool_hits=1)
         return ent
 
-    def _stack_entries(self, ents) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _stack_entries(self, ents, pad_to: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Stack resolved device-pool entries into ``(S, R, deg)`` /
-        ``(S, R)`` tensors, rows in ``ents`` order: one gather per retained
-        launch plus one permutation."""
+        ``(S, R)`` tensors, rows in ``ents`` order (padded to ``pad_to``
+        slots by repeating the first): one gather per retained launch plus
+        one permutation."""
         S = len(ents)
+        pad_to = S if pad_to is None else max(pad_to, S)
         groups: Dict[int, Tuple[torch.Tensor, torch.Tensor, list, list]] = {}
         for out_pos, (M, L, i) in enumerate(ents):
             if i is None:      # uploaded full block: make it a 1-batch group
@@ -397,7 +507,7 @@ class RelationEngine(StatsHost):
             g[2].append(i)
             g[3].append(out_pos)
         parts_M, parts_L = [], []
-        perm = np.empty(S, dtype=np.int64)
+        perm = np.empty(pad_to, dtype=np.int64)
         at = 0
         for M, L, idx, outs in groups.values():
             take = torch.tensor(idx, dtype=torch.int64, device=M.device)
@@ -405,9 +515,11 @@ class RelationEngine(StatsHost):
             parts_L.append(L.index_select(0, take))
             perm[np.asarray(outs)] = at + np.arange(len(idx))
             at += len(idx)
+        perm[S:] = perm[0]     # padding repeats the first block
         pool_M = torch.cat(parts_M)
         pool_L = torch.cat(parts_L)
-        if len(groups) > 1 or np.any(perm != np.arange(S)):
+        if (len(groups) > 1 or pad_to != S
+                or np.any(perm[:S] != np.arange(S))):
             ix = torch.from_numpy(perm).to(pool_M.device)
             pool_M = pool_M.index_select(0, ix)
             pool_L = pool_L.index_select(0, ix)
@@ -807,6 +919,41 @@ class RelationEngine(StatsHost):
             return torch.where(lv >= 0, iota[None, :], -1)[..., None]
         name = {"E": "E_local", "F": "F_local", "T": "T_local"}[kind]
         return self._dev[name].index_select(0, segs)
+
+    # -- boundary relations (consumer-side, no device — paper §4.4) --------
+
+    def boundary_EV(self, edge_ids) -> np.ndarray:
+        return self.pre.E[np.asarray(edge_ids)]
+
+    def boundary_FV(self, face_ids) -> np.ndarray:
+        return self.pre.F[np.asarray(face_ids)]
+
+    def boundary_TV(self, tet_ids) -> np.ndarray:
+        return self.smesh.tets[np.asarray(tet_ids)]
+
+    def boundary_FE(self, face_ids) -> np.ndarray:
+        """Edges of each face, via interval-bounded lookups (paper's example
+        in §4.4: binary search inside the owner segment's E range)."""
+        F = self.pre.F[np.asarray(face_ids)]
+        nv = self.smesh.n_vertices
+        e0 = edge_lookup(self.pre.E_keys, nv, F[:, 0], F[:, 1])
+        e1 = edge_lookup(self.pre.E_keys, nv, F[:, 0], F[:, 2])
+        e2 = edge_lookup(self.pre.E_keys, nv, F[:, 1], F[:, 2])
+        return np.stack([e0, e1, e2], axis=1)
+
+    def boundary_TE(self, tet_ids) -> np.ndarray:
+        T = self.smesh.tets[np.asarray(tet_ids)]
+        nv = self.smesh.n_vertices
+        cols = [edge_lookup(self.pre.E_keys, nv, T[:, a], T[:, b])
+                for a, b in _EDGE_COMBOS]
+        return np.stack(cols, axis=1)
+
+    def boundary_TF(self, tet_ids) -> np.ndarray:
+        T = self.smesh.tets[np.asarray(tet_ids)]
+        nv = self.smesh.n_vertices
+        cols = [face_lookup(self.pre.F_keys, nv, T[:, a], T[:, b], T[:, c])
+                for a, b, c in _FACE_COMBOS]
+        return np.stack(cols, axis=1)
 
 
 _GLOBAL_NAME = {"V": "LV_global", "E": "LE_global",

@@ -59,6 +59,30 @@ def segment_batches(n_segments: int, batch_segments: int) -> List[List[int]]:
             for b0 in range(0, n_segments, batch_segments)]
 
 
+def run_collect(
+    items: Sequence,
+    consume: Callable,
+    *,
+    workers: int = 1,
+    finalize: Optional[Callable] = None,
+    prefetch: Optional[Callable] = None,
+    scope=None,
+    name: str = "collect",
+) -> List:
+    """:func:`run_partitioned` with the common list-building reduce: returns
+    ``[result(items[0]), result(items[1]), ...]`` in item order, independent
+    of worker count and interleaving."""
+    out: List = [None] * len(items)
+
+    def reduce(i, res):
+        out[i] = res
+
+    run_partitioned(items, consume, reduce, workers=workers,
+                    finalize=finalize, prefetch=prefetch, scope=scope,
+                    name=name)
+    return out
+
+
 def _worker_scope(ds, name: str):
     """The stat-attribution scope for one worker: ``ds.worker_scope`` when
     the data structure keeps per-worker stats, a no-op otherwise."""

@@ -4,7 +4,10 @@
 // Replaces the TPU kernels of src/repro/kernels/segment_relations.py:
 //   vv_entries_kernel     <- _vv_entries_kernel     (+ _emit_entries)
 //   member_entries_kernel <- _member_entries_kernel (+ _emit_entries)
-// both launched there through relation_entries_pallas (pl.pallas_call).
+//   tt_entries_kernel     <- _tt_entries_kernel     (+ _emit_entries)
+//   sub_entries_kernel    <- _sub_entries_kernel    (+ _cummax_lanes,
+//                                                    _emit_entries)
+// all launched there through relation_entries_pallas (pl.pallas_call).
 //
 // What bounds it on this card. The bytes a launch must move are small (VV
 // at B=64, NT=896: 0.9 MB of tets in, 2.1 MB of M out), so the byte bound
@@ -15,6 +18,11 @@
 // shared-memory passes and by occupancy: a VV block takes 128 KB of shared
 // memory, so one block runs per SM and a 64-segment launch fills 64 of the
 // 132 SMs.
+//
+// The TT and EF/ET/FT arms sort twice as many lanes per segment as they
+// emit rows for (TT at NT=896: a face-key sort of EJ = 4096 lanes, then the
+// E = 8192 entry lanes; EF/ET/FT at 96^3: E = 8192), so they are bound the
+// same way: 64 KB of lanes per block, barrier-separated passes.
 //
 // What the design does about it. The lanes (int32 key + int32 value, 8*E
 // bytes) never leave shared memory between the entry generation and the
@@ -212,6 +220,259 @@ member_entries_kernel(const int* __restrict__ taby,
                M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
 }
 
+// Sorts four values ascending in registers: the 5-comparator network.
+__device__ __forceinline__ void sort4(int& a, int& b, int& c, int& d) {
+  int t;
+#define SR_CSWAP(x, y) if (x > y) { t = x; x = y; y = t; }
+  SR_CSWAP(a, b) SR_CSWAP(c, d) SR_CSWAP(a, c) SR_CSWAP(b, d) SR_CSWAP(b, c)
+#undef SR_CSWAP
+}
+
+// Sorts the first n (<= 4) values of v ascending (insertion, in registers).
+template <int n>
+__device__ __forceinline__ void sort_small(int* v) {
+#pragma unroll
+  for (int i = 1; i < n; ++i) {
+#pragma unroll
+    for (int j = i; j > 0; --j) {
+      if (v[j - 1] > v[j]) {
+        const int t = v[j - 1];
+        v[j - 1] = v[j];
+        v[j] = t;
+      }
+    }
+  }
+}
+
+// TT: each valid local tet contributes its four sorted vertex triples as
+// face keys (a * nvl + b) * nvl + c with its tet id; after one sort of the
+// EJ face lanes, equal neighbouring keys are a shared face (a face has at
+// most two cofacet tets) and give both directed entries: key t0 * NT + t1,
+// value col_global[t1], and key t1 * NT + t0, value col_global[t0]. Those
+// 2 * EJ = E entry lanes then go through emit_entries with R = O = NT.
+// tet is (B, NT, 4), colg (B, NT).
+template <bool kGlobalLanes>
+__global__ void __launch_bounds__(1024)
+tt_entries_kernel(const int* __restrict__ tet, const int* __restrict__ colg,
+                  int* __restrict__ M, int* __restrict__ L, int* work, int NT,
+                  int nvl, int deg, int EJ, int E) {
+  const int b = blockIdx.x;
+  const size_t per = 2 * (size_t)E + NT + 1;
+  int* key = segment_lanes<kGlobalLanes>(work, b, per);
+  int* val = key + E;
+  int* starts = val + E;
+  const int* tb = tet + (size_t)b * NT * 4;
+  const int* cg = colg + (size_t)b * NT;
+  const int n = 4 * NT;
+  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
+    int k = kBig;
+    int t = 0;
+    if (i < n) {
+      const int f = i / NT;            // face-major, as the reference
+      t = i - f * NT;
+      int w0 = tb[t * 4 + 0], w1 = tb[t * 4 + 1];
+      int w2 = tb[t * 4 + 2], w3 = tb[t * 4 + 3];
+      sort4(w0, w1, w2, w3);
+      if (w0 >= 0) {                   // -1 padding sorts first
+        // faces (0,1,2), (0,1,3), (0,2,3), (1,2,3) of the sorted tet
+        const int a = f == 3 ? w1 : w0;
+        const int bb = f >= 2 ? w2 : w1;
+        const int c = f == 0 ? w2 : w3;
+        k = (a * nvl + bb) * nvl + c;
+      }
+    }
+    key[i] = k;
+    val[i] = t;
+  }
+  __syncthreads();
+  bitonic_sort(key, val, EJ);
+
+  // The second directed entry of each shared face goes to the upper half
+  // (it reads only the lower half) ...
+  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
+    const int k = key[i];
+    const bool eq = i + 1 < EJ && k != kBig && key[i + 1] == k;
+    const int t0 = val[i];
+    const int t1 = eq ? val[i + 1] : 0;
+    key[EJ + i] = eq ? t1 * NT + t0 : kBig;
+    val[EJ + i] = eq ? cg[t0] : 0;
+  }
+  __syncthreads();
+  // ... and the first is rebuilt from it in place, so no lane is read after
+  // another thread rewrote it.
+  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
+    const int k2 = key[EJ + i];
+    int k = kBig;
+    int v = 0;
+    if (k2 != kBig) {
+      const int t1 = k2 / NT;
+      const int t0 = k2 - t1 * NT;
+      k = t0 * NT + t1;
+      v = cg[t1];
+    }
+    key[i] = k;
+    val[i] = v;
+  }
+  __syncthreads();
+  emit_entries(key, val, starts, E, NT, NT, deg,
+               M + (size_t)b * NT * deg, L + (size_t)b * NT);
+}
+
+// The arity-AX vertex subsets of an arity-AY simplex, as slot indices, in
+// itertools.combinations order: (2 of 3) EF, (2 of 4) ET, (3 of 4) FT.
+__constant__ int kComb23[3][3] = {{0, 1, -1}, {0, 2, -1}, {1, 2, -1}};
+__constant__ int kComb24[6][3] = {{0, 1, -1}, {0, 2, -1}, {0, 3, -1},
+                                  {1, 2, -1}, {1, 3, -1}, {2, 3, -1}};
+__constant__ int kComb34[4][3] = {{0, 1, 2}, {0, 1, 3}, {0, 2, 3},
+                                  {1, 2, 3}};
+
+template <int AX, int AY>
+struct Combos;
+template <>
+struct Combos<2, 3> {
+  static constexpr int n = 3;
+  __device__ static int slot(int c, int j) { return kComb23[c][j]; }
+};
+template <>
+struct Combos<2, 4> {
+  static constexpr int n = 6;
+  __device__ static int slot(int c, int j) { return kComb24[c][j]; }
+};
+template <>
+struct Combos<3, 4> {
+  static constexpr int n = 4;
+  __device__ static int slot(int c, int j) { return kComb34[c][j]; }
+};
+
+// EF/ET/FT: a sort join. Each valid x row contributes its sorted vertex key
+// times 2 (even) with payload x; each valid y row contributes the keys of
+// its AX-vertex subsets times 2, plus 1 (odd), with payload y. After one
+// lane sort an x key sits right before the equal y keys (key - 1 == x key),
+// so every y lane resolves its x row from the latest x lane at or before
+// it: a block-wide inclusive running max of x lane indices (the
+// reference's _cummax_lanes), done here as a carried "last x" scan, with
+// the key re-checked. The entries (key x * NY + y, value col_global[y]) go
+// through emit_entries with R = NX and O = NY. INT32_MAX, the sentinel, is
+// odd, so it is excluded before the parity test.
+// tabx is (B, NX, AX), taby (B, NY, AY), colg (B, NY).
+template <int AX, int AY, bool kGlobalLanes>
+__global__ void __launch_bounds__(1024)
+sub_entries_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
+                   const int* __restrict__ colg, int* __restrict__ M,
+                   int* __restrict__ L, int* work, int NX, int NY, int nvl,
+                   int deg, int E) {
+  __shared__ int warp_last[32];
+  const int b = blockIdx.x;
+  const size_t per = 2 * (size_t)E + NX + 1;
+  int* key = segment_lanes<kGlobalLanes>(work, b, per);
+  int* val = key + E;
+  int* starts = val + E;
+  const int* xb = tabx + (size_t)b * NX * AX;
+  const int* yb = taby + (size_t)b * NY * AY;
+  const int* cg = colg + (size_t)b * NY;
+  constexpr int NYK = Combos<AX, AY>::n;
+  const int n = NX + NY * NYK;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    int k = kBig;
+    int p = 0;
+    if (i < NX) {
+      int w[AX];
+#pragma unroll
+      for (int j = 0; j < AX; ++j) w[j] = xb[i * AX + j];
+      sort_small<AX>(w);
+      if (w[0] >= 0) {
+        int kx = w[0];
+#pragma unroll
+        for (int j = 1; j < AX; ++j) kx = kx * nvl + w[j];
+        k = kx * 2;
+        p = i;
+      }
+    } else if (i < n) {
+      const int jj = i - NX;
+      const int y = jj / NYK;          // y-major, as the plain arm
+      const int c = jj - y * NYK;
+      int w[AY];
+#pragma unroll
+      for (int j = 0; j < AY; ++j) w[j] = yb[y * AY + j];
+      sort_small<AY>(w);
+      if (w[0] >= 0) {
+        int ky = w[Combos<AX, AY>::slot(c, 0)];
+#pragma unroll
+        for (int j = 1; j < AX; ++j)
+          ky = ky * nvl + w[Combos<AX, AY>::slot(c, j)];
+        k = ky * 2 + 1;
+        p = y;
+      }
+    }
+    key[i] = k;
+    val[i] = p;
+  }
+  __syncthreads();
+  bitonic_sort(key, val, E);
+
+  // Running "last x lane" over contiguous per-thread chunks: each thread
+  // finds the last x lane of its chunk, a block-wide max scan gives the
+  // last x lane before the chunk, and each thread then walks its chunk
+  // with that carry, rewriting its own lanes in place.
+  const int chunk = (E + blockDim.x - 1) / blockDim.x;
+  const int lo = min(E, (int)threadIdx.x * chunk);
+  const int hi = min(E, lo + chunk);
+  int mine = -1;
+  for (int i = lo; i < hi; ++i) {
+    const int k = key[i];
+    if (k != kBig && (k & 1) == 0) mine = i;
+  }
+  // inclusive max scan over the threads of the block
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl = max(incl, o);
+  }
+  if (lane == 31) warp_last[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    const int nw = (blockDim.x + 31) >> 5;
+    int v = lane < nw ? warp_last[lane] : -1;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v = max(v, o);
+    }
+    if (lane < nw) warp_last[lane] = v;      // inclusive over warps
+  }
+  __syncthreads();
+  int before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) before = -1;
+  if (wid > 0) before = max(before, warp_last[wid - 1]);
+  // the carry: key and payload of the last x lane before this chunk
+  int cur_key = before >= 0 ? key[before] : kBig;
+  int cur_row = before >= 0 ? val[before] : 0;
+  bool have = before >= 0;
+  __syncthreads();                 // every carry read before any rewrite
+  for (int i = lo; i < hi; ++i) {
+    const int k = key[i];
+    const int p = val[i];
+    int ek = kBig;
+    int ev = 0;
+    if (k != kBig && (k & 1) == 0) {
+      cur_key = k;
+      cur_row = p;
+      have = true;
+    } else if (k != kBig && have && cur_key == k - 1) {
+      ek = cur_row * NY + p;
+      ev = cg[p];
+    }
+    key[i] = ek;
+    val[i] = ev;
+  }
+  __syncthreads();
+  emit_entries(key, val, starts, E, NX, NY, deg,
+               M + (size_t)b * NX * deg, L + (size_t)b * NX);
+}
+
 int threads_for(int E) {
   int t = E / 2;
   if (t < 128) t = 128;
@@ -285,4 +546,71 @@ extern "C" int sr_member_entries(int device, const void* taby,
         ay, nvl, deg, E);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int sr_tt_entries(int device, const void* tet, const void* colg,
+                             void* M, void* L, void* work, int B, int NT,
+                             int nvl, int deg, int EJ, int E, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = threads_for(E);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (work != nullptr) {
+    tt_entries_kernel<true><<<B, threads, 0, s>>>(
+        (const int*)tet, (const int*)colg, (int*)M, (int*)L, (int*)work, NT,
+        nvl, deg, EJ, E);
+  } else {
+    const size_t bytes = (2 * (size_t)E + NT + 1) * sizeof(int);
+    e = allow_smem((const void*)tt_entries_kernel<false>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    tt_entries_kernel<false><<<B, threads, bytes, s>>>(
+        (const int*)tet, (const int*)colg, (int*)M, (int*)L, nullptr, NT,
+        nvl, deg, EJ, E);
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int AX, int AY>
+cudaError_t launch_sub(const void* tabx, const void* taby, const void* colg,
+                       void* M, void* L, void* work, int B, int NX, int NY,
+                       int nvl, int deg, int E, cudaStream_t s) {
+  const int threads = threads_for(E);
+  if (work != nullptr) {
+    sub_entries_kernel<AX, AY, true><<<B, threads, 0, s>>>(
+        (const int*)tabx, (const int*)taby, (const int*)colg, (int*)M,
+        (int*)L, (int*)work, NX, NY, nvl, deg, E);
+  } else {
+    const size_t bytes = (2 * (size_t)E + NX + 1) * sizeof(int);
+    cudaError_t e =
+        allow_smem((const void*)sub_entries_kernel<AX, AY, false>, bytes);
+    if (e != cudaSuccess) return e;
+    sub_entries_kernel<AX, AY, false><<<B, threads, bytes, s>>>(
+        (const int*)tabx, (const int*)taby, (const int*)colg, (int*)M,
+        (int*)L, nullptr, NX, NY, nvl, deg, E);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ax/ay select the arm: (2, 3) EF, (2, 4) ET, (3, 4) FT.
+extern "C" int sr_sub_entries(int device, const void* tabx, const void* taby,
+                              const void* colg, void* M, void* L, void* work,
+                              int B, int NX, int ax, int NY, int ay, int nvl,
+                              int deg, int E, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ax == 2 && ay == 3)
+    return (int)launch_sub<2, 3>(tabx, taby, colg, M, L, work, B, NX, NY,
+                                 nvl, deg, E, s);
+  if (ax == 2 && ay == 4)
+    return (int)launch_sub<2, 4>(tabx, taby, colg, M, L, work, B, NX, NY,
+                                 nvl, deg, E, s);
+  if (ax == 3 && ay == 4)
+    return (int)launch_sub<3, 4>(tabx, taby, colg, M, L, work, B, NX, NY,
+                                 nvl, deg, E, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,12 +12,13 @@ Backends:
                   CUDA tensors only
 
 Both arms are bit-identical to the reference package's ``xla`` and
-``pallas`` arms for VV/VE/VF/VT. The other relations (TT, EF/ET/FT, and
-the EE/FF and oversize-key dense fallback) are not ported yet.
+``pallas`` arms for VV/VE/VF/VT/TT/EF/ET/FT. EE/FF and the oversize-key
+dense fallback are not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -155,6 +156,92 @@ def _block_vv(T_local, col_global, nvl: int, deg: int):
                            (va >= 0) & (vb >= 0), R=nvl, O=nvl, deg=deg)
 
 
+_TET_FACES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
+
+
+def _block_tt(T_local, col_global, nvl: int, deg: int):
+    """TT block via a sort join on canonical face keys: two distinct tets
+    relate iff they share exactly three vertices — a common face (the
+    exact ``C == 3`` predicate). Each local tet contributes its four sorted
+    vertex triples; after one lane-wise sort, equal adjacent keys are the
+    shared faces (a face has at most two cofacet tets), yielding both
+    directed entries."""
+    B, NT, _ = T_local.shape
+    dev = T_local.device
+    w = torch.sort(T_local, dim=-1).values              # ascending vertices
+    valid_t = (T_local >= 0).all(-1)                    # (B, NT)
+    keys = [(w[..., i] * nvl + w[..., j]) * nvl + w[..., k]
+            for i, j, k in _TET_FACES]
+    fkey = torch.stack(keys, dim=-1).reshape(B, 4 * NT)
+    tid = torch.arange(NT, device=dev, dtype=torch.int32)[None, :, None] \
+        .expand(B, NT, 4).reshape(B, 4 * NT)
+    fkey = torch.where(valid_t.repeat_interleave(4, dim=1), fkey, _BIG)
+    fkey, perm = torch.sort(fkey, dim=1)
+    tid = torch.gather(tid, 1, perm)
+    eq = (fkey[:, :-1] == fkey[:, 1:]) & (fkey[:, :-1] != _BIG)
+    t0, t1 = tid[:, :-1], tid[:, 1:]
+    row = torch.cat([t0, t1], dim=1)
+    order = torch.cat([t1, t0], dim=1)
+    valid = torch.cat([eq, eq], dim=1)
+    val = torch.gather(col_global, 1, order.long())
+    return _invert_entries(row, order, val, valid, R=NT, O=NT, deg=deg)
+
+
+def _block_sub_join(tabX, tabY, col_global, nvl: int, deg: int):
+    """EF/ET/FT block via a sort join: subject ``x`` relates to ``y`` iff
+    every vertex of ``x`` lies in ``y`` (the exact ``C == arity(x)``
+    predicate — x then is a boundary sub-simplex of y). X rows contribute
+    their canonical sorted vertex key once; each y contributes the keys of
+    all its arity(x)-vertex subsets. After one lane-wise sort (x keys are
+    even, y keys odd, so an x entry sorts before the equal-key y entries),
+    every y entry resolves its x row from the latest x entry seen (a
+    running max over lane indices) and re-checks the key."""
+    B, NX, ax = tabX.shape
+    _, NY, ay = tabY.shape
+    dev = tabX.device
+    wx = torch.sort(tabX, dim=-1).values
+    kx = wx[..., 0]
+    for i in range(1, ax):
+        kx = kx * nvl + wx[..., i]
+    kx = torch.where((tabX >= 0).all(-1), kx * 2, _BIG)      # is_y = 0
+    wy = torch.sort(tabY, dim=-1).values
+    oky = (tabY >= 0).all(-1)
+    ykeys = []
+    for comb in itertools.combinations(range(ay), ax):
+        k = wy[..., comb[0]]
+        for c in comb[1:]:
+            k = k * nvl + wy[..., c]
+        ykeys.append(k)
+    nyk = len(ykeys)
+    ky = torch.stack(ykeys, dim=-1).reshape(B, NY * nyk)
+    ky = torch.where(oky.repeat_interleave(nyk, dim=1), ky * 2 + 1, _BIG)
+    yid = torch.arange(NY, device=dev, dtype=torch.int32)[None, :, None] \
+        .expand(B, NY, nyk).reshape(B, NY * nyk)
+
+    key = torch.cat([kx, ky], dim=1)
+    payload = torch.cat(
+        [torch.arange(NX, device=dev, dtype=torch.int32).expand(B, NX), yid],
+        dim=1)
+    is_y = torch.cat([torch.zeros((B, NX), dtype=torch.bool, device=dev),
+                      torch.ones((B, NY * nyk), dtype=torch.bool,
+                                 device=dev)], dim=1)
+    key, perm = torch.sort(key, dim=1)
+    payload = torch.gather(payload, 1, perm)
+    is_y = torch.gather(is_y, 1, perm)
+    iota = torch.arange(key.shape[1], device=dev)[None, :]
+    lastX = torch.cummax(torch.where(is_y, -1, iota), dim=1).values
+    take = lastX.clamp(min=0)
+    xkey = torch.gather(key, 1, take)
+    ok = is_y & (lastX >= 0) & (key != _BIG) & (xkey == key - 1)
+    row = torch.gather(payload, 1, take)
+    order = torch.where(ok, payload, 0)
+    val = torch.gather(col_global, 1, order.long())
+    return _invert_entries(row, order, val, ok, R=NX, O=NY, deg=deg)
+
+
+SPARSE_RELATIONS = ("VV", "VE", "VF", "VT", "TT", "EF", "ET", "FT")
+
+
 def sparse_arm_ok(relation: str, tabX, tabY, nvl: int) -> bool:
     """True when ``relation`` has a sparse entry-assembly arm AND its entry
     keys fit int32 — the reference's guard, so both packages take the
@@ -190,10 +277,10 @@ def relation_block(
     kernels on CUDA tensors and runs the plain torch arm on CPU tensors;
     ``backend="torch"`` forces the plain arm on any device, and
     ``backend="cuda"`` on CPU tensors raises."""
-    if relation not in ("VV", "VE", "VF", "VT"):
+    if relation not in SPARSE_RELATIONS:
         raise NotImplementedError(
-            f"relation {relation!r} has no port yet: TT/EF/ET/FT come with "
-            f"ROADMAP queue 1 items 4-5, EE/FF with item 7")
+            f"relation {relation!r} needs the dense fallback, which comes "
+            f"with ROADMAP queue 1 item 7")
     deg = DEFAULT_DEG[relation] if deg is None else deg
     if not sparse_arm_ok(relation, tabX, tabY, nvl):
         raise NotImplementedError(
@@ -207,4 +294,8 @@ def relation_block(
                                      nvl=nvl, deg=deg)
     if relation == "VV":
         return _block_vv(tabX, colg, nvl, deg)
-    return _block_member_v(tabY, colg, nvl, deg)
+    if relation in ("VE", "VF", "VT"):
+        return _block_member_v(tabY, colg, nvl, deg)
+    if relation == "TT":
+        return _block_tt(tabX, colg, nvl, deg)
+    return _block_sub_join(tabX, tabY, colg, nvl, deg)

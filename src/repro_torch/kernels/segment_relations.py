@@ -4,17 +4,23 @@ entry assembly (``csrc/segment_relations.cu``).
 One thread block per batched segment emits that segment's padded
 ``(M (B, nvl, deg), L (B, nvl))`` block straight from its local tables: the
 entry lanes are generated, sorted, deduplicated and inverted in shared
-memory. Two arms:
+memory. Four arms:
 
   - ``"VV"``     — the 12 ordered vertex pairs of every local tet;
   - ``"member"`` — VE/VF/VT, where the ``(NY, arity)`` table is the entry
-                   list.
+                   list;
+  - ``"TT"``     — a sort join of the tets' canonical face keys;
+  - ``"sub"``    — EF/ET/FT, a sort join of subject keys against the
+                   subset keys of the cofaces.
 
 They replace the TPU kernels of the reference's
-``kernels/segment_relations.py`` (``_vv_entries_kernel`` and
-``_member_entries_kernel`` with ``_emit_entries``). The plain version of
-each arm is :func:`repro_torch.kernels.ops._block_vv` /
-:func:`~repro_torch.kernels.ops._block_member_v`; the kernels are
+``kernels/segment_relations.py`` (``_vv_entries_kernel``,
+``_member_entries_kernel``, ``_tt_entries_kernel`` and
+``_sub_entries_kernel`` with ``_emit_entries``). The plain version of each
+arm is :func:`repro_torch.kernels.ops._block_vv` /
+:func:`~repro_torch.kernels.ops._block_member_v` /
+:func:`~repro_torch.kernels.ops._block_tt` /
+:func:`~repro_torch.kernels.ops._block_sub_join`; the kernels are
 bit-identical to it.
 
 The wrapper takes CUDA int32 tensors only and raises on anything else; it
@@ -27,6 +33,7 @@ current stream without synchronising, and raises on a refused launch.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Dict, Tuple
 
@@ -34,7 +41,7 @@ import torch
 
 from . import _build
 
-LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0}
+LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0, "TT": 0, "sub": 0}
 _LAUNCH_LOCK = threading.Lock()
 _SMEM_LIMIT: Dict[int, int] = {}
 
@@ -55,6 +62,12 @@ def _lib() -> ctypes.CDLL:
         lib.sr_member_entries.argtypes = [_I, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _P]
         lib.sr_member_entries.restype = _I
+        lib.sr_tt_entries.argtypes = [_I, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_tt_entries.restype = _I
+        lib.sr_sub_entries.argtypes = [_I, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_sub_entries.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -69,9 +82,17 @@ def next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def lane_ints(E: int, nvl: int) -> int:
-    """int32 words of one segment's lanes: keys, values, row starts."""
-    return 2 * E + nvl + 1
+def lane_ints(E: int, R: int) -> int:
+    """int32 words of one segment's lanes: keys, values, the R + 1 row
+    starts."""
+    return 2 * E + R + 1
+
+
+# static shared memory of the sub-join kernel (its scan's warp carries)
+_SUB_STATIC_SMEM = 32 * 4
+
+# (arity of x, arity of y) of the sub-join relations
+_SUB_ARITY = {"EF": (2, 3), "ET": (2, 4), "FT": (3, 4)}
 
 
 def smem_limit(device: torch.device) -> int:
@@ -105,44 +126,66 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
                           tabY: torch.Tensor, col_global: torch.Tensor, *,
                           nvl: int, deg: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(M (B, nvl, deg), L (B, nvl))`` int32 for VV (``tabX`` is the
-    ``(B, NT, 4)`` tet table, ``col_global`` the ``(B, NV)`` vertex map)
-    or VE/VF/VT (``tabY`` is the ``(B, NY, arity)`` table, ``col_global``
-    its ``(B, NY)`` map). The caller guarantees local ids ``< nvl`` and
-    keys that fit int32 (``ops.sparse_arm_ok``)."""
+    """``(M (B, R, deg), L (B, R))`` int32, where R is ``nvl`` for VV
+    (``tabX`` is the ``(B, NT, 4)`` tet table, ``col_global`` the
+    ``(B, NV)`` vertex map) and VE/VF/VT (``tabY`` is the ``(B, NY,
+    arity)`` table, ``col_global`` its ``(B, NY)`` map); ``NT`` for TT
+    (``tabX`` the tet table, ``col_global`` the ``(B, NT)`` tet map); and
+    ``NX`` for EF/ET/FT (``tabX`` the ``(B, NX, ax)`` subject table,
+    ``tabY`` the ``(B, NY, ay)`` coface table, ``col_global`` its ``(B,
+    NY)`` map). The caller guarantees local ids ``< nvl`` and keys that fit
+    int32 (``ops.sparse_arm_ok``)."""
+    for name, t in (("tabX", tabX), ("tabY", tabY)):
+        if isinstance(t, torch.Tensor) and t.dim() != 3:
+            raise ValueError(f"{name} must be (B, N, arity), got "
+                             f"{tuple(t.shape)}")
+    extra = 0
     if relation == "VV":
         arm, tab = "VV", tabX
-        if tab.dim() != 3:
-            raise ValueError(f"tabX must be (B, NT, 4), got {tuple(tab.shape)}")
         B, N, a = tab.shape
         _check(tab, "tabX", (B, N, 4))
         _check(col_global, "col_global", (B, col_global.shape[-1]))
-        E = next_pow2(12 * N)
+        E, R = next_pow2(12 * N), nvl
     elif relation in ("VE", "VF", "VT"):
         arm, tab = "member", tabY
-        if tab.dim() != 3:
-            raise ValueError(f"tabY must be (B, NY, arity), got "
-                             f"{tuple(tab.shape)}")
         B, N, a = tab.shape
         _check(tab, "tabY", (B, N, a))
         _check(col_global, "col_global", (B, N))
-        E = next_pow2(a * N)
+        E, R = next_pow2(a * N), nvl
+    elif relation == "TT":
+        arm, tab = "TT", tabX
+        B, N, a = tab.shape
+        _check(tab, "tabX", (B, N, 4))
+        _check(col_global, "col_global", (B, N))
+        EJ = next_pow2(4 * N)
+        E, R = 2 * EJ, N
+    elif relation in _SUB_ARITY:
+        arm, tab = "sub", tabX
+        ax, ay = _SUB_ARITY[relation]
+        B, N, _ = tab.shape
+        NY = tabY.shape[1]
+        _check(tab, "tabX", (B, N, ax))
+        _check(tabY, "tabY", (B, NY, ay))
+        _check(col_global, "col_global", (B, NY))
+        E, R = next_pow2(N + NY * math.comb(ay, ax)), N
+        extra = _SUB_STATIC_SMEM
     else:
         raise KeyError(f"no CUDA entry kernel for relation {relation!r}")
-    if col_global.device != tab.device:
-        raise ValueError("tables and col_global must share one device")
-    if max(nvl, deg) < 1 or nvl * deg >= 2 ** 31 \
-            or 2 * E + nvl + 1 >= 2 ** 31:
+    same = (col_global, tabY) if arm == "sub" else (col_global,)
+    if any(t.device != tab.device for t in same):
+        raise ValueError("the tables and col_global must share one device")
+    if max(nvl, deg) < 1 or R * deg >= 2 ** 31 \
+            or lane_ints(E, R) >= 2 ** 31:
         raise ValueError(f"nvl={nvl}, deg={deg}, E={E} out of range")
     dev = tab.device
-    M = torch.empty((B, nvl, deg), dtype=torch.int32, device=dev)
-    L = torch.empty((B, nvl), dtype=torch.int32, device=dev)
+    M = torch.empty((B, R, deg), dtype=torch.int32, device=dev)
+    L = torch.empty((B, R), dtype=torch.int32, device=dev)
     if B == 0:
         return M, L
     lib = _lib()
-    per = lane_ints(E, nvl)
+    per = lane_ints(E, R)
     work = None
-    if 4 * per > smem_limit(dev):
+    if 4 * per + extra > smem_limit(dev):
         work = torch.empty(B * per, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -151,11 +194,20 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
                                M.data_ptr(), L.data_ptr(), wp, B, N,
                                col_global.shape[1], nvl, deg, E, stream)
-    else:
+    elif arm == "member":
         rc = lib.sr_member_entries(idx, tab.data_ptr(),
                                    col_global.data_ptr(), M.data_ptr(),
                                    L.data_ptr(), wp, B, N, a, nvl, deg, E,
                                    stream)
+    elif arm == "TT":
+        rc = lib.sr_tt_entries(idx, tab.data_ptr(), col_global.data_ptr(),
+                               M.data_ptr(), L.data_ptr(), wp, B, N, nvl,
+                               deg, EJ, E, stream)
+    else:
+        rc = lib.sr_sub_entries(idx, tab.data_ptr(), tabY.data_ptr(),
+                                col_global.data_ptr(), M.data_ptr(),
+                                L.data_ptr(), wp, B, N, ax, NY, ay, nvl,
+                                deg, E, stream)
     _check_rc(lib, rc, f"{arm} entry kernel launch")
     with _LAUNCH_LOCK:
         LAUNCHES[arm] += 1

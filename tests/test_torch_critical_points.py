@@ -115,9 +115,12 @@ def test_state_carried_across_packages():
 
 
 def test_flag_boundary_is_not_ported_yet():
+    # flag_boundary is ported (held against the reference in
+    # tests/test_torch_completion.py); it needs TT completion, so an engine
+    # without TT in its relation set refuses it, naming TT
     sm = segment_mesh(meshgen.structured_grid(3, 3, 3), 16)
     pre = precondition(sm, ["VV", "VT"])
     eng = RelationEngine(pre, ["VV", "VT"], device="cpu")
-    with pytest.raises(NotImplementedError, match="TT completion"):
+    with pytest.raises(ValueError, match="'TT'"):
         critical_points(eng, pre, total_order(sm.scalars),
                         flag_boundary=True)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
-entry-assembly arm at the main path's shapes and at edge sizes (including
-lanes too large for shared memory), and the critical-points path on the
-``cuda`` backend against the CPU. These tests need an NVIDIA card and
+entry-assembly arm (VV, member, TT, sub-join) at the main path's shapes and
+at edge sizes (including lanes too large for shared memory), the completion
+gather kernel, and the critical-points and gradient -> Morse-Smale paths on
+the ``cuda`` backend against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
 
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, segment_relations
+from repro_torch import analyze
+from repro_torch.kernels import completion_gather, ops, segment_relations
 from repro_torch.quickstart import run
 
 pytestmark = pytest.mark.gpu
@@ -72,3 +74,91 @@ def test_critical_points_on_the_card_equal_the_cpu(cuda, workers):
     assert counts == want_counts
     assert gale.backend == "cuda"
     assert gale.stats.segments_produced == 2 * len(gale.smesh.I_V[1:])
+
+
+def _sub_tables(rng, tets):
+    """Every edge and face of each segment's valid tets, rows shuffled."""
+    out = {"T": tets}
+    for k, combos in (("E", [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3),
+                             (2, 3)]),
+                      ("F", [(0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)])):
+        per = []
+        for t in tets:
+            t = np.sort(t[(t >= 0).all(-1)], axis=1)
+            rows = np.unique(t[:, combos].reshape(-1, len(combos[0])), axis=0)
+            per.append(rows[rng.permutation(len(rows))])
+        n = max(len(r) for r in per) + 3
+        tab = np.full((len(tets), n, len(combos[0])), -1, dtype=np.int32)
+        for b, rows in enumerate(per):
+            tab[b, :len(rows)] = rows
+        out[k] = tab
+    return out
+
+
+@pytest.mark.parametrize("relation", ["TT", "FT", "EF", "ET"])
+@pytest.mark.parametrize("B,NT,deg", [(1, 1, 8), (2, 127, 2), (64, 896, 16),
+                                      (2, 3001, 8)])
+def test_join_kernels_equal_plain_arm(cuda, relation, B, NT, deg):
+    rng = np.random.default_rng(NT)
+    nvl = 256
+    tabs = _sub_tables(rng, _rand_tets(rng, B, NT, nvl))
+    tx = torch.from_numpy(tabs[relation[0]]).to(cuda)
+    ty = torch.from_numpy(tabs[relation[1]]).to(cuda)
+    colg = torch.from_numpy(rng.integers(
+        0, 10 ** 6, ty.shape[:2]).astype(np.int32)).to(cuda)
+    arm = "TT" if relation == "TT" else "sub"
+    before = segment_relations.LAUNCHES[arm]
+    got = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg)
+    want = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
+                              backend="torch")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert segment_relations.LAUNCHES[arm] == before + 1
+
+
+@pytest.mark.parametrize("use_key", [False, True])
+@pytest.mark.parametrize("P", [1, 255, 4096])
+def test_gather_kernel_equals_plain_arm(cuda, use_key, P):
+    rng = np.random.default_rng(P)
+    ns, n_global, S, R, degp = 97, 1000, 8, 300, 8
+    key = np.unique(rng.integers(0, ns * n_global, 20011))
+    inv = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in
+           (key // n_global, key % n_global, rng.integers(0, R, len(key)))]
+    pick = rng.integers(0, len(key), P)
+    seg = (key[pick] // n_global).astype(np.int32)
+    gid = (key[pick] % n_global).astype(np.int32)
+    seg[::4] = rng.integers(0, ns + 3, len(seg[::4]))   # absent / past end
+    slot = rng.integers(-1, S, P).astype(np.int32)       # -1: padding
+    pool_M = torch.from_numpy(rng.integers(
+        -1, 10 ** 5, (S, R, degp)).astype(np.int32)).to(cuda)
+    pool_L = torch.from_numpy(rng.integers(
+        0, degp + 1, (S, R)).astype(np.int32)).to(cuda)
+    pairs = [torch.from_numpy(a).to(cuda) for a in (slot, seg, gid)]
+    kw = {}
+    if use_key:
+        kw = dict(inv_key=torch.from_numpy(key.astype(np.int32)).to(cuda),
+                  n_global=n_global)
+    before = completion_gather.LAUNCHES["gather"]
+    got = completion_gather.resolve_gather_cuda(pool_M, pool_L, *inv,
+                                                *pairs, **kw)
+    want = completion_gather.resolve_gather_torch(pool_M, pool_L, *inv,
+                                                  *pairs, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert completion_gather.LAUNCHES["gather"] == before + 1
+
+
+def test_analyze_on_the_card_equals_the_cpu(cuda):
+    _, chi, eng, cp, g, ms = analyze.run(16, device="cuda", workers=2)
+    _, _, _, want_cp, want_g, want_ms = analyze.run(16, device="cpu")
+    assert cp == want_cp and g.euler() == chi
+    for name in ("pair_v2e", "pair_e2f", "pair_f2t", "crit_v", "crit_e",
+                 "crit_f", "crit_t"):
+        np.testing.assert_array_equal(getattr(g, name),
+                                      getattr(want_g, name))
+    for name in ("dest_min", "dest_max", "saddle1_ends", "saddle2_ends"):
+        np.testing.assert_array_equal(getattr(ms, name),
+                                      getattr(want_ms, name))
+    assert eng.backend == "cuda"

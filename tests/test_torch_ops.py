@@ -160,7 +160,7 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_relations.relation_entries_cuda("VV", t, t, c, nvl=8, deg=4)
     with pytest.raises(NotImplementedError, match="queue 1"):
-        ops.relation_block("TT", t, t, c, 8)
+        ops.relation_block("EE", t, t, c, 8)
 
 
 def test_cuda_device_without_a_card_raises():

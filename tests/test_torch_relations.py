@@ -1,0 +1,197 @@
+"""The port's TT and EF/ET/FT relation blocks and the engine's completion
+API against the reference's.
+
+The blocks of ``repro_torch.kernels.ops`` (the plain arms the CUDA kernels
+``tt_entries_kernel`` / ``sub_entries_kernel`` are held against) are
+compared bit for bit with the reference's ``xla`` arm on several seeds and
+with its Pallas kernels in interpret mode on one small shape each; the
+engine's full-block reads, device inverse maps, local-row lookups and
+boundary relations with the reference engine's on one mesh. Inputs are made
+with numpy from a seed and handed to both packages."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import RelationEngine as RefEngine
+from repro.core.mesh import segment_mesh as ref_segment_mesh
+from repro.core.segtables import precondition as ref_precondition
+from repro.data.meshgen import structured_grid as ref_structured_grid
+from repro.kernels import ops as ref_ops
+from repro.kernels.segment_relations import relation_entries_pallas
+from repro_torch.core.engine import RelationEngine
+from repro_torch.core.segtables import from_arrays
+from repro_torch.kernels import ops
+
+JOIN_RELATIONS = ("TT", "EF", "ET", "FT")
+_ARITY = {"E": 2, "F": 3, "T": 4}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_blocks_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+_GRID_TETS = ref_structured_grid(3, 3, 3).tets       # 27 vertices, 48 tets
+
+
+def _segment_tables(rng, B, n_tets, nvl, pad):
+    """Per-segment local tables derived from ``n_tets`` random tets of a
+    small grid (so tets share faces as in a mesh), relabelled by a random
+    permutation of ``nvl >= 27`` local ids: every edge and face of the tets
+    (as local simplex tables list them), vertex order shuffled within each
+    row, rows shuffled, ``-1`` padding rows appended. The row counts are
+    fixed by ``n_tets`` and ``pad`` alone (every seed gives the reference's
+    jit one shape)."""
+    tabs = {k: [] for k in "EFT"}
+    for _ in range(B):
+        pick = rng.choice(len(_GRID_TETS), n_tets, replace=False)
+        relabel = rng.permutation(nvl)[:27]
+        tets = relabel[_GRID_TETS[pick]].astype(np.int32)
+        srt = np.sort(tets, axis=1)
+        subs = {"T": srt,
+                "F": srt[:, [[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]]],
+                "E": srt[:, [[0, 1], [0, 2], [0, 3], [1, 2], [1, 3],
+                             [2, 3]]]}
+        for k, a in subs.items():
+            rows = np.unique(a.reshape(-1, _ARITY[k]), axis=0)
+            rows = rows[rng.permutation(len(rows))]
+            rows = np.stack([rng.permutation(r) for r in rows])
+            tabs[k].append(rows)
+    out = {}
+    for k, per in tabs.items():
+        n = n_tets * {"T": 1, "F": 4, "E": 6}[k] + pad
+        tab = np.full((B, n, _ARITY[k]), -1, dtype=np.int32)
+        for b, rows in enumerate(per):
+            tab[b, :len(rows)] = rows
+        out[k] = tab
+    return out
+
+
+def _inputs(relation, tabs, rng):
+    tx = tabs[relation[0]]
+    ty = tabs[relation[1]]
+    B, NY, _ = ty.shape
+    colg = rng.integers(0, 10 ** 6, (B, NY)).astype(np.int32)
+    colg[(ty < 0).all(-1)] = -1
+    return tx, ty, colg
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("relation", JOIN_RELATIONS)
+def test_join_blocks_equal_the_xla_arm(relation, seed):
+    rng = np.random.default_rng(seed)
+    nvl = 31                        # prime; 27 grid vertices relabelled
+    tabs = _segment_tables(rng, 3, 19, nvl, pad=2)
+    tx, ty, colg = _inputs(relation, tabs, rng)
+    got = ops.relation_block(relation, _t(tx), _t(ty), _t(colg), nvl)
+    assert [g.dtype for g in got] == [torch.int32, torch.int32]
+    _assert_blocks_equal(got, ref_ops.relation_block(
+        relation, tx, ty, colg, nvl, backend="xla"))
+    assert got[1].max() > 0
+    # a narrow width keeps the TRUE counts past it
+    narrow = ops.relation_block(relation, _t(tx), _t(ty), _t(colg), nvl,
+                                deg=1)
+    _assert_blocks_equal(narrow, ref_ops.relation_block(
+        relation, tx, ty, colg, nvl, deg=1, backend="xla"))
+    assert (narrow[1] > 1).any()
+
+
+@pytest.mark.parametrize("relation", JOIN_RELATIONS)
+def test_join_blocks_equal_the_pallas_kernels(relation):
+    # one small shape each: interpret mode compiles once per shape
+    rng = np.random.default_rng(7)
+    nvl = 27
+    tabs = _segment_tables(rng, 2, 5, nvl, pad=1)
+    tx, ty, colg = _inputs(relation, tabs, rng)
+    deg = ops.DEFAULT_DEG[relation]
+    got = ops.relation_block(relation, _t(tx), _t(ty), _t(colg), nvl)
+    _assert_blocks_equal(got, relation_entries_pallas(
+        relation, tx, ty, colg, nvl=nvl, deg=deg, interpret=True))
+
+
+def test_dense_fallback_relations_raise():
+    t = torch.zeros((1, 4, 2), dtype=torch.int32)
+    c = torch.zeros((1, 4), dtype=torch.int32)
+    for relation in ("EE", "FF"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            ops.relation_block(relation, t, t, c, 8)
+    # keys past int32 take the dense fallback on the reference
+    big = torch.zeros((1, 4, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="dense fallback"):
+        ops.relation_block("TT", big, big, c, 2 ** 11)
+
+
+# -- the engine's completion API ---------------------------------------------
+
+RELS = ["VE", "VF", "VT", "EF", "ET", "FT", "TT"]
+
+
+@pytest.fixture(scope="module")
+def engines():
+    sm = ref_segment_mesh(ref_structured_grid(5, 5, 4), capacity=16)
+    ref_pre = ref_precondition(sm, RELS)
+    arrays = {k: getattr(ref_pre.smesh, k) for k in
+              ref_pre.smesh.__dataclass_fields__}
+    arrays.update({k: getattr(ref_pre.tables, k) for k in
+                   ref_pre.tables.__dataclass_fields__ if k != "inverse"})
+    arrays.update({k: getattr(ref_pre, k) for k in ("E", "I_E", "F", "I_F")})
+    pre = from_arrays(arrays)
+    return (RefEngine(ref_pre, RELS, tune="off", lookahead=2, batch_max=4),
+            RelationEngine(pre, RELS, device="cpu", lookahead=2,
+                           batch_max=4))
+
+
+def test_full_block_reads_equal_the_reference(engines):
+    ref, port = engines
+    ns = port.smesh.n_segments
+    for relation in ("TT", "FT", "EF"):
+        for s in (0, ns - 1, 3):
+            a, b = ref.get_full(relation, s), port.get_full(relation, s)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+            a = ref.get_full_dev(relation, s)
+            b = port.get_full_dev(relation, s)
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(np.asarray(x), y.numpy())
+        segs = [ns - 1, 2, 0, 2, 5]
+        a = ref.get_full_dev_batch(relation, segs, pad_to=8)
+        b = port.get_full_dev_batch(relation, segs, pad_to=8)
+        for x, y in zip(a, b):
+            assert tuple(y.shape[:1]) == (8,)
+            np.testing.assert_array_equal(np.asarray(x), y.numpy())
+    for f in ("requests", "kernel_launches", "segments_produced",
+              "cache_hits", "cache_misses"):
+        assert getattr(port.stats, f) == getattr(ref.stats, f), f
+    assert port.merged_worker_stats() == port.stats
+
+
+def test_inverse_maps_and_boundary_relations_equal_the_reference(engines):
+    ref, port = engines
+    rng = np.random.default_rng(3)
+    for kind in "EFT":
+        a, b = ref.dev_inverse(kind), port.dev_inverse(kind)
+        for x, y in zip(a[:3], b[:3]):
+            np.testing.assert_array_equal(np.asarray(x), y.numpy())
+        assert (a[3] is None) == (b[3] is None) and a[4] == b[4]
+        if a[3] is not None:
+            np.testing.assert_array_equal(np.asarray(a[3]), b[3].numpy())
+        n = {"E": port.pre.n_edges, "F": port.pre.n_faces,
+             "T": port.smesh.n_tets}[kind]
+        segs = rng.integers(0, port.smesh.n_segments, 200)
+        gids = rng.integers(0, n, 200)
+        np.testing.assert_array_equal(ref.local_rows(kind, segs, gids),
+                                      port.local_rows(kind, segs, gids))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        port.dev_inverse("T", shard=1)
+    ids = {"EV": port.pre.n_edges, "FV": port.pre.n_faces,
+           "TV": port.smesh.n_tets, "FE": port.pre.n_faces,
+           "TE": port.smesh.n_tets, "TF": port.smesh.n_tets}
+    for rel, n in ids.items():
+        q = rng.integers(0, n, 50)
+        np.testing.assert_array_equal(getattr(ref, f"boundary_{rel}")(q),
+                                      getattr(port, f"boundary_{rel}")(q))
