@@ -9,27 +9,44 @@ Phases, one JSON line each:
      together, sm_90a) with its ptxas report.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
-     VV/VE/VF/VT/FT/TT, once; both paths below share it.
+     VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
   3. kernels: each relation-entry kernel arm (VV, member, TT, sub-join for
      FT/EF/ET) held bit for bit against its plain torch version on the
      card, on the 96^3 tables at B=64 and on edge cases (B=1; prime sizes;
      a fully valid lane vector; rows with L > deg; lanes too large for
-     shared memory, which run from a device workspace). Times from CUDA
-     events beside the bound and the plain version's time.
+     shared memory, which run from a device workspace); then the two count
+     kernels of the dense fallback (meet: the 96^3 FF, EE and VF tables;
+     VV counts: the 96^3 tets) the same way, on B=1, prime sizes, all -1
+     rows, nvl=257 and ids of an oversize nvl=2**11. Times from CUDA
+     events beside the bound, the plain version's time and, for the count
+     kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick.
   4. critical-points path: ``RelationEngine(["VV","VT"])`` ->
      ``critical_points`` on the kernels and on the plain torch arm, with
      the launch counters zeroed just before the kernels' run and read just
-     after; ``types`` equal to the JAX reference's (pinned below).
-  5. gradient -> Morse-Smale path: ``RelationEngine(["VE","VF","VT","FT",
-     "TT"])`` -> ``discrete_gradient(co_prefetch=("TT",))`` ->
-     ``morse_smale`` on the kernels, counters zeroed just before and read
-     just after; Euler = chi, counts and SHA-256 digests equal to the JAX
-     reference's; ``morse_smale(adjacency="ft")`` (the sub-join kernel over
-     every segment) equal to the TT route; the plain torch arm equal too.
-  6. completion gather: the resolve + gather kernel held bit for bit
-     against its plain version on a real completion chunk of phase 5 (the
+     after; ``types`` equal to the JAX reference's (pinned below); then
+     the same path under ``assembly="dense"`` (the VV count and meet
+     kernels) with its own counters, ``types`` equal to the same pin.
+  5. gradient -> Morse-Smale path at 48^3 (phase 6 drives it at 96^3):
+     ``RelationEngine(["VE","VF","VT","FT","TT"])`` ->
+     ``discrete_gradient(co_prefetch=("TT",))`` -> ``morse_smale`` on the
+     kernels, counters zeroed just before and read just after; Euler =
+     chi, counts and SHA-256 digests equal to the JAX reference's;
+     ``morse_smale(adjacency="ft")`` (the sub-join kernel over every
+     segment) equal to the TT route; the plain torch arm equal too.
+  6. audit + persistence path at 96^3: ``RelationEngine(["VE","VF","VT",
+     "FT","TT","FF"])`` -> ``discrete_gradient(audit=True)`` (TT and FF
+     completion; FF blocks from the meet kernel) -> ``morse_smale`` ->
+     ``persistence_pairs`` -> ``simplify_ms`` on the kernels, counters
+     zeroed just before and read just after: the gradient, complex,
+     diagram and simplified complex equal to the JAX reference's.
+  7. completion gather: the resolve + gather kernel held bit for bit
+     against its plain version on a real completion chunk of phase 6 (the
      plan of 1024 paired tets, the pool from ``get_full_dev_batch``, the T
      inverse maps) and on edge cases; timed like phase 3.
+  8. the audit of a corrupted field and the completed FF rows of a seeded
+     face sample, equal on the kernels and the plain arm at 96^3; then
+     the whole audit + persistence path on both arms at 48^3, corrupted
+     audit and FF rows included, against the 48^3 pins.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -38,6 +55,7 @@ before that line; without a card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import itertools
 import json
@@ -95,8 +113,55 @@ REF_MS = {
          "ms_sha256": ("e1e19bfeb3dcfd92673548454d5a5d44"
                        "67520f0cda52b0458829d87f5bd4753d")},
 }
-# the plain torch arm of phase 5 runs at this size
-PLAIN_N = 96
+# The JAX reference's audit + persistence path at N=96 and N=48 (xla arm,
+# tune="off", device consumer arm, one worker), computed on a CPU with:
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c '<build the quickstart
+#   mesh at n; precondition(sm, RELS); eng = RelationEngine(pre, PATH_RELS,
+#   lookahead=8, dev_pool_segments=4096, backend="xla", tune="off");
+#   g = discrete_gradient(eng, pre, total_order(sm.scalars),
+#   batch_segments=16, co_prefetch=("TT",)); ms = morse_smale(eng, pre, g);
+#   d = persistence_pairs(eng, pre, rank, grad=g);
+#   simp, rep = simplify_ms(ms, d, THRESHOLD); print d.counts(), d.digest(),
+#   simp.counts(), rep, digest(simp, MS_FIELDS); at n=48 also
+#   audit_gradient(eng, pre, chip_smoke.corrupt(g, eng)) and
+#   rows_digest(*complete_adjacency(eng, "FF", ff_sample(pre.n_faces)))>'
+# (the helpers imported from this file; at n=48 with cache_segments=1<<20,
+# which changes how often a block is produced, never a result). Both n
+# give the gradient / complex digests of REF_MS. The reference's dense FF
+# production took 398 s on the CPU at 48^3 (454 launches); the 96^3 audit
+# needs it for 8x as many segments, about an hour at that rate, so the
+# corrupted audit and the FF rows are pinned at 48^3, and at 96^3 the two
+# arms are held against each other.
+REF_PATH = {
+    96: {"persistence": {"pairs0": 321, "pairs2": 5, "essential0": 1,
+                         "essential2": 0, "unpaired1": 342,
+                         "unpaired2": 342},
+         "pd_digest": "86046ba24978d989d1a028409a85fb39402d49dc",
+         "simplified": {"saddle1": 343, "saddle2": 344, "basins_min": 2,
+                        "basins_max": 2, "arcs": 10},
+         "cancelled": {"cancelled0": 320, "cancelled2": 3,
+                       "minima_before": 322, "minima_after": 2,
+                       "maxima_before": 5, "maxima_after": 2},
+         "simplified_sha256": ("1d38e7f9c19703244169cc78dab985d8"
+                               "0fae740ffbdf2995f8729d33097704cf")},
+    48: {"persistence": {"pairs0": 10, "pairs2": 2, "essential0": 1,
+                         "essential2": 0, "unpaired1": 13, "unpaired2": 13},
+         "pd_digest": "c930cd649635c108b9cb7e511eeed18dbb03b83e",
+         "simplified": {"saddle1": 14, "saddle2": 14, "basins_min": 2,
+                        "basins_max": 1, "arcs": 5},
+         "cancelled": {"cancelled0": 9, "cancelled2": 1, "minima_before": 11,
+                       "minima_after": 2, "maxima_before": 2,
+                       "maxima_after": 1},
+         "simplified_sha256": ("b7574124c413e6b0e6d60ebde04c73fc"
+                               "9e564d673ee91b53502d567fa87f454b"),
+         "bad_audit": {"tt_conflicts": 8, "ff_conflicts": 8,
+                       "reverse_mismatch": 11},
+         "ff_sha256": ("a12a7fb9069853e4a125d1d65ccfe8f1"
+                       "33bfebd299b38b8210ac4af0f6d1fe96")},
+}
+# the plain torch arm of phase 5, and both arms of phase 7's pinned
+# corrupted audit and FF rows, run at this size
+SMALL_N = 48
 
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
 # notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
@@ -106,6 +171,7 @@ INT32_OPS_PER_S = 67e12
 
 SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
 CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
+CT_SOURCE = "src/repro_torch/kernels/csrc/counts.cu"
 KERNELS = {
     "VV": {"name": "vv_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:360"},
@@ -117,8 +183,63 @@ KERNELS = {
             "replaces": "src/repro/kernels/segment_relations.py:413"},
     "gather": {"name": "resolve_gather_kernel", "source": CG_SOURCE,
                "replaces": "src/repro/kernels/completion_gather.py:209"},
+    "meet": {"name": "meet_counts_kernel", "source": CT_SOURCE,
+             "replaces": "src/repro/kernels/segment_relations.py:82"},
+    "vv_counts": {"name": "vv_counts_kernel", "source": CT_SOURCE,
+                  "replaces": "src/repro/kernels/segment_relations.py:101"},
 }
 _ARITY = {"E": 2, "F": 3, "T": 4}
+
+# the audit + persistence path: the gradient's queues, TT/FT for the
+# ascending connectivity, FF for the audit's edge -> face check
+PATH_RELS = ["VE", "VF", "VT", "FT", "TT", "FF"]
+THRESHOLD = 0.05             # simplify_ms persistence threshold
+SITES = 8                    # double claims of each kind in the bad field
+FF_SAMPLE = 512              # faces whose completed FF rows are digested
+
+
+def ff_sample(n_faces: int):
+    """The seeded sample of face ids whose completed FF rows are pinned."""
+    import numpy as np
+    return np.sort(np.random.default_rng(13).choice(n_faces, FF_SAMPLE,
+                                                    replace=False))
+
+
+def rows_digest(M, L) -> str:
+    """SHA-256 of completed rows: ``M`` (int64, as returned) then ``L``
+    (int32)."""
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(np.asarray(M, np.int64)))
+    h.update(np.ascontiguousarray(np.asarray(L, np.int32)))
+    return h.hexdigest()
+
+
+def corrupt(grad, ds):
+    """A copy of ``grad`` with ``SITES`` double claims of each kind, at
+    seeded sites: a tet claims a face that another tet is paired with (the
+    audit's TT check), and a face claims an edge that another face is
+    paired with (its FF check). Numpy and the data structure's boundary
+    relations only, so both packages corrupt the same sites."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    bad = dataclasses.replace(grad, pair_t2f=grad.pair_t2f.copy(),
+                              pair_f2e=grad.pair_f2e.copy())
+    for owner, claimed, boundary in (
+            (bad.pair_t2f, grad.pair_f2t, ds.boundary_TF),
+            (bad.pair_f2e, grad.pair_e2f, ds.boundary_FE)):
+        cand = rng.permutation(len(owner))[:64 * SITES]
+        bnd = boundary(cand)
+        done = 0
+        for c, row in zip(cand, bnd):
+            for s in row:
+                if claimed[s] >= 0 and claimed[s] != c and owner[c] != s:
+                    owner[c] = s
+                    done += 1
+                    break
+            if done == SITES:
+                break
+        check(done == SITES, "too few double-claim sites")
+    return bad
 
 
 def emit(obj) -> None:
@@ -171,12 +292,13 @@ def time_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
     return out[len(out) // 2]
 
 
-def bound_ms(nbytes: float, sorts) -> tuple:
+def bound_ms(nbytes: float, sorts, ops: float = 0.0) -> tuple:
     """Least time for the work: ``nbytes`` (each input read once, each
-    output written once) at the HBM rate, or the comparisons comparison
-    sorts of this run's valid entries need (n log2 n for each sort of n
-    entries) at the int32 proxy rate, whichever is larger."""
-    ops = sum(n * math.log2(n) for n in sorts if n > 1)
+    output written once) at the HBM rate, or the int32 operations (``ops``,
+    plus the comparisons that comparison sorts of this run's valid entries
+    need: n log2 n for each sort of n entries) at the int32 proxy rate,
+    whichever is larger."""
+    ops += sum(n * math.log2(n) for n in sorts if n > 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -201,9 +323,13 @@ def main() -> int:
     from repro_torch.algorithms.consume import degree_cols
     from repro_torch.algorithms.critical_points import critical_points, \
         total_order
-    from repro_torch.algorithms.discrete_gradient import discrete_gradient
+    from repro_torch.algorithms.discrete_gradient import audit_gradient, \
+        discrete_gradient
     from repro_torch.algorithms.morse_smale import morse_smale
-    from repro_torch.core.adjacency import plan_completion
+    from repro_torch.algorithms.persistence import persistence_pairs, \
+        simplify_ms
+    from repro_torch.core.adjacency import complete_adjacency, \
+        plan_completion
     from repro_torch.core.engine import RelationEngine
     from repro_torch.core.mesh import segment_mesh
     from repro_torch.core.segtables import precondition
@@ -218,7 +344,7 @@ def main() -> int:
 
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(["segment_relations", "completion_gather"])
+    libs = _build.build(["segment_relations", "completion_gather", "counts"])
     t_build = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in
                  (p.parent / "build.log").read_text().splitlines()
@@ -283,12 +409,17 @@ def main() -> int:
         check(ok, f"{relation} kernel disagrees with the plain arm ({case})")
         return want
 
-    def rand_tets(B, NT, nvl, fill=0.7, valid_all=False):
-        tab = np.full((B, NT, 4), -1, dtype=np.int32)
-        n = NT if valid_all else max(1, int(NT * fill))
+    def rand_simplices(B, n, arity, nvl, fill=0.8):
+        """(B, n, arity) rows of distinct random local vertices < nvl, the
+        last rows -1 padding."""
+        tab = np.full((B, n, arity), -1, dtype=np.int32)
+        k = max(1, int(n * fill))
         for b in range(B):
-            tab[b, :n] = np.argsort(rng.random((n, nvl)), axis=1)[:, :4]
+            tab[b, :k] = np.argsort(rng.random((k, nvl)), axis=1)[:, :arity]
         return tab
+
+    def rand_tets(B, NT, nvl, fill=0.7, valid_all=False):
+        return rand_simplices(B, NT, 4, nvl, 1.0 if valid_all else fill)
 
     def next_prime(n):
         while n < 2 or any(n % d == 0 for d in range(2, int(n ** 0.5) + 1)):
@@ -446,19 +577,124 @@ def main() -> int:
         if relation in ("VV", "VT", "TT", "FT"):
             timing[arm] = row
 
+    # -- 3b. the count kernels of the dense fallback ------------------------
+    def counts_compare(case, kind, *args):
+        if kind == "meet":
+            got = sr.relation_counts_meet_cuda(*args)
+            want = ops.counts_meet(*args, backend="torch")
+        else:
+            got = sr.relation_counts_vv_cuda(*args)
+            want = ops.counts_vv(*args, backend="torch")
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max()) if got.numel() \
+            else 0
+        max_err[kind] = max(max_err[kind], err)
+        ok = torch.equal(got, want)
+        emit({"phase": "kernel_case", "case": case, "relation": kind,
+              "shape": [list(a.shape) for a in args
+                        if isinstance(a, torch.Tensor)],
+              "nvl": args[1] if kind == "vv_counts" else None, "equal": ok,
+              "max_C": int(want.max()) if want.numel() else 0})
+        check(ok, f"the {kind} count kernel disagrees with the plain arm "
+                  f"({case})")
+        return want
+
+    Fm = cu(tabs.F_local[:BATCH])
+    Em = cu(tabs.E_local[:BATCH])
+    Vm = cu(tabs.table("V")[0][:BATCH])
+    meet_inputs = {"FF": (Fm, Fm), "EE": (Em, Em), "VF": (Vm, Fm)}
+    for relation, (tx, ty) in meet_inputs.items():
+        C = counts_compare(f"main {relation}", "meet", tx, ty)
+        check(int(C.max()) == min(tx.shape[2], ty.shape[2]),
+              f"no {relation} pair shares all of a row's vertices")
+        counts_compare(f"B=1 {relation}", "meet", tx[:1].contiguous(),
+                       ty[:1].contiguous())
+    counts_compare("main", "vv_counts", T, nvl)
+    counts_compare("B=1", "vv_counts", T[:1].contiguous(), nvl)
+    for n in (1, 7, 127, 1931):
+        m = next_prime(n + 1)
+        counts_compare(f"prime {n}x{m}", "meet",
+                       cu(rand_simplices(3, n, 3, 256)),
+                       cu(rand_simplices(3, m, 4, 256)))
+        counts_compare(f"prime {n}x{m}", "meet",
+                       cu(rand_simplices(3, n, 2, 256)),
+                       cu(rand_simplices(3, m, 2, 256)))
+        counts_compare(f"prime NT={n}", "vv_counts",
+                       cu(rand_tets(3, n, 256)), 256)
+    empty = cu(np.full((2, 131, 3), -1, np.int32))
+    C = counts_compare("all rows -1", "meet", empty, empty)
+    check(int(C.abs().sum()) == 0, "-1 rows met")
+    C = counts_compare("all rows -1", "vv_counts",
+                       cu(np.full((2, 131, 4), -1, np.int32)), 64)
+    check(int(C.abs().sum()) == 0, "-1 tets counted")
+    t257 = rand_tets(2, 1931, 257)
+    check(int(t257.max()) == 256, "no vertex id 256")
+    counts_compare("nvl=257", "vv_counts", cu(t257), 257)
+    counts_compare("ids past nvl", "vv_counts", cu(t257), 200)
+    big = 2 ** 11
+    counts_compare("oversize nvl=2**11", "meet",
+                   cu(rand_simplices(2, 1931, 3, big)),
+                   cu(rand_simplices(2, 1283, 4, big)))
+
+    # times on the real 96^3 tables at B=64, beside the plain version and
+    # one torch.bmm of prebuilt one-hot incidences (TF32 off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def onehot(tab, width):
+        iota = torch.arange(width, device=dev, dtype=torch.int32)
+        return (tab[:, :, None, :] == iota[None, None, :, None]).any(-1) \
+            .to(torch.float32)                        # (B, N, width)
+
+    Ax = onehot(Fm, nvl)
+    At = onehot(T, nvl).transpose(1, 2).contiguous()  # (B, nvl, NT)
+    C = ops.counts_meet(Fm, Fm)
+    k_ms = time_ms(torch, lambda: sr.relation_counts_meet_cuda(Fm, Fm))
+    p_ms = time_ms(torch, lambda: ops.counts_meet(Fm, Fm, backend="torch"),
+                   reps=5)
+    lib_ms = time_ms(torch, lambda: torch.bmm(Ax, Ax.transpose(1, 2)))
+    epi_ms = time_ms(torch, lambda: ops._compact(ops._predicate(
+        C, 2, True, False), cu(tabs.LF_global[:BATCH]), 48), reps=5)
+    # the slot compares the outputs need: ax * ay per output
+    b_ms, b_by = bound_ms(nbytes(Fm, Fm, C), [], ops=C.numel() * 9)
+    timing["meet"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel_time", "arm": "meet", "relation": "FF",
+          "shape": [list(Fm.shape), list(Fm.shape)], **timing["meet"],
+          "epilogue_ms": epi_ms,
+          "C_bytes": nbytes(C)})
+    C = ops.counts_vv(T, nvl)
+    k_ms = time_ms(torch, lambda: sr.relation_counts_vv_cuda(T, nvl))
+    p_ms = time_ms(torch, lambda: ops.counts_vv(T, nvl, backend="torch"),
+                   reps=5)
+    lib_ms = time_ms(torch, lambda: torch.bmm(At, At.transpose(1, 2)))
+    # one add per ordered slot pair of each valid tet
+    b_ms, b_by = bound_ms(nbytes(T, C), [],
+                          ops=16 * int((T >= 0).all(-1).sum()))
+    timing["vv_counts"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
+          "shape": [list(T.shape)], "nvl": nvl, **timing["vv_counts"],
+          "C_bytes": nbytes(C)})
+    del Ax, At, C
+
     # -- 4. the critical-points path -----------------------------------------
     # warm the arms up on a small mesh first (module loading, allocator
     # pools), so that the walls below compare like with like
     wsm = segment_mesh(quickstart_mesh(16), capacity=64)
     wpre = precondition(wsm, relations=RELS)
+    wrank = total_order(wsm.scalars)
     for backend in ("cuda", "torch"):
-        critical_points(RelationEngine(wpre, ["VV", "VT"], device="cuda",
-                                       backend=backend),
-                        wpre, total_order(wsm.scalars))
-        weng = RelationEngine(wpre, MS_RELS, device="cuda", backend=backend)
-        morse_smale(weng, wpre, discrete_gradient(
-            weng, wpre, total_order(wsm.scalars), batch_segments=16,
-            co_prefetch=("TT",)))
+        for assembly in ("sparse", "dense"):
+            critical_points(RelationEngine(wpre, ["VV", "VT"], device="cuda",
+                                           backend=backend,
+                                           assembly=assembly),
+                            wpre, wrank)
+        weng = RelationEngine(wpre, PATH_RELS, device="cuda", backend=backend)
+        wg = discrete_gradient(weng, wpre, wrank, batch_segments=16,
+                               co_prefetch=("TT",), audit=True)
+        wms = morse_smale(weng, wpre, wg)
+        simplify_ms(wms, persistence_pairs(weng, wpre, wrank, grad=wg),
+                    THRESHOLD)
     for backend in ("cuda", "torch"):
         if backend == "cuda":
             for k in sr.LAUNCHES:
@@ -498,6 +734,34 @@ def main() -> int:
     check(all(v > 0 for v in cp_launches.values()),
           f"a kernel was not launched on the critical-points path: "
           f"{cp_launches}")
+
+    # the same path under assembly="dense": VV through the VV count kernel,
+    # VT through the meet kernel, predicate and compaction in torch
+    for k in sr.LAUNCHES:
+        sr.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = RelationEngine(pre, ["VV", "VT"], lookahead=8, device="cuda",
+                         assembly="dense")
+    types, counts = critical_points(eng, pre, rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dense_launches = dict(sr.LAUNCHES)
+    digest_t = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
+    emit({"phase": "critical_points_path", "backend": "cuda",
+          "assembly": "dense", "n": N, "counts": counts,
+          "kernel_launches": eng.stats.kernel_launches,
+          "segments_produced": eng.stats.segments_produced,
+          "wall_s": round(wall, 3), "t_sync_s": round(eng.stats.t_sync, 3),
+          "t_kernel_s": round(eng.stats.t_kernel, 3),
+          "types_sha256": digest_t, "kernel_counters": dense_launches})
+    check(digest_t == REF_TYPES_SHA256,
+          "the dense-assembly types differ from the reference's")
+    check(dense_launches["vv_counts"] > 0 and dense_launches["meet"] > 0,
+          f"a count kernel was not launched on the dense critical-points "
+          f"path: {dense_launches}")
+    check(dense_launches["VV"] == dense_launches["member"] == 0,
+          "the dense assembly launched a sparse entry kernel")
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
     def ms_path(p, r, backend, n):
@@ -543,11 +807,15 @@ def main() -> int:
               f"{backend} Morse-Smale complex differs from the reference's")
         return eng, g, ms, out
 
+    # at 48^3: the audit + persistence path below drives the same gradient
+    # and complex at 96^3, against the same pins
+    check(chi == 1, f"the mesh's Euler characteristic is {chi}, not 1")
+    psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
+    ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
     for k in sr.LAUNCHES:
         sr.LAUNCHES[k] = 0
     cg.LAUNCHES["gather"] = 0
-    check(chi == 1, f"the mesh's Euler characteristic is {chi}, not 1")
-    eng, g, ms, out = ms_path(pre, rank, "cuda", N)
+    eng, g, ms, out = ms_path(ppre, prank, "cuda", SMALL_N)
     ms_launches = {k: sr.LAUNCHES[k] for k in ("member", "TT", "sub")}
     ms_launches["gather"] = cg.LAUNCHES["gather"]
     emit({**out, "kernel_counters": ms_launches})
@@ -561,7 +829,7 @@ def main() -> int:
     # the FT-gather route: the sub-join kernel over every segment
     t0 = time.perf_counter()
     sub_before = sr.LAUNCHES["sub"]
-    ms_ft = morse_smale(eng, pre, g, adjacency="ft")
+    ms_ft = morse_smale(eng, ppre, g, adjacency="ft")
     torch.cuda.synchronize()
     emit({"phase": "ms_ft_route", "wall_s": round(time.perf_counter() - t0,
                                                   3),
@@ -571,15 +839,87 @@ def main() -> int:
           "morse_smale(adjacency='ft') differs from the TT route")
 
     # the plain torch arm of the same path
-    if PLAIN_N == N:
-        ppre, prank = pre, rank
-    else:
-        psm = segment_mesh(quickstart_mesh(PLAIN_N), capacity=64)
-        ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
-    _, _, _, pout = ms_path(ppre, prank, "torch", PLAIN_N)
+    _, _, _, pout = ms_path(ppre, prank, "torch", SMALL_N)
     emit(pout)
+    del eng, g
 
-    # -- 6. the completion gather kernel against its plain version ----------
+    # -- 6. the audit + persistence path at 96^3 (its engine serves phase 7)
+    def audit_path(p, r, backend, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = RelationEngine(p, PATH_RELS, lookahead=8,
+                             dev_pool_segments=4096, device="cuda",
+                             backend=backend)
+        # raises ValueError unless every audit count is zero
+        g = discrete_gradient(eng, p, r, batch_segments=16,
+                              co_prefetch=("TT",), audit=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms = morse_smale(eng, p, g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d = persistence_pairs(eng, p, r, grad=g)
+        simp, rep = simplify_ms(ms, d, THRESHOLD)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        s = eng.stats
+        rep = {k: v for k, v in rep.items() if k != "threshold"}
+        out = {"phase": "audit_persistence_path", "backend": backend,
+               "n": n, "clean_audit": "zero (audit=True raised nothing)",
+               "grad_sha256": digest(g, GRAD_FIELDS),
+               "ms_sha256": digest(ms, MS_FIELDS),
+               "persistence": d.counts(), "pd_digest": d.digest(),
+               "simplified": simp.counts(), "cancelled": rep,
+               "simplified_sha256": digest(simp, MS_FIELDS),
+               "gradient_audit_wall_s": round(t1 - t0, 3),
+               "ms_wall_s": round(t2 - t1, 3),
+               "persistence_wall_s": round(t3 - t2, 3),
+               "kernel_launches": s.kernel_launches,
+               "segments_produced": s.segments_produced,
+               "completion_queries": s.completion_queries,
+               "completion_fanout_blocks": s.completion_fanout_blocks,
+               "t_sync_s": round(s.t_sync, 3),
+               "t_kernel_s": round(s.t_kernel, 3)}
+        ref, want = REF_MS[n], REF_PATH[n]
+        check(out["grad_sha256"] == ref["grad_sha256"]
+              and out["ms_sha256"] == ref["ms_sha256"],
+              f"{backend} {n}^3: gradient or complex differs from the "
+              f"reference's")
+        for key in ("persistence", "pd_digest", "simplified", "cancelled",
+                    "simplified_sha256"):
+            check(out[key] == want[key],
+                  f"{backend} {n}^3: {key} {out[key]} != reference "
+                  f"{want[key]}")
+        return eng, g, out
+
+    def bad_audit(eng, p, g):
+        t0 = time.perf_counter()
+        report = audit_gradient(eng, p, corrupt(g, eng))
+        t1 = time.perf_counter()
+        M, L = complete_adjacency(eng, "FF", ff_sample(p.n_faces))
+        t2 = time.perf_counter()
+        return {"bad_audit": report, "ff_sha256": rows_digest(M, L),
+                "bad_audit_wall_s": round(t1 - t0, 3),
+                "ff_sample_wall_s": round(t2 - t1, 3)}
+
+    for k in sr.LAUNCHES:
+        sr.LAUNCHES[k] = 0
+    cg.LAUNCHES["gather"] = 0
+    eng, g, out = audit_path(pre, rank, "cuda", N)
+    path_launches = {k: sr.LAUNCHES[k] for k in ("member", "TT", "sub",
+                                                 "meet")}
+    path_launches["gather"] = cg.LAUNCHES["gather"]
+    emit({**out, "kernel_counters": path_launches})
+    check(path_launches["meet"] > 0 and path_launches["gather"] > 0,
+          f"a kernel was not launched on the audit + persistence path: "
+          f"{path_launches}")
+    for k in ("member", "TT", "sub", "gather"):
+        launches[k] += path_launches[k]
+    launches["meet"] = dense_launches["meet"] + path_launches["meet"]
+    launches["vv_counts"] = dense_launches["vv_counts"]
+
+    # -- 7. the completion gather kernel against its plain version, on a
+    # real 96^3 completion chunk of phase 6's engine
     paired = np.nonzero(g.pair_t2f >= 0)[0]
     ids = paired[len(paired) // 2:len(paired) // 2 + CHUNK]
     plan = plan_completion(eng, "TT", ids, prefetch=False)
@@ -681,7 +1021,35 @@ def main() -> int:
           "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
           **timing["gather"]})
 
-    # -- 7. summary ------------------------------------------------------------
+    # -- 8. the corrupted audit and the FF rows, at 96^3 and 48^3 -----------
+    # the corrupted field's audit and a face sample's FF rows at 96^3 on
+    # both arms (their reference pins are at 48^3, checked below)
+    big = bad_audit(eng, pre, g)
+    del eng
+    peng = RelationEngine(pre, PATH_RELS, lookahead=8,
+                          dev_pool_segments=4096, device="cuda",
+                          backend="torch")
+    pbig = bad_audit(peng, pre, g)
+    del peng
+    emit({"phase": "bad_audit", "n": N, "cuda": big, "torch": pbig})
+    check(big["bad_audit"] == pbig["bad_audit"]
+          and big["ff_sha256"] == pbig["ff_sha256"],
+          "the corrupted audit or the FF rows differ between the arms")
+    check(big["bad_audit"]["tt_conflicts"] >= SITES
+          and big["bad_audit"]["ff_conflicts"] >= SITES,
+          f"the corrupted audit missed a double claim: {big['bad_audit']}")
+
+    for backend in ("cuda", "torch"):
+        seng, sg, sout = audit_path(ppre, prank, backend, SMALL_N)
+        small = bad_audit(seng, ppre, sg)
+        emit({**sout, **small})
+        for key in ("bad_audit", "ff_sha256"):
+            check(small[key] == REF_PATH[SMALL_N][key],
+                  f"{backend} {SMALL_N}^3: {key} {small[key]} != reference "
+                  f"{REF_PATH[SMALL_N][key]}")
+        del seng
+
+    # -- 9. summary ------------------------------------------------------------
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
                                             3)})
     emit({"kernels": [
@@ -690,7 +1058,8 @@ def main() -> int:
          "max_abs_err": max_err[arm], "ms": timing[arm]["ms"],
          "plain_ms": timing[arm]["plain_ms"],
          "bound_ms": timing[arm]["bound_ms"],
-         "bound_by": timing[arm]["bound_by"], "library_ms": None}
+         "bound_by": timing[arm]["bound_by"],
+         "library_ms": timing[arm].get("library_ms")}
         for arm, k in KERNELS.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

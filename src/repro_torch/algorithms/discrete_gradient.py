@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..core.adjacency import complete_adjacency
 from ..core.scheduler import run_partitioned, segment_batches
 from ..kernels import ops
 from . import consume
@@ -205,6 +206,62 @@ def _lower_star_batch(
     return crit_vertex, min_e, has_edge, pair, crit, exists
 
 
+def audit_gradient(ds, pre, grad: GradientField,
+                   batch: int = 4096, workers: int = 1,
+                   shards=None) -> Dict[str, int]:
+    """Cross-segment audit of the discrete vector field's matching property.
+
+    Lower stars partition the simplices, so pairing decisions made in
+    different segments can never claim the same cell — this audit verifies
+    that global invariant across segment boundaries using completed
+    adjacency (``core/adjacency.py``), requested in pipelined batches:
+
+    - ``tt_conflicts``: for every face->tet pair ``f -> t``, the *other*
+      cofacet of ``f`` (t's completed-TT neighbour across ``f``) must not
+      also be paired to ``f``.
+    - ``ff_conflicts``: for every edge->face pair ``e -> f``, no other face
+      containing ``e`` (an FF neighbour of ``f`` through ``e``) may claim
+      ``e`` as its paired edge.
+    - ``reverse_mismatch``: forward/reverse pair arrays must agree.
+
+    Requires a data structure with engine-native completion for TT and FF
+    (FF blocks come from the dense counts fallback: the meet kernel on a
+    card). All counts are zero for a valid field. ``shards`` other than
+    None or 1 raises."""
+    consume.shard_plan(ds, shards)
+    out = {"tt_conflicts": 0, "ff_conflicts": 0, "reverse_mismatch": 0}
+    f_paired = np.nonzero(grad.pair_f2t >= 0)[0]
+    out["reverse_mismatch"] += int(
+        (grad.pair_t2f[grad.pair_f2t[f_paired]] != f_paired).sum())
+    e_paired = np.nonzero(grad.pair_e2f >= 0)[0]
+    out["reverse_mismatch"] += int(
+        (grad.pair_f2e[grad.pair_e2f[e_paired]] != e_paired).sum())
+
+    if len(f_paired):
+        t = grad.pair_f2t[f_paired]
+        M, _ = complete_adjacency(ds, "TT", t, batch=batch, workers=workers)
+        deg = M.shape[1]
+        tf_nb = ds.boundary_TF(np.maximum(M, 0).reshape(-1)) \
+            .reshape(len(t), deg, 4)
+        across = (tf_nb == f_paired[:, None, None]).any(-1) & (M >= 0)
+        nb = np.where(across, M, -1)
+        claimed = (nb >= 0) & (grad.pair_t2f[np.maximum(nb, 0)]
+                               == f_paired[:, None])
+        out["tt_conflicts"] = int(claimed.any(-1).sum())
+    if len(e_paired):
+        fh = grad.pair_e2f[e_paired]
+        M, _ = complete_adjacency(ds, "FF", fh, batch=batch, workers=workers)
+        deg = M.shape[1]
+        fe_nb = ds.boundary_FE(np.maximum(M, 0).reshape(-1)) \
+            .reshape(len(fh), deg, 3)
+        through_e = (fe_nb == e_paired[:, None, None]).any(-1) & (M >= 0)
+        nb = np.where(through_e, M, -1)
+        claimed = (nb >= 0) & (grad.pair_f2e[np.maximum(nb, 0)]
+                               == e_paired[:, None])
+        out["ff_conflicts"] = int(claimed.any(-1).sum())
+    return out
+
+
 def _scatter_batch(g: GradientField, gid, veM, vfM, vtM,
                    crit_vx, min_e, has_edge, pair, crit,
                    de: int, df: int, dt: int) -> None:
@@ -291,12 +348,9 @@ def discrete_gradient(
     kernels execute behind the lower-star state machines. Relations the
     data structure does not serve are ignored.
 
-    ``audit=True`` needs FF completion, which needs the dense fallback
-    (not ported yet); ``shards`` other than None or 1 raises."""
-    if audit:
-        raise NotImplementedError(
-            "audit=True needs FF completion, which needs the dense fallback "
-            "(ROADMAP queue 1 item 7)")
+    ``audit=True`` runs :func:`audit_gradient` on the finished field and
+    raises ``ValueError`` on any conflict; ``shards`` other than None or 1
+    raises."""
     consume.shard_plan(ds, shards)
     sm = pre.smesh
     nv, nt = sm.n_vertices, sm.n_tets
@@ -387,4 +441,8 @@ def discrete_gradient(
     run_partitioned(batches, consume_batch, reduce_batch, workers=workers,
                     finalize=finalize, prefetch=prefetch, scope=ds,
                     name="discrete_gradient")
+    if audit:
+        report = audit_gradient(ds, pre, g, workers=workers, shards=shards)
+        if any(report.values()):
+            raise ValueError(f"gradient matching audit failed: {report}")
     return g

@@ -83,6 +83,13 @@ def _pointer_jump(succ: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def _jump_host(succ: np.ndarray, device) -> np.ndarray:
+    """Every V-path's end (:func:`_pointer_jump` on ``device``), on the
+    host."""
+    s = torch.from_numpy(np.asarray(succ, dtype=np.int64)).to(device)
+    return _pointer_jump(s).cpu().numpy()
+
+
 def _gather_ft(ds, pre, batch_segments: int = 16,
                workers: int = 1) -> np.ndarray:
     """Assemble the global FT table (nf, 2) through the data structure —
@@ -259,8 +266,7 @@ def morse_smale(ds, pre, grad: GradientField,
                               E[np.maximum(e, 0), 1],
                               E[np.maximum(e, 0), 0]),
                      np.arange(nv))
-    dest_min = _pointer_jump(
-        torch.from_numpy(other.astype(np.int64)).to(dev)).cpu().numpy()
+    dest_min = _jump_host(other, dev)
 
     # ---- ascending: tet successor through t->f pairs -----------------------
     s2 = np.nonzero(grad.crit_f)[0]
@@ -282,9 +288,7 @@ def morse_smale(ds, pre, grad: GradientField,
         succ_t = np.where((f >= 0) & (nxt >= 0), nxt, me)
         cof_s2 = ft[s2]
     # paths that exit through a boundary face stall on a non-critical tet
-    dest_t = _pointer_jump(
-        torch.from_numpy(np.asarray(succ_t, dtype=np.int64)).to(dev)
-    ).cpu().numpy()
+    dest_t = _jump_host(succ_t, dev)
     reached_max = grad.crit_t[dest_t]
     dest_max = np.where(reached_max, dest_t, -1)
 

@@ -48,7 +48,9 @@ for any number of consumer threads.
 
 This is the reference engine's single-shard path, with the completion
 API (full-block reads, device inverse maps, boundary relations), and with
-no fault policy and no kernel-parameter tuning: its built-in defaults
+no fault policy and no kernel-parameter tuning (the kernels pick their
+own tiles, so the reference's ``block_x``/``block_y``/``vv_block`` have
+no counterpart): its built-in defaults
 (``batch_max=64``, ``lookahead=8``, ``cache_segments=512``,
 ``dev_pool_segments=256``, ``inflight_max=8``) give the reference's
 ``tune="off"`` launch sequence.
@@ -260,9 +262,12 @@ class RelationEngine(StatsHost):
     Runs on ``device`` (``cuda`` unless the caller asks for another; a
     missing card raises). ``backend=None`` launches the CUDA kernels on a
     card and the plain torch arm on the CPU; ``backend="torch"`` runs the
-    plain arm on the card too. Safe for concurrent use by multiple consumer
-    threads: every public consumer method acquires the engine lock exactly
-    once; internal ``_``-prefixed steps assume it is held."""
+    plain arm on the card too. ``assembly="dense"`` sends every relation
+    through the dense counts fallback (the reference's A/B arm); the
+    default assembles sparsely wherever ``ops.sparse_arm_ok`` allows, and
+    EE/FF always take the dense arm. Safe for concurrent use by multiple
+    consumer threads: every public consumer method acquires the engine
+    lock exactly once; internal ``_``-prefixed steps assume it is held."""
 
     def __init__(
         self,
@@ -278,6 +283,7 @@ class RelationEngine(StatsHost):
         dev_pool_segments: int = 256,
         shards: int = 1,
         fault_policy=None,
+        assembly: str = "sparse",
     ):
         if pre.tables is None:
             raise ValueError("precondition(..., build_tables=True) required")
@@ -289,6 +295,10 @@ class RelationEngine(StatsHost):
                 "fault recovery is not ported yet (ROADMAP queue 1 item 10)")
         self.device = ops.resolve_device(device)
         self.backend = ops.resolve_backend(backend, self.device)
+        if assembly not in ops.ASSEMBLIES:
+            raise ValueError(f"assembly must be one of {ops.ASSEMBLIES}, "
+                             f"got {assembly!r}")
+        self.assembly = assembly
         self.pre = pre
         self.smesh = pre.smesh
         self.tables = pre.tables
@@ -876,7 +886,8 @@ class RelationEngine(StatsHost):
 
         t1 = time.perf_counter()
         M, L = ops.relation_block(relation, tabX, tabY, colg, nvl, deg=deg,
-                                  backend=self.backend)
+                                  backend=self.backend,
+                                  assembly=self.assembly)
         if self.device.type == "cuda":
             # queued behind the kernel on the same stream; the event marks
             # kernel + copies done, so integration never waits on a later

@@ -1,6 +1,7 @@
-"""Synthetic tetrahedral mesh generators (the subset the critical-points
-path and its tests use; the adversarial families come with the persistence
-slice).
+"""Synthetic tetrahedral mesh generators: the grids of the quickstart and
+the named datasets, and the adversarial families with analytically known
+topology that the persistence tests use (graded, sliver, tunnel, cavity,
+multi-component).
 
 The paper's datasets are (a) native unstructured tet meshes (Fish, Hole) and
 (b) regular volumes with null values removed, then tetrahedralized (Engine,
@@ -75,6 +76,16 @@ def structured_grid(
     return TetMesh(points=pts, tets=tets, scalars=np.asarray(scal, np.float32))
 
 
+def two_tets() -> TetMesh:
+    """The paper's Fig. 1/4 toy: two tetrahedra sharing a triangular face."""
+    pts = np.array([[0, 0, 0], [1, 0, 0], [0.5, 1, 0],
+                    [0.5, 0.5, 1], [0.5, 0.5, -1], [1.5, 1, 0]],
+                   dtype=np.float32)
+    tets = np.array([[0, 1, 2, 3], [0, 1, 2, 4], [1, 2, 3, 5]])
+    scal = np.array([2.0, 4.0, 5.0, 1.0, 0.0, 3.0], np.float32)
+    return TetMesh(points=pts, tets=tets, scalars=scal)
+
+
 def sphere_hole_mask(center, radius):
     """Cell mask removing a spherical hole (emulates 'Hole'-like data)."""
     c = np.asarray(center, dtype=np.float64)
@@ -82,6 +93,119 @@ def sphere_hole_mask(center, radius):
     def fn(centers):
         return np.linalg.norm(centers - c[None, :], axis=1) > radius
     return fn
+
+
+def cylinder_hole_mask(center2d, radius, axis=2):
+    """Cell mask drilling a through-hole along ``axis``: the removed cells
+    form a cylinder spanning the full extent, so the remaining solid is a
+    handlebody with one tunnel (β₁ += 1) instead of a cavity (β₂ += 1)."""
+    c = np.asarray(center2d, dtype=np.float64)
+    keep_axes = [a for a in range(3) if a != axis]
+
+    def fn(centers):
+        d = centers[:, keep_axes] - c[None, :]
+        return np.sqrt((d * d).sum(axis=1)) > radius
+    return fn
+
+
+def graded_grid(
+    nx: int, ny: int, nz: int,
+    ratio: float = 4.0, axis: int = 0,
+    scalar_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    cell_mask_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+) -> TetMesh:
+    """AMR-like geometric grading: the Kuhn topology of ``structured_grid``
+    with vertex coordinates along ``axis`` remapped by an exponential so
+    consecutive cell widths shrink geometrically — the last cell is
+    ``ratio`` times wider than the first. The map is strictly monotone, so
+    no tet is inverted or degenerate, but segment spatial densities vary by
+    ``ratio`` across the mesh (the refinement-region stress case for the
+    Morton segmentation and the device block pool)."""
+    if ratio <= 0:
+        raise ValueError(f"ratio must be positive, got {ratio}")
+    mesh = structured_grid(nx, ny, nz, cell_mask_fn=cell_mask_fn)
+    n = (nx, ny, nz)[axis]
+    span = float(n - 1)
+    t = mesh.points[:, axis].astype(np.float64) / span
+    if abs(ratio - 1.0) > 1e-12:
+        warped = span * (np.power(ratio, t) - 1.0) / (ratio - 1.0)
+    else:
+        warped = span * t
+    mesh.points[:, axis] = warped.astype(np.float32)
+    if scalar_fn is not None:
+        mesh.scalars = np.asarray(scalar_fn(mesh.points), np.float32)
+    return mesh
+
+
+def anisotropic_grid(
+    nx: int, ny: int, nz: int,
+    aspect=(1.0, 1.0, 0.1), shear: float = 0.0,
+    scalar_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+    cell_mask_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+) -> TetMesh:
+    """Sliver-heavy anisotropic tets: the structured grid scaled per axis by
+    ``aspect`` (a small component flattens every Kuhn tet into a sliver)
+    plus an optional x-by-z ``shear``. The map is linear with determinant
+    ``prod(aspect) != 0``, so volumes shrink but never vanish or flip —
+    adversarial geometry with unchanged (analytically known) topology."""
+    a = np.asarray(aspect, dtype=np.float64)
+    if (a <= 0).any():
+        raise ValueError(f"aspect components must be positive, got {aspect}")
+    mesh = structured_grid(nx, ny, nz, cell_mask_fn=cell_mask_fn)
+    pts = mesh.points.astype(np.float64) * a[None, :]
+    pts[:, 0] += shear * pts[:, 2]
+    mesh.points = pts.astype(np.float32)
+    if scalar_fn is not None:
+        mesh.scalars = np.asarray(scalar_fn(mesh.points), np.float32)
+    return mesh
+
+
+def component_stride(nx: int, gap: float = 3.0) -> float:
+    """x-distance between copies of a :func:`multi_component` mesh — the
+    value field constructors (``fields.per_component``) need to recover the
+    component index from a point's x coordinate."""
+    return float(nx - 1) + float(gap)
+
+
+def multi_component(
+    k: int, nx: int, ny: int, nz: int,
+    gap: float = 3.0, hole: Optional[str] = None,
+    scalar_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None,
+) -> TetMesh:
+    """``k`` disjoint translated copies of a grid along x, each optionally
+    carrying a hole — the multi-component family with closed-form Betti
+    numbers. Per copy: ``hole=None`` is a solid box (β = 1,0,0),
+    ``"cavity"`` removes an interior ball (β = 1,0,1 — an enclosed void),
+    ``"tunnel"`` drills a cylinder through z (β = 1,1,0 — a handle). Totals
+    are k-fold sums, so χ = V - E + F - T = k·(1 - β₁ + β₂) is an analytic
+    invariant the property suite checks per family."""
+    if k < 1:
+        raise ValueError(f"need k >= 1 components, got {k}")
+    if hole not in (None, "cavity", "tunnel"):
+        raise ValueError(f"hole must be None/'cavity'/'tunnel', got {hole!r}")
+    mask = None
+    if hole == "cavity":
+        # strictly interior ball: never touches the outer boundary
+        c = ((nx - 1) / 2, (ny - 1) / 2, (nz - 1) / 2)
+        mask = sphere_hole_mask(c, max(1.1, min(nx, ny, nz) / 4))
+    elif hole == "tunnel":
+        c = ((nx - 1) / 2, (ny - 1) / 2)
+        mask = cylinder_hole_mask(c, max(1.1, min(nx, ny) / 4), axis=2)
+    stride = component_stride(nx, gap)
+    pts, tets, off = [], [], 0
+    for j in range(k):
+        m = structured_grid(nx, ny, nz, cell_mask_fn=mask)
+        p = m.points.copy()
+        p[:, 0] += j * stride
+        pts.append(p)
+        tets.append(m.tets + off)
+        off += len(p)
+    points = np.concatenate(pts, axis=0)
+    tetarr = np.concatenate(tets, axis=0)
+    scal = (scalar_fn(points) if scalar_fn is not None
+            else np.zeros(len(points)))
+    return TetMesh(points=points, tets=tetarr,
+                   scalars=np.asarray(scal, np.float32))
 
 
 # Named datasets, the same constructors as the reference's pool.

@@ -1,19 +1,26 @@
-"""Relation-block dispatch: the plain PyTorch arm of the sparse entry
-assembly and the backend fork onto the hand-written CUDA kernels.
+"""Relation-block dispatch: the plain PyTorch arms of the sparse entry
+assembly and of the dense counts fallback, and the backend fork onto the
+hand-written CUDA kernels.
 
 Backends:
   - ``"torch"`` : plain PyTorch on the tensors' own device — the entry
                   inversion (sort, dedup, row-boundary search, gather) of
-                  :func:`_invert_entries`; the CPU path, and on a card the
-                  yardstick the kernels are held against
-  - ``"cuda"``  : the hand-written Hopper kernels of
-                  ``kernels/csrc/segment_relations.cu`` through
-                  :func:`~repro_torch.kernels.segment_relations.relation_entries_cuda`;
+                  :func:`_invert_entries`, and the counts of
+                  :func:`_counts_pairwise` / :func:`_counts_vv_onehot`; the
+                  CPU path, and on a card the yardstick the kernels are held
+                  against
+  - ``"cuda"``  : the hand-written Hopper kernels of ``kernels/csrc/``
+                  through :mod:`~repro_torch.kernels.segment_relations`;
                   CUDA tensors only
 
-Both arms are bit-identical to the reference package's ``xla`` and
-``pallas`` arms for VV/VE/VF/VT/TT/EF/ET/FT. EE/FF and the oversize-key
-dense fallback are not ported yet.
+Assembly: VV/VE/VF/VT/TT/EF/ET/FT are assembled sparsely (entries ->
+``(M, L)``) while their keys fit int32 (:func:`sparse_arm_ok`); EE/FF
+(count predicates, not membership), oversize keys and
+``assembly="dense"`` take the dense fallback — counts ``C``, then the
+predicate and the compaction (:func:`_predicate`, :func:`_compact`) in
+torch, as the reference computes that epilogue outside its kernels. Both
+arms are bit-identical to the reference package's ``xla`` and ``pallas``
+arms for every relation.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ PREDICATE = {
 }
 
 BACKENDS = ("torch", "cuda")
+ASSEMBLIES = ("sparse", "dense")
 
 _BIG = int(np.iinfo(np.int32).max)
 
@@ -239,9 +247,6 @@ def _block_sub_join(tabX, tabY, col_global, nvl: int, deg: int):
     return _invert_entries(row, order, val, ok, R=NX, O=NY, deg=deg)
 
 
-SPARSE_RELATIONS = ("VV", "VE", "VF", "VT", "TT", "EF", "ET", "FT")
-
-
 def sparse_arm_ok(relation: str, tabX, tabY, nvl: int) -> bool:
     """True when ``relation`` has a sparse entry-assembly arm AND its entry
     keys fit int32 — the reference's guard, so both packages take the
@@ -261,6 +266,94 @@ def sparse_arm_ok(relation: str, tabX, tabY, nvl: int) -> bool:
     return False
 
 
+def _counts_pairwise(tabX: torch.Tensor, tabY: torch.Tensor) -> torch.Tensor:
+    """Shared-vertex counts by direct slot comparison: ``C[b, x, y]`` =
+    number of valid ``tabX[b, x]`` slots whose vertex appears in
+    ``tabY[b, y]`` (the reference xla arm's meet counts; a ``-1`` x slot
+    never scores, so ``-1 == -1`` never counts). ``C`` does not depend on
+    ``nvl``."""
+    B, NX, ax = tabX.shape
+    C = torch.zeros((B, NX, tabY.shape[1]), dtype=torch.int32,
+                    device=tabX.device)
+    for i in range(ax):
+        xi = tabX[:, :, i]                                    # (B, NX)
+        m = (xi[:, :, None, None] == tabY[:, None, :, :]).any(-1)
+        C += (m & (xi >= 0)[:, :, None]).to(torch.int32)
+    return C
+
+
+def _counts_vv_onehot(T_local: torch.Tensor, nvl: int) -> torch.Tensor:
+    """Shared-tet counts ``C (B, nvl, nvl)``, diagonal included, as the
+    reference's ``ref.relation_counts_vv``: the product of the one-hot
+    (vertex, tet) incidence with itself. The one-hot is built in float32
+    (a CUDA ``bmm`` takes no int32): its entries are 0 and 1, exact in
+    float32 and in TF32, and the sums (at most NT) are exact float32
+    integers, so the product is exact whatever the TF32 setting."""
+    B, NT, _ = T_local.shape
+    iota = torch.arange(nvl, device=T_local.device, dtype=T_local.dtype)
+    A = (T_local[:, None, :, :] == iota[None, :, None, None]).any(-1)
+    A = A.to(torch.float32)                                   # (B, nvl, NT)
+    return torch.bmm(A, A.transpose(1, 2)).to(torch.int32)
+
+
+def counts_meet(tabX: torch.Tensor, tabY: torch.Tensor,
+                backend: Optional[str] = None) -> torch.Tensor:
+    """Shared-vertex counts ``C (B, NX, NY)`` int32 of ``(B, N, arity)``
+    tables: the meet kernel on a card, :func:`_counts_pairwise` on the
+    CPU or with ``backend="torch"``."""
+    if resolve_backend(backend, tabX.device) == "cuda":
+        from .segment_relations import relation_counts_meet_cuda
+        return relation_counts_meet_cuda(tabX, tabY)
+    return _counts_pairwise(tabX, tabY)
+
+
+def counts_vv(T_local: torch.Tensor, nvl: int,
+              backend: Optional[str] = None) -> torch.Tensor:
+    """Shared-tet counts ``C (B, nvl, nvl)`` int32 of the ``(B, NT, 4)``
+    tet table: the VV count kernel on a card, :func:`_counts_vv_onehot`
+    on the CPU or with ``backend="torch"``."""
+    if resolve_backend(backend, T_local.device) == "cuda":
+        from .segment_relations import relation_counts_vv_cuda
+        return relation_counts_vv_cuda(T_local, nvl)
+    return _counts_vv_onehot(T_local, nvl)
+
+
+def _predicate(C: torch.Tensor, k: int, exact: bool,
+               exclude_diag: bool) -> torch.Tensor:
+    """Counts -> boolean relation block (``C == k`` or ``C >= k``); VV
+    drops the diagonal (a vertex is not its own neighbour)."""
+    m = (C == k) if exact else (C >= k)
+    if exclude_diag:
+        n = min(C.shape[1], C.shape[2])
+        i = torch.arange(n, device=C.device)
+        m[:, i, i] = False
+    return m
+
+
+def _compact(mask: torch.Tensor, col_global: torch.Tensor, deg: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Boolean relation rows -> ``(M (B, R, deg), L (B, R))`` int32: the
+    global ids of the set columns in ascending local order (``-1`` padded)
+    and the TRUE row counts (overflow past ``deg`` stays visible to the
+    engine's width check).
+
+    Set columns score ``N - column`` and the rest 0, so ``topk`` yields
+    "all set columns, ascending". Scores of set columns are distinct; ties
+    occur only at 0, whose slots are masked to ``-1``, so the result is the
+    same whatever order ``topk`` gives the ties. ``k = min(deg, N)``, and
+    ``M`` right-pads with ``-1`` when a table is narrower than ``deg``."""
+    B, R, N = mask.shape
+    iota = torch.arange(N, device=mask.device, dtype=torch.int32)
+    scores = torch.where(mask, N - iota, 0).to(torch.int32)
+    k = min(deg, N)
+    vals, idx = torch.topk(scores, k, dim=2, sorted=True)
+    gathered = torch.gather(col_global[:, None, :].expand(B, R, N), 2, idx)
+    M = torch.where(vals > 0, gathered, -1).to(torch.int32)
+    if k < deg:
+        M = torch.nn.functional.pad(M, (0, deg - k), value=-1)
+    return M, mask.sum(2).to(torch.int32)
+
+
 def relation_block(
     relation: str,
     tabX: torch.Tensor,       # (B, NX, ax) rows table (or T_local for VV)
@@ -269,33 +362,42 @@ def relation_block(
     nvl: int,
     deg: Optional[int] = None,
     backend: Optional[str] = None,
+    assembly: str = "sparse",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Entries -> ``(M (B, R, deg), L (B, R))`` int32, on the tables' device.
+    """Entries (or counts -> predicate -> compaction) -> ``(M (B, R,
+    deg), L (B, R))`` int32, on the tables' device.
 
     For VV, pass ``tabX = tabY = T_local`` and ``col_global = LV_global``;
     rows/cols are local vertices. ``backend=None`` launches the CUDA
     kernels on CUDA tensors and runs the plain torch arm on CPU tensors;
     ``backend="torch"`` forces the plain arm on any device, and
-    ``backend="cuda"`` on CPU tensors raises."""
-    if relation not in SPARSE_RELATIONS:
-        raise NotImplementedError(
-            f"relation {relation!r} needs the dense fallback, which comes "
-            f"with ROADMAP queue 1 item 7")
+    ``backend="cuda"`` on CPU tensors raises. The sparse/dense fork is the
+    reference's: sparse while :func:`sparse_arm_ok`, dense otherwise;
+    ``assembly="dense"`` forces the dense fallback for every relation (the
+    reference's benchmark A/B arm)."""
+    if assembly not in ASSEMBLIES:
+        raise ValueError(f"assembly must be one of {ASSEMBLIES}, "
+                         f"got {assembly!r}")
+    k, exact = PREDICATE[relation]
     deg = DEFAULT_DEG[relation] if deg is None else deg
-    if not sparse_arm_ok(relation, tabX, tabY, nvl):
-        raise NotImplementedError(
-            f"relation {relation!r} at nvl={nvl} needs the dense fallback "
-            f"(keys overflow int32), which comes with ROADMAP queue 1 item 7")
     backend = resolve_backend(backend, tabX.device)
     colg = col_global.to(torch.int32)
-    if backend == "cuda":
-        from .segment_relations import relation_entries_cuda
-        return relation_entries_cuda(relation, tabX, tabY, colg,
-                                     nvl=nvl, deg=deg)
+    if assembly == "sparse" and sparse_arm_ok(relation, tabX, tabY, nvl):
+        if backend == "cuda":
+            from .segment_relations import relation_entries_cuda
+            return relation_entries_cuda(relation, tabX, tabY, colg,
+                                         nvl=nvl, deg=deg)
+        if relation == "VV":
+            return _block_vv(tabX, colg, nvl, deg)
+        if relation in ("VE", "VF", "VT"):
+            return _block_member_v(tabY, colg, nvl, deg)
+        if relation == "TT":
+            return _block_tt(tabX, colg, nvl, deg)
+        return _block_sub_join(tabX, tabY, colg, nvl, deg)
     if relation == "VV":
-        return _block_vv(tabX, colg, nvl, deg)
-    if relation in ("VE", "VF", "VT"):
-        return _block_member_v(tabY, colg, nvl, deg)
-    if relation == "TT":
-        return _block_tt(tabX, colg, nvl, deg)
-    return _block_sub_join(tabX, tabY, colg, nvl, deg)
+        mask = _predicate(counts_vv(tabX, nvl, backend), k, exact,
+                          exclude_diag=True)
+    else:
+        mask = _predicate(counts_meet(tabX, tabY, backend), k, exact,
+                          exclude_diag=False)
+    return _compact(mask, colg, deg)

@@ -23,11 +23,21 @@ arm is :func:`repro_torch.kernels.ops._block_vv` /
 :func:`~repro_torch.kernels.ops._block_sub_join`; the kernels are
 bit-identical to it.
 
-The wrapper takes CUDA int32 tensors only and raises on anything else; it
-allocates the outputs (and, when a segment's lanes exceed the per-block
-shared-memory limit, a lane workspace in device memory), launches on the
-current stream without synchronising, and raises on a refused launch.
-``LAUNCHES`` counts kernel launches per arm.
+Two more kernels (``csrc/counts.cu``) compute the count blocks of the dense
+fallback arm, from which ``ops`` builds ``(M, L)`` by predicate and
+compaction: :func:`relation_counts_meet_cuda` (shared-vertex counts,
+replacing ``_meet_kernel``) and :func:`relation_counts_vv_cuda`
+(shared-tet counts, replacing ``_vv_kernel``). Their plain versions are
+:func:`repro_torch.kernels.ops._counts_pairwise` and
+:func:`~repro_torch.kernels.ops._counts_vv_onehot`; the kernels are
+bit-identical to them.
+
+The wrappers take CUDA int32 tensors only and raise on anything else; they
+allocate the outputs (and, when a segment's lanes exceed the per-block
+shared-memory limit, a lane workspace in device memory), launch on the
+current stream without synchronising, and raise on a refused launch.
+``LAUNCHES`` counts kernel launches per arm (``"meet"`` and
+``"vv_counts"`` for the two count kernels).
 """
 
 from __future__ import annotations
@@ -41,7 +51,8 @@ import torch
 
 from . import _build
 
-LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0, "TT": 0, "sub": 0}
+LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0, "TT": 0, "sub": 0,
+                             "meet": 0, "vv_counts": 0}
 _LAUNCH_LOCK = threading.Lock()
 _SMEM_LIMIT: Dict[int, int] = {}
 
@@ -56,6 +67,7 @@ def _lib() -> ctypes.CDLL:
         lib.sr_smem_optin_limit.restype = _I
         lib.sr_error_string.argtypes = [_I]
         lib.sr_error_string.restype = ctypes.c_char_p
+        lib.repro_error_string = lib.sr_error_string
         lib.sr_vv_entries.argtypes = [_I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _I, _P]
         lib.sr_vv_entries.restype = _I
@@ -72,9 +84,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _counts_lib() -> ctypes.CDLL:
+    lib = _build.load("counts")
+    if not getattr(lib, "_repro_bound", False):
+        lib.ct_error_string.argtypes = [_I]
+        lib.ct_error_string.restype = ctypes.c_char_p
+        lib.repro_error_string = lib.ct_error_string
+        lib.ct_meet_counts.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        lib.ct_meet_counts.restype = _I
+        lib.ct_vv_counts.argtypes = [_I, _P, _P, _I, _I, _I, _P]
+        lib.ct_vv_counts.restype = _I
+        lib._repro_bound = True
+    return lib
+
+
 def _check_rc(lib, rc: int, what: str) -> None:
     if rc != 0:
-        msg = lib.sr_error_string(rc).decode(errors="replace")
+        msg = lib.repro_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} failed: cudaError {rc} ({msg})")
 
 
@@ -97,8 +123,7 @@ _SUB_ARITY = {"EF": (2, 3), "ET": (2, 4), "FT": (3, 4)}
 
 def smem_limit(device: torch.device) -> int:
     """Shared memory one block may opt into on ``device``, in bytes."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
+    idx = _dev_index(device)
     if idx not in _SMEM_LIMIT:
         lib = _lib()
         out = _I(0)
@@ -106,6 +131,15 @@ def smem_limit(device: torch.device) -> int:
                   "cudaDeviceGetAttribute")
         _SMEM_LIMIT[idx] = out.value
     return _SMEM_LIMIT[idx]
+
+
+def _count(arm: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[arm] += 1
+
+
+def _dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
@@ -188,7 +222,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     if 4 * per + extra > smem_limit(dev):
         work = torch.empty(B * per, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    idx = _dev_index(dev)
     wp = work.data_ptr() if work is not None else None
     if arm == "VV":
         rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
@@ -209,6 +243,70 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
                                 L.data_ptr(), wp, B, N, ax, NY, ay, nvl,
                                 deg, E, stream)
     _check_rc(lib, rc, f"{arm} entry kernel launch")
-    with _LAUNCH_LOCK:
-        LAUNCHES[arm] += 1
+    _count(arm)
     return M, L
+
+
+# the grid's y and z extents
+_GRID_YZ = 65535
+# rows of C per block of the meet count kernel (csrc/counts.cu)
+_MEET_TX = 64
+
+
+def relation_counts_meet_cuda(tabX: torch.Tensor, tabY: torch.Tensor
+                              ) -> torch.Tensor:
+    """Shared-vertex counts ``C (B, NX, NY)`` int32: ``C[b, x, y]`` is the
+    number of valid slots of ``tabX[b, x]`` whose vertex appears among the
+    slots of ``tabY[b, y]``; ``-1`` slots never count. Tables are ``(B, N,
+    arity)`` int32 with arities 1..4, on one CUDA device."""
+    for name, t in (("tabX", tabX), ("tabY", tabY)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 3:
+            raise ValueError(f"{name} must be a (B, N, arity) tensor")
+    B, NX, ax = tabX.shape
+    NY, ay = tabY.shape[1], tabY.shape[2]
+    _check(tabX, "tabX", (B, NX, ax))
+    _check(tabY, "tabY", (B, NY, ay))
+    if tabY.device != tabX.device:
+        raise ValueError("tabX and tabY must share one device")
+    if not (1 <= ax <= 4 and 1 <= ay <= 4):
+        raise ValueError(f"arities must be 1..4, got {ax} and {ay}")
+    if B > _GRID_YZ or -(-NX // _MEET_TX) > _GRID_YZ:
+        raise ValueError(f"B={B}, NX={NX} exceed the kernel's grid")
+    dev = tabX.device
+    C = torch.empty((B, NX, NY), dtype=torch.int32, device=dev)
+    if C.numel() == 0:
+        return C
+    lib = _counts_lib()
+    rc = lib.ct_meet_counts(_dev_index(dev), tabX.data_ptr(),
+                            tabY.data_ptr(), C.data_ptr(), B, NX, ax, NY, ay,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "meet count kernel launch")
+    _count("meet")
+    return C
+
+
+def relation_counts_vv_cuda(T_local: torch.Tensor, nvl: int) -> torch.Tensor:
+    """Shared-tet counts ``C (B, nvl, nvl)`` int32: ``C[b, i, j]`` is the
+    number of tets of ``T_local[b]`` (``(B, NT, 4)`` int32, ``-1`` padded)
+    that contain both local vertices ``i`` and ``j``, diagonal included.
+    Vertex ids outside ``[0, nvl)`` count nowhere."""
+    if not isinstance(T_local, torch.Tensor) or T_local.dim() != 3:
+        raise ValueError("T_local must be a (B, NT, 4) tensor")
+    B, NT, _ = T_local.shape
+    _check(T_local, "T_local", (B, NT, 4))
+    if T_local.data_ptr() % 16:
+        raise ValueError("T_local must be 16-byte aligned (int4 rows)")
+    nvl = int(nvl)
+    if nvl < 0 or B > _GRID_YZ:
+        raise ValueError(f"nvl={nvl}, B={B} out of range")
+    dev = T_local.device
+    C = torch.empty((B, nvl, nvl), dtype=torch.int32, device=dev)
+    if C.numel() == 0:
+        return C
+    lib = _counts_lib()
+    rc = lib.ct_vv_counts(_dev_index(dev), T_local.data_ptr(), C.data_ptr(),
+                          B, NT, nvl,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "VV count kernel launch")
+    _count("vv_counts")
+    return C

@@ -1,12 +1,16 @@
 """Where a path's time goes on a card.
 
     PYTHONPATH=src python -m repro_torch.profile_path [--n 96] [--profile-n 48]
-                                  [--path critical_points|gradient_ms]
+                  [--path critical_points|gradient_ms|audit_persistence]
 
 ``--path critical_points`` (the default) runs ``critical_points`` on an
 engine over VV/VT; ``--path gradient_ms`` runs ``discrete_gradient
 (co_prefetch=("TT",))`` -> ``morse_smale`` on an engine over
-VE/VF/VT/FT/TT. Prints one JSON line per measurement:
+VE/VF/VT/FT/TT; ``--path audit_persistence`` runs ``discrete_gradient
+(audit=True)`` -> ``morse_smale`` -> ``persistence_pairs`` ->
+``simplify_ms`` (threshold 0.05) on an engine over VE/VF/VT/FT/TT/FF, the
+audit's FF blocks coming from the dense counts fallback. Prints one JSON
+line per measurement:
 
   - ``turns``: after a warm-up of both arms on a 16³ mesh, the path
     at ``n``³ in turns — kernels (``backend="cuda"``), plain torch, plain
@@ -37,6 +41,7 @@ from .algorithms import fields
 from .algorithms.critical_points import critical_points, total_order
 from .algorithms.discrete_gradient import discrete_gradient
 from .algorithms.morse_smale import morse_smale
+from .algorithms.persistence import persistence_pairs, simplify_ms
 from .core.engine import RelationEngine
 from .core.mesh import segment_mesh
 from .core.segtables import precondition
@@ -48,7 +53,8 @@ def _emit(obj) -> None:
 
 
 _RELS = {"critical_points": ["VV", "VT"],
-         "gradient_ms": ["VE", "VF", "VT", "FT", "TT"]}
+         "gradient_ms": ["VE", "VF", "VT", "FT", "TT"],
+         "audit_persistence": ["VE", "VF", "VT", "FT", "TT", "FF"]}
 
 
 def _prepare(n: int, path: str):
@@ -70,8 +76,14 @@ def _run(pre, rank, backend: str, path: str):
                              dev_pool_segments=4096, device="cuda",
                              backend=backend)
         g = discrete_gradient(eng, pre, rank, batch_segments=16,
-                              co_prefetch=("TT",))
-        counts = {**g.counts(), **morse_smale(eng, pre, g).counts()}
+                              co_prefetch=("TT",),
+                              audit=path == "audit_persistence")
+        ms = morse_smale(eng, pre, g)
+        counts = {**g.counts(), **ms.counts()}
+        if path == "audit_persistence":
+            d = persistence_pairs(eng, pre, rank, grad=g)
+            counts.update(d.counts())
+            counts["simplified"] = simplify_ms(ms, d, 0.05)[0].counts()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, eng.stats, counts
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
 entry-assembly arm (VV, member, TT, sub-join) at the main path's shapes and
 at edge sizes (including lanes too large for shared memory), the completion
-gather kernel, and the critical-points and gradient -> Morse-Smale paths on
-the ``cuda`` backend against the CPU. These tests need an NVIDIA card and
+gather kernel, the meet and VV count kernels of the dense fallback, and the
+critical-points (both assemblies), gradient -> Morse-Smale and audit +
+persistence paths on the ``cuda`` backend against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
 
@@ -162,3 +163,89 @@ def test_analyze_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_array_equal(getattr(ms, name),
                                       getattr(want_ms, name))
     assert eng.backend == "cuda"
+
+
+def _rand_simplices(rng, B, N, arity, nvl, fill=0.8):
+    tab = np.full((B, N, arity), -1, dtype=np.int32)
+    n = max(1, int(N * fill)) if N else 0
+    for b in range(B):
+        tab[b, :n] = np.argsort(rng.random((n, nvl)), axis=1)[:, :arity]
+    return tab
+
+
+@pytest.mark.parametrize("ax,ay", [(1, 4), (2, 2), (3, 3), (3, 4)])
+@pytest.mark.parametrize("B,NX,NY,nvl", [(1, 1, 7, 16), (3, 127, 131, 256),
+                                         (64, 1920, 1920, 256),
+                                         (2, 1931, 1283, 2 ** 11)])
+def test_meet_kernel_equals_plain_arm(cuda, ax, ay, B, NX, NY, nvl):
+    rng = np.random.default_rng(NX + ax)
+    tx = torch.from_numpy(_rand_simplices(rng, B, NX, ax, nvl)).to(cuda)
+    ty = torch.from_numpy(_rand_simplices(rng, B, NY, ay, nvl)).to(cuda)
+    before = segment_relations.LAUNCHES["meet"]
+    got = ops.counts_meet(tx, ty)
+    want = ops.counts_meet(tx, ty, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert segment_relations.LAUNCHES["meet"] == before + 1
+
+
+@pytest.mark.parametrize("B,NT,nvl", [(1, 1, 8), (3, 127, 64),
+                                      (64, 896, 256), (2, 1931, 257),
+                                      (2, 131, 200)])
+def test_vv_counts_kernel_equals_plain_arm(cuda, B, NT, nvl):
+    rng = np.random.default_rng(NT)
+    # ids up to 256: with nvl=200 some lie past nvl and count nowhere
+    tt = torch.from_numpy(_rand_tets(rng, B, NT, max(nvl, 257))).to(cuda)
+    before = segment_relations.LAUNCHES["vv_counts"]
+    got = ops.counts_vv(tt, nvl)
+    want = ops.counts_vv(tt, nvl, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert segment_relations.LAUNCHES["vv_counts"] == before + 1
+
+
+@pytest.mark.parametrize("relation", ["FF", "EE", "TT", "VV"])
+def test_dense_blocks_on_the_card_equal_plain_arm(cuda, relation):
+    rng = np.random.default_rng(len(relation))
+    nvl = 64
+    a = {"F": 3, "E": 2, "T": 4, "V": 4}[relation[0]]
+    tab = torch.from_numpy(_rand_simplices(rng, 4, 300, a, nvl)).to(cuda)
+    N = nvl if relation == "VV" else 300
+    colg = torch.from_numpy(
+        rng.integers(0, 10 ** 6, (4, N)).astype(np.int32)).to(cuda)
+    got = ops.relation_block(relation, tab, tab, colg, nvl, deg=16,
+                             assembly="dense")
+    want = ops.relation_block(relation, tab, tab, colg, nvl, deg=16,
+                              backend="torch", assembly="dense")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_count_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    t = torch.zeros((1, 4, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="arities"):
+        segment_relations.relation_counts_meet_cuda(t, t)
+    t = torch.zeros((1, 4, 8), dtype=torch.int32, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_relations.relation_counts_vv_cuda(t, 8)
+
+
+@pytest.mark.parametrize("assembly", ["sparse", "dense"])
+def test_analyze_audit_persistence_on_the_card_equals_the_cpu(cuda,
+                                                               assembly):
+    from repro_torch.algorithms.critical_points import total_order
+    from repro_torch.algorithms.discrete_gradient import audit_gradient
+    from repro_torch.algorithms.persistence import persistence_pairs
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        pre, _, eng, cp, g, ms = analyze.run(12, device=device, audit=True,
+                                             assembly=assembly)
+        d = persistence_pairs(eng, pre, total_order(pre.smesh.scalars),
+                              grad=g)
+        out[device] = (cp, audit_gradient(eng, pre, g), d.digest(),
+                       ms.counts())
+    assert out["cuda"] == out["cpu"]
+    assert not any(out["cuda"][1].values())
+

@@ -117,8 +117,6 @@ def test_unported_options_raise():
     pre = precondition(sm, RELS)
     eng = RelationEngine(pre, RELS, device="cpu")
     rank = total_order(sm.scalars)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        discrete_gradient(eng, pre, rank, audit=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         discrete_gradient(eng, pre, rank, shards=2)
     g = discrete_gradient(eng, pre, rank, shards=1)

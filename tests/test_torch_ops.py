@@ -159,8 +159,15 @@ def test_cuda_backend_on_cpu_tensors_raises():
         ops.relation_block("VV", t, t, c, 8, backend="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         segment_relations.relation_entries_cuda("VV", t, t, c, nvl=8, deg=4)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        ops.relation_block("EE", t, t, c, 8)
+    # EE has no CUDA-only path on CPU tensors: the dense fallback's plain
+    # arm gives the reference's block
+    e = torch.tensor([[[0, 1], [1, 2], [2, 3], [0, 3]]], dtype=torch.int32)
+    ce = torch.tensor([[5, 6, 7, 8]], dtype=torch.int32)
+    want = ref_ops.relation_block("EE", e.numpy(), e.numpy(), ce.numpy(), 8,
+                                  backend="xla")
+    got = ops.relation_block("EE", e, e, ce, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_cuda_device_without_a_card_raises():

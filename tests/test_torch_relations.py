@@ -115,15 +115,26 @@ def test_join_blocks_equal_the_pallas_kernels(relation):
 
 
 def test_dense_fallback_relations_raise():
-    t = torch.zeros((1, 4, 2), dtype=torch.int32)
-    c = torch.zeros((1, 4), dtype=torch.int32)
+    """EE/FF and keys past int32 take the dense fallback (counts ->
+    predicate -> compaction) in both packages, with equal blocks. (The
+    name is the one this check had while the fallback raised.)"""
+    rng = np.random.default_rng(11)
+    tabs = _segment_tables(rng, 2, 7, 29, pad=2)
     for relation in ("EE", "FF"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ops.relation_block(relation, t, t, c, 8)
-    # keys past int32 take the dense fallback on the reference
-    big = torch.zeros((1, 4, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dense fallback"):
-        ops.relation_block("TT", big, big, c, 2 ** 11)
+        tx, ty, colg = _inputs(relation, tabs, rng)
+        got = ops.relation_block(relation, _t(tx), _t(ty), _t(colg), 29)
+        _assert_blocks_equal(got, ref_ops.relation_block(
+            relation, tx, ty, colg, 29, backend="xla"))
+        assert got[1].max() > 0
+    # nvl = 2**11: TT keys (nvl**3) overflow int32 -> the dense fork
+    tx, _, colg = _inputs("TT", tabs, rng)
+    big = rng.permutation(2 ** 11)[tx].astype(np.int32)
+    big[tx < 0] = -1
+    assert not ops.sparse_arm_ok("TT", _t(big), _t(big), 2 ** 11)
+    got = ops.relation_block("TT", _t(big), _t(big), _t(colg), 2 ** 11)
+    _assert_blocks_equal(got, ref_ops.relation_block(
+        "TT", big, big, colg, 2 ** 11, backend="xla"))
+    assert got[1].max() > 0
 
 
 # -- the engine's completion API ---------------------------------------------
