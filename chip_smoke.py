@@ -47,6 +47,21 @@ Phases, one JSON line each:
      face sample, equal on the kernels and the plain arm at 96^3; then
      the whole audit + persistence path on both arms at 48^3, corrupted
      audit and FF rows included, against the 48^3 pins.
+  9. flash attention: the kernel held against its plain version (float32
+     2e-5, bf16 2e-2) causal and unmasked, in float32 and bf16, at head
+     dims 64/80/128/256 with GQA 8/1 and 28/4 and MHA, ragged S and T in
+     both orders, S=1, and the qwen2-7b prefill shape (B 4, S 4096, H 28,
+     KV 4, hd 128, bf16), where it is timed beside its plain version, its
+     bound and one ``scaled_dot_product_attention`` call.
+ 10. the JAX reference's full-width LM pins (``LM_PINS``), on both
+     attention arms: qwen2-7b at full width cut to two layers and
+     whisper-base whole, float32, weights from ``reference_tree``.
+ 11. qwen2-7b served at full width and depth in bf16 (weights from a
+     seeded generator on the card): ``serve.main`` (4 prompts of 32
+     tokens, 16 generated), then ``make_prefill_step`` at B=4 and S=4096
+     and S=1000 on both arms in turns, 28 flash launches per call on the
+     kernels' arm and the arms' logits within ``LM_ARM_TOL``; walls,
+     tokens/s and the peak device memory.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -165,13 +180,16 @@ SMALL_N = 48
 
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
 # notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
-# entry for the kernels' int32 compare/select work.
+# entry for the kernels' int32 compare/select work; for attention, the bf16
+# tensor-core rate (bf16 inputs) and the float32 rate (float32 inputs).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
 CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
 CT_SOURCE = "src/repro_torch/kernels/csrc/counts.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 KERNELS = {
     "VV": {"name": "vv_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:360"},
@@ -187,6 +205,8 @@ KERNELS = {
              "replaces": "src/repro/kernels/segment_relations.py:82"},
     "vv_counts": {"name": "vv_counts_kernel", "source": CT_SOURCE,
                   "replaces": "src/repro/kernels/segment_relations.py:101"},
+    "flash": {"name": "flash_fwd_kernel", "source": FA_SOURCE,
+              "replaces": "src/repro/kernels/flash_attention.py:27"},
 }
 _ARITY = {"E": 2, "F": 3, "T": 4}
 
@@ -196,6 +216,74 @@ PATH_RELS = ["VE", "VF", "VT", "FT", "TT", "FF"]
 THRESHOLD = 0.05             # simplify_ms persistence threshold
 SITES = 8                    # double claims of each kind in the bad field
 FF_SAMPLE = 512              # faces whose completed FF rows are digested
+
+# the LM pins: name -> (B, S, input seed); weights from reference_tree(cfg,
+# 0). qwen2 S=2048 takes the reference's _sdpa_chunked branch, S=100 its
+# _sdpa (ragged for the kernel's 64-row tiles); "generate" is B=2 prompts
+# of 16 tokens, 8 generated against a 64-slot cache
+LM_PIN_SHAPES = {"S2048": (2, 2048, 1), "S100": (2, 100, 2),
+                 "generate": (2, 16, 3), "whisper": (2, 64, 4)}
+LM_GEN, LM_CACHE = 8, 64
+WHISPER_FRAMES = 1500        # whisper-base's encoder length (30 s of audio)
+# The JAX reference's LM pins: next tokens and the last position's top-5
+# logit ids and values of prefill_fn / make_prefill_step, and the tokens of
+# generate, for qwen2-7b at full width cut to two layers and whisper-base
+# whole, both in float32, weights reference_tree(cfg, 0), inputs
+# lm_pin_inputs; computed on a CPU (41.9 s, 13.5 GB peak) with:
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py
+LM_PINS = {
+    "S2048": {
+        "next": [75891, 80767],
+        "top5_ids": [
+            [75891, 144058, 109321, 141320, 142762],
+            [80767, 5966, 2819, 115156, 66661],
+        ],
+        "top5_vals": [
+            [3.831724166870117, 3.7599329948425293, 3.720322608947754,
+             3.7033567428588867, 3.673661708831787],
+            [4.035569190979004, 3.9780266284942627, 3.935800790786743,
+             3.9269869327545166, 3.5532479286193848],
+        ],
+    },
+    "S100": {
+        "next": [58784, 97940],
+        "top5_ids": [
+            [58784, 88911, 41335, 44748, 149245],
+            [97940, 108315, 94469, 45696, 48513],
+        ],
+        "top5_vals": [
+            [4.077881813049316, 3.6961779594421387, 3.6643362045288086,
+             3.5785322189331055, 3.554067850112915],
+            [3.703197479248047, 3.5661468505859375, 3.5211055278778076,
+             3.4783902168273926, 3.4681692123413086],
+        ],
+    },
+    "generate": {
+        "tokens": [
+            [410, 56831, 5109, 141207, 105574, 64505, 67653, 76115],
+            [28909, 93678, 130455, 112053, 57057, 74346, 55146, 24222],
+        ],
+    },
+    "whisper": {
+        "next": [32068, 28059],
+        "top5_ids": [
+            [32068, 36330, 41602, 27098, 31555],
+            [28059, 38540, 31306, 21009, 36599],
+        ],
+        "top5_vals": [
+            [3.3055849075317383, 3.1613049507141113, 3.140183925628662,
+             3.132631778717041, 3.1045970916748047],
+            [3.4208157062530518, 3.297736406326294, 3.2097878456115723,
+             3.1924920082092285, 3.191192150115967],
+        ],
+    },
+}
+# the bf16 prefill logits of the two attention arms at full depth: the
+# kernel keeps the probabilities in float32 where _sdpa rounds them to bf16
+# before the PV product, and 28 layers carry the difference; held within
+# this share of the largest logit (on an H100 80GB HBM3 the arms differed
+# by 0.020 of it at S=4096 and 0.018 at S=1000)
+LM_ARM_TOL = 0.05
 
 
 def ff_sample(n_faces: int):
@@ -240,6 +328,176 @@ def corrupt(grad, ds):
                 break
         check(done == SITES, "too few double-claim sites")
     return bad
+
+
+def reference_tree(cfg, seed: int):
+    """A parameter tree in the JAX reference's layout (``lm.init_params``:
+    nested dicts of float32 numpy arrays, each layer group stacked on a
+    leading axis) for a dense or encdec ``cfg``, drawn from children of
+    ``SeedSequence(seed)``: truncated normals in [-2, 2] x the reference's
+    scales (1/sqrt(fan-in); 1/sqrt(H*hd) for ``wo``; 1 for the embedding;
+    0.02 for the position tables), norm gains 1 + 0.1 n, and small nonzero
+    biases 0.02 n so that every bias add is exercised. Pure numpy: the pin
+    computation (``tools/lm_pins.py``) and the card build the same tree."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    f32 = np.float32
+    root = np.random.SeedSequence(seed)
+    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    pool = ThreadPoolExecutor(8)
+
+    def normal(shape, trunc):
+        """Standard normals (truncated to [-2, 2] when ``trunc``), drawn in
+        chunks of 2**22, each from its own child of this array's seed, on
+        threads: the numbers do not depend on the thread count."""
+        out = np.empty(int(np.prod(shape)), f32)
+        chunk = 1 << 22
+        seeds = root.spawn(1)[0].spawn(-(-out.size // chunk))
+
+        def fill(i):
+            g = np.random.Generator(np.random.PCG64(seeds[i]))
+            x = out[i * chunk:(i + 1) * chunk]
+            x[:] = g.standard_normal(x.size, dtype=f32)
+            while trunc:
+                bad = np.abs(x) > 2
+                if not bad.any():
+                    break
+                x[bad] = g.standard_normal(int(bad.sum()), dtype=f32)
+        list(pool.map(fill, range(len(seeds))))
+        return out.reshape(shape)
+
+    def tn(shape, scale):
+        x = normal(shape, True)
+        x *= f32(scale)
+        return x
+
+    def small(shape):
+        return f32(0.02) * normal(shape, False)
+
+    def norm(lead):
+        p = {"g": f32(1) + f32(0.1) * normal(lead + (D,), False)}
+        if cfg.norm == "layernorm":
+            p["b"] = small(lead + (D,))
+        return p
+
+    def attn(L, bias):
+        s = 1.0 / np.sqrt(D)
+        p = {"wq": tn((L, D, H, hd), s), "wk": tn((L, D, KV, hd), s),
+             "wv": tn((L, D, KV, hd), s),
+             "wo": tn((L, H, hd, D), 1.0 / np.sqrt(H * hd))}
+        if bias:
+            p.update(bq=small((L, H, hd)), bk=small((L, KV, hd)),
+                     bv=small((L, KV, hd)))
+        return p
+
+    def block(L, cross=False):
+        names = ("wi", "wo") if cfg.norm == "layernorm" else \
+            ("wi", "wg", "wo")
+        mlp = {n: {"w": tn((L, F, D), 1.0 / np.sqrt(F)) if n == "wo"
+                   else tn((L, D, F), 1.0 / np.sqrt(D))} for n in names}
+        p = {"ln1": norm((L,)), "attn": attn(L, cfg.qkv_bias),
+             "ln2": norm((L,)), "mlp": mlp}
+        if cross:
+            p["ln_x"] = norm((L,))
+            p["xattn"] = attn(L, False)
+        return p
+
+    tree = {"embed": {"table": tn((cfg.vocab, D), 1.0)}, "ln_f": norm(())}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"w": tn((D, cfg.vocab), 1.0 / np.sqrt(D))}
+    if cfg.family == "dense":
+        tree["layers"] = block(cfg.n_layers)
+    else:
+        tree["enc_layers"] = block(cfg.enc_layers)
+        tree["dec_layers"] = block(cfg.n_layers, cross=True)
+        tree["pos_enc"] = tn((cfg.max_pos, D), 0.02)
+        tree["pos_dec"] = tn((cfg.max_pos, D), 0.02)
+        tree["ln_enc"] = norm(())
+    pool.shutdown()
+    return tree
+
+
+def lm_pin_inputs(cfg, name: str):
+    """The seeded numpy inputs of one LM pin: ``tokens`` (B, S) int32 (and
+    ``frames`` (B, 1500, D) float32 for whisper), or ``prompts`` for the
+    generate pin."""
+    import numpy as np
+    B, S, seed = LM_PIN_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(0, 1, (B, WHISPER_FRAMES, cfg.d_model)) \
+            .astype(np.float32)
+    return out
+
+
+def lm_pin_cfg(configs, arch: str):
+    """The configuration a pin runs: qwen2-7b at full width cut to two
+    layers, whisper-base whole; both in float32. ``configs`` is either
+    package's ``configs`` module."""
+    cfg = configs.get_config(arch)
+    if arch == "qwen2-7b":
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def lm_pin_run(torch, dev, backend):
+    """The port's results for every LM pin, on ``dev`` through ``backend``,
+    in ``LM_PINS``' layout, with the flash launches of each ``prefill_fn``
+    call (counter zeroed just before, read just after)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import lm
+
+    out, launches = {}, {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def prefill(model, cfg, batch, name):
+        sync()
+        fa.LAUNCHES["flash"] = 0
+        logits, _ = lm.prefill_fn(model, batch, cfg, backend)
+        sync()
+        launches[name] = fa.LAUNCHES["flash"]
+        nxt = steps.make_prefill_step(cfg, backend)(model, batch)
+        vals, ids = torch.topk(logits[:, -1].float(), 5, dim=-1)
+        out[name] = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
+                     "top5_vals": vals.tolist()}
+
+    cfg = lm_pin_cfg(configs, "qwen2-7b")
+    model = lm.params_from_reference(reference_tree(cfg, 0), cfg, dev)
+    for name in ("S2048", "S100"):
+        prefill(model, cfg, {"tokens": torch.from_numpy(
+            lm_pin_inputs(cfg, name)["tokens"]).to(dev)}, name)
+    prompts = lm_pin_inputs(cfg, "generate")["tokens"]
+    out["generate"] = {"tokens": serve.generate(
+        cfg, model, prompts, LM_GEN, LM_CACHE, backend=backend).tolist()}
+    del model
+    cfg = lm_pin_cfg(configs, "whisper-base")
+    model = lm.params_from_reference(reference_tree(cfg, 0), cfg, dev)
+    prefill(model, cfg, {k: torch.from_numpy(v).to(dev) for k, v in
+                         lm_pin_inputs(cfg, "whisper").items()}, "whisper")
+    return out, launches
+
+
+def check_lm_pins(got, what: str) -> None:
+    """Tokens and top-5 ids exactly the reference's, top-5 logit values
+    within rtol 1e-3."""
+    for name, want in LM_PINS.items():
+        for key in ("next", "top5_ids", "tokens"):
+            if key in want:
+                check(got[name][key] == want[key],
+                      f"{what} {name}: {key} {got[name][key]} != reference "
+                      f"{want[key]}")
+        if "top5_vals" in want:
+            for g, w in zip(sum(got[name]["top5_vals"], []),
+                            sum(want["top5_vals"], [])):
+                check(abs(g - w) <= 1e-3 * abs(w),
+                      f"{what} {name}: top-5 logit {g} != reference {w}")
 
 
 def emit(obj) -> None:
@@ -308,6 +566,194 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def lm_phases(torch, dev, max_err, timing, launches) -> None:
+    """Phases 9-11: the flash kernel's cases and times, the full-width LM
+    pins on both arms, and qwen2-7b served at full width and depth. Fills
+    the ``"flash"`` entries of ``max_err``, ``timing`` and ``launches``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, specs, steps
+    from repro_torch.models import lm
+
+    # -- 9. the flash-attention kernel against its plain version ------------
+    t_lm = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fa_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    max_err["flash"] = 0.0
+
+    def attn_inputs(B, S, T, H, KV, hd, dt):
+        return [torch.randn(shape, device=dev, generator=gen).to(dt)
+                for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
+
+    def flash_compare(case, B, S, T, H, KV, hd, causal, dt):
+        q, k, v = attn_inputs(B, S, T, H, KV, hd, dt)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = fa_tol[dt]
+        ok = got.dtype == dt and bool(torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol))
+        max_err["flash"] = max(max_err["flash"], err)
+        emit({"phase": "kernel_case", "case": case, "relation": "flash",
+              "B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
+              "causal": causal, "dtype": str(dt).split(".")[-1],
+              "max_abs_err": err, "tol": tol, "close": ok})
+        check(ok, f"the flash kernel disagrees with its plain version "
+                  f"({case}, {dt}, causal={causal})")
+
+    # head dims of the reference's docstring, each with a head layout:
+    # GQA 8/1 and 28/4, MHA; ragged S and T in both orders
+    heads = {64: (8, 1), 80: (4, 4), 128: (28, 4), 256: (16, 16)}
+    for dt in (torch.float32, torch.bfloat16):
+        for hd, (H, KV) in heads.items():
+            for causal in (True, False):
+                flash_compare(f"hd {hd} H {H} KV {KV}", 2, 130, 130, H, KV,
+                              hd, causal, dt)
+                flash_compare(f"hd {hd} S<T", 1, 100, 150, H, KV, hd,
+                              causal, dt)
+    for causal in (True, False):
+        flash_compare("ragged S<T", 1, 1000, 1500, 8, 1, 64, causal,
+                      torch.float32)
+        flash_compare("ragged S>T", 1, 1500, 1000, 8, 1, 64, causal,
+                      torch.float32)
+    flash_compare("S=1", 2, 1, 37, 8, 8, 64, True, torch.float32)
+    flash_compare("S=1 cross", 2, 1, WHISPER_FRAMES, 8, 8, 64, False,
+                  torch.bfloat16)
+    flash_compare("qwen2-7b prefill", 4, 4096, 4096, 28, 4, 128, True,
+                  torch.bfloat16)
+
+    # times at the qwen2-7b prefill shape: the kernel, its plain version,
+    # and one SDPA call on the same (B, S, H, hd) views as yardstick
+    B, S, H, KV, hd = 4, 4096, 28, 4, 128
+    q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.bfloat16)
+    k_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                          causal=True),
+                   reps=10)
+    p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v,
+                                                         causal=True),
+                   reps=2, rounds=3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True),
+                     reps=10)
+    pairs = S * (S + 1) // 2                  # causal, T = S
+    flops = 4 * B * H * hd * pairs
+    moved = nbytes(q, k, v) + nbytes(q)       # q, k, v read; o written
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S["bfloat16"] * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    timing["flash"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel_time", "arm": "flash", "B": B, "S": S, "H": H,
+          "KV": KV, "hd": hd, "causal": True, "dtype": "bfloat16",
+          "flops": flops, "bytes": moved,
+          "tflops_per_s": flops / k_ms / 1e9, **timing["flash"]})
+    del q, k, v, qt, kt, vt
+
+    # -- 10. the full-width LM pins of the JAX reference, on both arms -----
+    for backend in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        got, pin_launches = lm_pin_run(torch, dev, backend)
+        torch.cuda.synchronize()
+        emit({"phase": "lm_pins", "backend": backend, "results": got,
+              "flash_launches": pin_launches,
+              "wall_s": round(time.perf_counter() - t0, 3)})
+        check_lm_pins(got, backend)
+        want = {"S2048": 2, "S100": 2, "whisper": 18} if backend == "cuda" \
+            else {"S2048": 0, "S100": 0, "whisper": 0}
+        check(pin_launches == want, f"{backend}: flash launches per "
+              f"prefill {pin_launches} != {want}")
+    torch.cuda.empty_cache()
+
+    # -- 11. qwen2-7b served at full width and depth, bf16 -----------------
+    cfg = configs.get_config("qwen2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES["flash"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        toks = serve.main(["--arch", "qwen2-7b", "--batch", "4",
+                           "--prompt-len", "32", "--gen", "16",
+                           "--cache-len", "128"])
+    main_wall = time.perf_counter() - t0
+    check(toks.shape == (4, 16) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"serve.main gave {toks}")
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32),
+                                                dtype=np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = serve.generate(cfg, model, prompts, 16, 128)
+    gen_wall = time.perf_counter() - t0
+    emit({"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "serve_line": out.getvalue().strip(),
+          "main_wall_s": round(main_wall, 3),
+          "generate_wall_s": round(gen_wall, 3),
+          "tokens_per_s": 4 * (32 + 16) / gen_wall,
+          "same_tokens_as_main": bool(np.array_equal(again, toks)),
+          "params": sum(p.numel() for p in model.parameters())})
+
+    for S in (4096, 1000):
+        batch = specs.concrete_batch(
+            cfg, ShapeConfig(f"prefill_{S}", S, 4, "prefill"), rng=S,
+            device=dev)
+        logits, nxt, walls = {}, {}, {"cuda": [], "torch": []}
+        for backend in ("cuda", "torch"):      # warm-up, and the logits
+            logits[backend] = lm.prefill_fn(model, batch, cfg,
+                                            backend)[0][:, -1].float()
+        for backend in ("cuda", "torch", "torch", "cuda"):
+            step = steps.make_prefill_step(cfg, backend)
+            torch.cuda.synchronize()
+            before = fa.LAUNCHES["flash"]
+            t0 = time.perf_counter()
+            nxt[backend] = step(model, batch)
+            torch.cuda.synchronize()
+            walls[backend].append(time.perf_counter() - t0)
+            n = fa.LAUNCHES["flash"] - before
+            check(n == (cfg.n_layers if backend == "cuda" else 0),
+                  f"{backend} prefill at S={S} launched the flash kernel "
+                  f"{n} times")
+        diff = float((logits["cuda"] - logits["torch"]).abs().max())
+        scale = float(logits["torch"].abs().max())
+        share = float((nxt["cuda"] == nxt["torch"]).float().mean())
+        emit({"phase": "lm_prefill", "arch": cfg.name, "B": 4, "S": S,
+              "walls_s": walls, "tokens_per_s": {
+                  b: 4 * S / min(w) for b, w in walls.items()},
+              "flash_launches_per_call": cfg.n_layers,
+              "logit_max_abs_diff": diff, "logit_max_abs": scale,
+              "equal_next_tokens": share,
+              "kernel_share": (k_ms * cfg.n_layers / 1e3
+                               / min(walls["cuda"]) if S == 4096 else None)})
+        check(torch.isfinite(logits["cuda"]).all(), "non-finite logits")
+        check(diff <= LM_ARM_TOL * scale,
+              f"S={S}: the arms' bf16 logits differ by {diff} "
+              f"(max |logit| {scale})")
+    torch.cuda.synchronize()
+    launches["flash"] = fa.LAUNCHES["flash"]
+    emit({"phase": "lm_memory", "peak_allocated_gib":
+          torch.cuda.max_memory_allocated() / 2 ** 30,
+          "flash_launches": launches["flash"],
+          "lm_phases_wall_s": round(time.perf_counter() - t_lm, 3)})
+    # three cuda-arm prefill calls at each of the two lengths
+    check(launches["flash"] == 6 * cfg.n_layers,
+          f"the LM path launched the flash kernel {launches['flash']} "
+          f"times, not {6 * cfg.n_layers}")
+    del model, logits
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -344,7 +790,8 @@ def main() -> int:
 
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(["segment_relations", "completion_gather", "counts"])
+    libs = _build.build(["segment_relations", "completion_gather", "counts",
+                         "flash_attention"])
     t_build = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in
                  (p.parent / "build.log").read_text().splitlines()
@@ -1049,7 +1496,9 @@ def main() -> int:
                   f"{REF_PATH[SMALL_N][key]}")
         del seng
 
-    # -- 9. summary ------------------------------------------------------------
+    lm_phases(torch, dev, max_err, timing, launches)
+
+    # -- 12. summary ---------------------------------------------------------
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
                                             3)})
     emit({"kernels": [

@@ -1,0 +1,330 @@
+"""Shared layers of the LM substrate, ported from the reference's
+``models/layers.py``: norms, rotary embeddings, GQA/MQA/MHA attention with
+a KV cache, GLU and GELU MLPs, the embedding and its transpose.
+
+Parameters live in small ``nn.Module``s with the reference's names and
+head-shaped layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``), in the config's
+compute dtype: the reference keeps float32 masters and casts them with
+``.astype(dtype)`` at every use, and rounding once at load gives the same
+values. Norm gains and biases stay float32, as the reference applies them
+in float32. The functions take a module, as the reference's take a dict.
+
+Attention without a KV cache forks on ``backend``: ``"cuda"`` runs the
+hand-written flash-attention kernel (:mod:`repro_torch.kernels.
+flash_attention`), ``"torch"`` the reference's ``_sdpa`` /
+``_sdpa_chunked``. Attention against a KV cache is plain torch on both
+arms: each request is masked at its own position, a function the TPU
+kernel never computed.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention import flash_attention
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def trunc_normal_(t: torch.Tensor, scale: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``scale`` x a normal truncated to [-2, 2] (the reference's
+    ``layers._init``), drawn in float32 and cast to ``t``'s dtype."""
+    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        t.copy_(x.mul_(scale))
+    return t
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in, d_out, bias=False, *, dtype, device):
+        super().__init__()
+        self.w = _param((d_in, d_out), dtype, device)
+        self.b = _param((d_out,), dtype, device) if bias else None
+
+    def reset(self, generator):
+        trunc_normal_(self.w, 1.0 / np.sqrt(self.w.shape[0]), generator)
+        if self.b is not None:
+            nn.init.zeros_(self.b)
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d, *, device):
+        super().__init__()
+        self.g = _param((d,), torch.float32, device)
+
+    def reset(self, generator=None):
+        nn.init.ones_(self.g)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p.g).to(dt)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d, *, device):
+        super().__init__()
+        self.g = _param((d,), torch.float32, device)
+        self.b = _param((d,), torch.float32, device)
+
+    def reset(self, generator=None):
+        nn.init.ones_(self.g)
+        nn.init.zeros_(self.b)
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p.g + p.b).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, head_dim//2), float32. The
+    frequencies are the float32 power taken in float64 and rounded once,
+    which matches the reference's float32 ``theta ** x`` where torch's own
+    float32 power is off by an ulp in a few slots."""
+    half = head_dim // 2
+    dev = positions.device
+    expo = -(torch.arange(0, half, dtype=torch.float32, device=dev) / half)
+    base = torch.tensor(float(np.float32(theta)), dtype=torch.float64,
+                        device=dev)
+    freqs = torch.pow(base, expo.double()).float()
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (B, S, H, hd); cos/sin (B, S, half) or (S, half)."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA / MHA) with optional KV cache
+
+
+class Attention(nn.Module):
+    """Head-shaped projections: wq (D, H, hd), wk/wv (D, KV, hd), wo (H, hd,
+    D), optional biases bq (H, hd), bk/bv (KV, hd)."""
+
+    def __init__(self, d_model, n_heads, n_kv, head_dim, bias=False, *,
+                 dtype, device):
+        super().__init__()
+        self.wq = _param((d_model, n_heads, head_dim), dtype, device)
+        self.wk = _param((d_model, n_kv, head_dim), dtype, device)
+        self.wv = _param((d_model, n_kv, head_dim), dtype, device)
+        self.wo = _param((n_heads, head_dim, d_model), dtype, device)
+        for name, h in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            setattr(self, name,
+                    _param((h, head_dim), dtype, device) if bias else None)
+
+    def reset(self, generator):
+        d_model, n_heads, head_dim = self.wq.shape
+        for w in (self.wq, self.wk, self.wv):
+            trunc_normal_(w, 1.0 / np.sqrt(d_model), generator)
+        trunc_normal_(self.wo, 1.0 / np.sqrt(n_heads * head_dim), generator)
+        for b in (self.bq, self.bk, self.bv):
+            if b is not None:
+                nn.init.zeros_(b)
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat KV heads to the full head count, each head ``rep`` times
+    in place (``jnp.repeat``)."""
+    rep = n_heads // k.shape[2]
+    return k.repeat_interleave(rep, dim=2) if rep > 1 else k
+
+
+def _sdpa(q, k, v, mask, dtype):
+    """q (B,S,H,hd), k/v (B,T,H,hd) (KV already repeated). float32 softmax;
+    mask broadcastable to (B,H,S,T)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
+    scores = scores / np.sqrt(hd)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+# Sequences at or above this length use the query-chunked attention path
+# (the reference's threshold: the full S x S float32 score buffer is what
+# it avoids).
+ATTN_CHUNK_THRESHOLD = 2048
+ATTN_Q_CHUNK = 1024
+
+
+def _sdpa_chunked(q, k, v, causal, dtype, chunk=ATTN_Q_CHUNK):
+    """Query chunks of ``chunk`` rows, each attending to the full K/V with a
+    positionwise causal mask; the peak score buffer is (B, H, chunk, T)."""
+    S, T = q.shape[1], k.shape[1]
+    t_pos = torch.arange(T, device=q.device)
+    outs = []
+    for i in range(S // chunk):
+        pos_q = i * chunk + torch.arange(chunk, device=q.device)
+        if causal:
+            mask = (t_pos[None, :] <= pos_q[:, None])[None, None]
+        else:
+            mask = torch.ones((1, 1, chunk, T), dtype=torch.bool,
+                              device=q.device)
+        outs.append(_sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask,
+                          dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention(
+    p: Attention, x: torch.Tensor, cos, sin, *,
+    n_heads: int, n_kv: int, head_dim: int, dtype,
+    causal: bool = True,
+    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_pos: Optional[torch.Tensor] = None,
+    kv: Optional[torch.Tensor] = None,     # cross-attention source
+    backend: str = "torch",
+):
+    """Returns (out (B,S,D), the KV cache or None).
+
+    Modes:
+      - training/prefill: kv_cache=None -> full causal self attention
+      - decode:  kv_cache=(K (B,T,kv,hd), V), cache_pos (B,) write index;
+                 the new tokens are written into K and V in place (the
+                 reference returns updated copies) at ``cache_pos`` clamped
+                 to ``[0, T - S]``, as ``dynamic_update_slice`` clamps, in
+                 the cache's dtype, and read back in ``dtype``
+      - cross:   kv = encoder states (no cache logic, no causal mask)
+
+    ``backend`` forks the modes without a cache: ``"cuda"`` -> the flash
+    kernel, ``"torch"`` -> ``_sdpa`` / ``_sdpa_chunked``.
+    """
+    B, S, D = x.shape
+    src = x if kv is None else kv.to(dtype)
+    Ts = src.shape[1]
+    q = (x @ p.wq.reshape(D, -1)).view(B, S, n_heads, head_dim)
+    k = (src @ p.wk.reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+    v = (src @ p.wv.reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+    if p.bq is not None:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        if kv is None:
+            k = apply_rope(k, cos, sin)
+    new_cache = None
+    if kv_cache is not None:
+        K, V = kv_cache
+        T = K.shape[1]
+        start = cache_pos.long().clamp(0, T - S)
+        rows = start[:, None] + torch.arange(S, device=x.device)
+        bidx = torch.arange(B, device=x.device)[:, None]
+        K[bidx, rows] = k.to(K.dtype)
+        V[bidx, rows] = v.to(V.dtype)
+        new_cache = (K, V)
+        iota_t = torch.arange(T, device=x.device)[None, :]
+        mask = (iota_t <= cache_pos.long()[:, None])[:, None, None, :]
+        out = _sdpa(q, repeat_kv(K.to(dtype), n_heads),
+                    repeat_kv(V.to(dtype), n_heads), mask, dtype)
+    else:
+        is_causal = causal and kv is None
+        if backend == "cuda":
+            out = flash_attention(q, k, v, causal=is_causal, backend="cuda")
+        else:
+            kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
+            if S >= ATTN_CHUNK_THRESHOLD and S % ATTN_Q_CHUNK == 0:
+                out = _sdpa_chunked(q, kf, vf, is_causal, dtype)
+            else:
+                if is_causal:
+                    mask = torch.ones((S, Ts), dtype=torch.bool,
+                                      device=x.device).tril()[None, None]
+                else:
+                    mask = torch.ones((1, 1, S, Ts), dtype=torch.bool,
+                                      device=x.device)
+                out = _sdpa(q, kf, vf, mask, dtype)
+    out = out.reshape(B, S, n_heads * head_dim) @ p.wo.reshape(-1, D)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+_ACT = {"silu": F.silu,
+        # jax.nn.gelu defaults to the tanh approximation
+        "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+class GluMLP(nn.Module):
+    def __init__(self, d_model, d_ff, *, dtype, device):
+        super().__init__()
+        self.wi = Dense(d_model, d_ff, dtype=dtype, device=device)
+        self.wg = Dense(d_model, d_ff, dtype=dtype, device=device)
+        self.wo = Dense(d_ff, d_model, dtype=dtype, device=device)
+
+
+def glu_mlp(p: GluMLP, x, activation: str = "silu"):
+    h = _ACT[activation](dense(p.wg, x)) * dense(p.wi, x)
+    return dense(p.wo, h)
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, d_model, d_ff, *, dtype, device):
+        super().__init__()
+        self.wi = Dense(d_model, d_ff, dtype=dtype, device=device)
+        self.wo = Dense(d_ff, d_model, dtype=dtype, device=device)
+
+
+def gelu_mlp(p: GeluMLP, x):
+    return dense(p.wo, _ACT["gelu"](dense(p.wi, x)))
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab, d_model, *, dtype, device):
+        super().__init__()
+        self.table = _param((vocab, d_model), dtype, device)
+
+    def reset(self, generator):
+        trunc_normal_(self.table, 1.0, generator)
+
+
+def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return p.table[tokens.long()]
+
+
+def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:
+    """Logits via the (possibly tied) embedding table."""
+    return x @ p.table.T

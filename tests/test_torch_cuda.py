@@ -1,9 +1,11 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
 entry-assembly arm (VV, member, TT, sub-join) at the main path's shapes and
 at edge sizes (including lanes too large for shared memory), the completion
-gather kernel, the meet and VV count kernels of the dense fallback, and the
-critical-points (both assemblies), gradient -> Morse-Smale and audit +
-persistence paths on the ``cuda`` backend against the CPU. These tests need an NVIDIA card and
+gather kernel, the meet and VV count kernels of the dense fallback, the
+flash-attention kernel (float32 2e-5, bf16 2e-2), the critical-points (both
+assemblies), gradient -> Morse-Smale and audit + persistence paths on the
+``cuda`` backend against the CPU, and the LM smoke configs' prefill and
+decode on both attention arms against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
 
@@ -14,8 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import analyze
-from repro_torch.kernels import completion_gather, ops, segment_relations
+import dataclasses
+
+from repro_torch import analyze, configs
+from repro_torch.kernels import completion_gather, flash_attention, ops, \
+    segment_relations
+from repro_torch.launch import serve
+from repro_torch.models import lm
 from repro_torch.quickstart import run
 
 pytestmark = pytest.mark.gpu
@@ -249,3 +256,92 @@ def test_analyze_audit_persistence_on_the_card_equals_the_cpu(cuda,
     assert out["cuda"] == out["cpu"]
     assert not any(out["cuda"][1].values())
 
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,dtype", [
+    (2, 128, 128, 4, 4, 64, True, torch.float32),
+    (1, 100, 150, 28, 4, 128, True, torch.bfloat16),
+    (1, 150, 100, 8, 1, 80, False, torch.float32),
+    (2, 1, 37, 4, 2, 256, True, torch.bfloat16),
+    (1, 1000, 1500, 8, 8, 28, False, torch.float32),
+])
+def test_flash_kernel_equals_plain(cuda, B, S, T, H, KV, hd, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(S + T)
+    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype)
+               for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    before = flash_attention.LAUNCHES["flash"]
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    want = flash_attention.flash_attention(q, k, v, causal=causal,
+                                           backend="torch")
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash"] == before + 1
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q/k/v as views with unit stride along hd only: read in place, and
+    the same result as their contiguous copies; the bh layout too."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    big = torch.randn((2, 70, 12, 64), device=cuda, generator=g)
+    q, k, v = big[:, :, 0:8], big[:, :50, 8:10], big[:, :50, 10:12]
+    assert not q.is_contiguous()
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    qb = big[:, :, 0].contiguous()
+    torch.testing.assert_close(
+        flash_attention.flash_attention_bh(qb, qb, qb, causal=False),
+        flash_attention.flash_attention_bh(qb, qb, qb, causal=False,
+                                           backend="torch"),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 4, 2, 16), device=cuda)
+    with pytest.raises(TypeError, match="float32 or bf16"):
+        flash_attention.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        t = torch.zeros((1, 4, 2, 32), device=cuda)[..., ::2]
+        flash_attention.flash_attention_cuda(t, t, t)
+    with pytest.raises(ValueError, match="T >= 1"):
+        flash_attention.flash_attention_cuda(q, q[:, :0], q[:, :0])
+    with pytest.raises(ValueError, match="head dim"):
+        t = torch.zeros((1, 4, 1, 320), device=cuda)
+        flash_attention.flash_attention_cuda(t, t, t)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma-7b", "whisper-base"])
+def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
+    """A float32 smoke config: prefill on both attention arms of the card
+    and on the CPU, the flash kernel once per attention without a cache,
+    and two decode steps."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = lm.build(cfg, cuda)
+    on_card.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, 75), dtype=np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(0, 1, (2, 90, cfg.d_model)).astype(np.float32))
+    want, _ = lm.prefill_fn(model, batch, cfg)
+    card = {k: t.to(cuda) for k, t in batch.items()}
+    before = flash_attention.LAUNCHES["flash"]
+    got, _ = lm.prefill_fn(on_card, card, cfg)
+    torch.cuda.synchronize()
+    per_call = cfg.n_layers if cfg.family == "dense" else \
+        cfg.enc_layers + 2 * cfg.n_layers
+    assert flash_attention.LAUNCHES["flash"] == before + per_call
+    plain, _ = lm.prefill_fn(on_card, card, cfg, backend="torch")
+    for g in (got, plain):
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-4)
+    if cfg.family == "dense":
+        prompts = rng.integers(0, cfg.vocab, (2, 6), dtype=np.int32)
+        np.testing.assert_array_equal(
+            serve.generate(cfg, on_card, prompts, 5, 16),
+            serve.generate(cfg, model, prompts, 5, 16))
