@@ -47,21 +47,27 @@ Phases, one JSON line each:
      face sample, equal on the kernels and the plain arm at 96^3; then
      the whole audit + persistence path on both arms at 48^3, corrupted
      audit and FF rows included, against the 48^3 pins.
-  9. flash attention: the kernel held against its plain version (float32
-     2e-5, bf16 2e-2) causal and unmasked, in float32 and bf16, at head
-     dims 64/80/128/256 with GQA 8/1 and 28/4 and MHA, ragged S and T in
-     both orders, S=1, and the qwen2-7b prefill shape (B 4, S 4096, H 28,
-     KV 4, hd 128, bf16), where it is timed beside its plain version, its
-     bound and one ``scaled_dot_product_attention`` call.
+  9. flash attention: both kernels held against their plain version
+     (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
+     routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256,
+     ``flash_fwd_kernel`` for the rest), causal and unmasked, at head dims
+     64/80/128/256 with GQA 8/1 and 28/4 and MHA, ragged S and T in both
+     orders, S=1, strided views, and the qwen2-7b prefill shape (B 4, S
+     4096, H 28, KV 4, hd 128, bf16), where the wgmma kernel is timed
+     beside the SIMT kernel on the same inputs, one
+     ``scaled_dot_product_attention`` call, the plain version and its
+     bound; the SIMT kernel is timed again at its own main path's shape
+     (the float32 S=2048 pin of phase 10).
  10. the JAX reference's full-width LM pins (``LM_PINS``), on both
      attention arms: qwen2-7b at full width cut to two layers and
-     whisper-base whole, float32, weights from ``reference_tree``.
+     whisper-base whole, float32, weights from ``reference_tree``; every
+     cuda-arm flash launch is the SIMT kernel's.
  11. qwen2-7b served at full width and depth in bf16 (weights from a
      seeded generator on the card): ``serve.main`` (4 prompts of 32
      tokens, 16 generated), then ``make_prefill_step`` at B=4 and S=4096
      and S=1000 on both arms in turns, 28 flash launches per call on the
-     kernels' arm and the arms' logits within ``LM_ARM_TOL``; walls,
-     tokens/s and the peak device memory.
+     kernels' arm, every one ``flash_fwd_wgmma``, and the arms' logits
+     within ``LM_ARM_TOL``; walls, tokens/s and the peak device memory.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -190,6 +196,7 @@ SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
 CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
 CT_SOURCE = "src/repro_torch/kernels/csrc/counts.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FAW_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 KERNELS = {
     "VV": {"name": "vv_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:360"},
@@ -207,6 +214,8 @@ KERNELS = {
                   "replaces": "src/repro/kernels/segment_relations.py:101"},
     "flash": {"name": "flash_fwd_kernel", "source": FA_SOURCE,
               "replaces": "src/repro/kernels/flash_attention.py:27"},
+    "flash_wgmma": {"name": "flash_fwd_wgmma", "source": FAW_SOURCE,
+                    "replaces": "src/repro/kernels/flash_attention.py:27"},
 }
 _ARITY = {"E": 2, "F": 3, "T": 4}
 
@@ -279,10 +288,11 @@ LM_PINS = {
     },
 }
 # the bf16 prefill logits of the two attention arms at full depth: the
-# kernel keeps the probabilities in float32 where _sdpa rounds them to bf16
-# before the PV product, and 28 layers carry the difference; held within
+# wgmma kernel rounds the unnormalised probabilities of each key tile to
+# bf16 where _sdpa rounds the normalised ones, its outputs round at other
+# points, and 28 layers of random weights carry the difference; held within
 # this share of the largest logit (on an H100 80GB HBM3 the arms differed
-# by 0.020 of it at S=4096 and 0.018 at S=1000)
+# by 0.022 of it at S=4096 and 0.018 at S=1000)
 LM_ARM_TOL = 0.05
 
 
@@ -445,7 +455,7 @@ def lm_pin_cfg(configs, arch: str):
 def lm_pin_run(torch, dev, backend):
     """The port's results for every LM pin, on ``dev`` through ``backend``,
     in ``LM_PINS``' layout, with the flash launches of each ``prefill_fn``
-    call (counter zeroed just before, read just after)."""
+    call, per kernel (counters zeroed just before, read just after)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve, steps
@@ -459,10 +469,12 @@ def lm_pin_run(torch, dev, backend):
 
     def prefill(model, cfg, batch, name):
         sync()
-        fa.LAUNCHES["flash"] = 0
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
         logits, _ = lm.prefill_fn(model, batch, cfg, backend)
         sync()
-        launches[name] = fa.LAUNCHES["flash"]
+        launches[name] = {key: fa.LAUNCHES[key]
+                          for key in ("flash_simt", "flash_wgmma")}
         nxt = steps.make_prefill_step(cfg, backend)(model, batch)
         vals, ids = torch.topk(logits[:, -1].float(), 5, dim=-1)
         out[name] = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
@@ -581,33 +593,53 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     from repro_torch.launch import serve, specs, steps
     from repro_torch.models import lm
 
-    # -- 9. the flash-attention kernel against its plain version ------------
+    # -- 9. the flash-attention kernels against their plain version ---------
     t_lm = time.perf_counter()
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     fa_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    max_err["flash"] = 0.0
+    max_err["flash"] = max_err["flash_wgmma"] = 0.0
+    arm_of = {"simt": "flash", "wgmma": "flash_wgmma"}
 
     def attn_inputs(B, S, T, H, KV, hd, dt):
         return [torch.randn(shape, device=dev, generator=gen).to(dt)
                 for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
 
-    def flash_compare(case, B, S, T, H, KV, hd, causal, dt):
-        q, k, v = attn_inputs(B, S, T, H, KV, hd, dt)
+    def flash_check(case, q, k, v, causal):
+        """One routed launch held against the plain version; the kernel
+        that ran is read from the counters and must be the routing's:
+        wgmma for bf16 at hd 64/128/256, the SIMT kernel for the rest."""
+        dt, hd = q.dtype, q.shape[-1]
+        want_variant = "wgmma" if dt == torch.bfloat16 and \
+            hd in fa.WGMMA_HEAD_DIMS else "simt"
+        before = dict(fa.LAUNCHES)
         got = fa.flash_attention_cuda(q, k, v, causal=causal)
         want = fa.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        ran = [n for n in ("simt", "wgmma")
+               if fa.LAUNCHES[f"flash_{n}"] != before[f"flash_{n}"]]
         err = float((got.float() - want.float()).abs().max())
         tol = fa_tol[dt]
         ok = got.dtype == dt and bool(torch.allclose(
             got.float(), want.float(), rtol=tol, atol=tol))
-        max_err["flash"] = max(max_err["flash"], err)
+        if ran == [want_variant]:
+            arm = arm_of[want_variant]
+            max_err[arm] = max(max_err[arm], err)
+        B, S, H, _ = q.shape
+        T, KV = k.shape[1], k.shape[2]
         emit({"phase": "kernel_case", "case": case, "relation": "flash",
-              "B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
-              "causal": causal, "dtype": str(dt).split(".")[-1],
-              "max_abs_err": err, "tol": tol, "close": ok})
-        check(ok, f"the flash kernel disagrees with its plain version "
-                  f"({case}, {dt}, causal={causal})")
+              "variant": "/".join(ran), "B": B, "S": S, "T": T, "H": H,
+              "KV": KV, "hd": hd, "causal": causal,
+              "dtype": str(dt).split(".")[-1],
+              "strided": not q.is_contiguous(), "max_abs_err": err,
+              "tol": tol, "close": ok})
+        check(ran == [want_variant], f"{case}: ran {ran}, not "
+                                     f"{want_variant}")
+        check(ok, f"the flash kernel ({want_variant}) disagrees with its "
+                  f"plain version ({case}, {dt}, causal={causal})")
+
+    def flash_compare(case, B, S, T, H, KV, hd, causal, dt):
+        flash_check(case, *attn_inputs(B, S, T, H, KV, hd, dt), causal)
 
     # head dims of the reference's docstring, each with a head layout:
     # GQA 8/1 and 28/4, MHA; ragged S and T in both orders
@@ -624,41 +656,98 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
                       torch.float32)
         flash_compare("ragged S>T", 1, 1500, 1000, 8, 1, 64, causal,
                       torch.float32)
+        # the wgmma route's edges: ragged query and key tiles both ways,
+        # S != T causal, GQA 28/4 and MHA
+        flash_compare("ragged S<T", 1, 1000, 1500, 28, 4, 128, causal,
+                      torch.bfloat16)
+        flash_compare("ragged S>T", 1, 1500, 1000, 28, 4, 128, causal,
+                      torch.bfloat16)
+        flash_compare("ragged S>T MHA", 1, 1500, 1000, 8, 8, 64, causal,
+                      torch.bfloat16)
+        flash_compare("ragged S<T hd 256", 1, 300, 1000, 8, 2, 256, causal,
+                      torch.bfloat16)
     flash_compare("S=1", 2, 1, 37, 8, 8, 64, True, torch.float32)
+    flash_compare("S=1", 2, 1, 37, 28, 4, 128, True, torch.bfloat16)
     flash_compare("S=1 cross", 2, 1, WHISPER_FRAMES, 8, 8, 64, False,
                   torch.bfloat16)
+    # strided views (the heads of a fused (B, S, H + 2 KV, hd) buffer), read
+    # in place by TMA
+    for hd, (H, KV) in ((128, (28, 4)), (64, (8, 1))):
+        big = torch.randn((2, 333, H + 2 * KV, hd), device=dev,
+                          generator=gen).to(torch.bfloat16)
+        flash_check(f"strided views hd {hd}", big[:, :, :H],
+                    big[:, :, H:H + KV], big[:, :, H + KV:], True)
+        del big
     flash_compare("qwen2-7b prefill", 4, 4096, 4096, 28, 4, 128, True,
                   torch.bfloat16)
 
-    # times at the qwen2-7b prefill shape: the kernel, its plain version,
-    # and one SDPA call on the same (B, S, H, hd) views as yardstick
+    # times at the qwen2-7b prefill shape: the wgmma kernel, the SIMT
+    # kernel on the same bf16 inputs, one SDPA call on the same (B, S, H,
+    # hd) views as yardstick, and the plain version
     B, S, H, KV, hd = 4, 4096, 28, 4, 128
     q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.bfloat16)
     k_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
                                                           causal=True),
                    reps=10)
-    p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v,
-                                                         causal=True),
-                   reps=2, rounds=3)
+    simt_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=True, simt=True), reps=3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = time_ms(torch, lambda: torch.nn.functional
                      .scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True,
                                                    enable_gqa=True),
                      reps=10)
-    pairs = S * (S + 1) // 2                  # causal, T = S
-    flops = 4 * B * H * hd * pairs
-    moved = nbytes(q, k, v) + nbytes(q)       # q, k, v read; o written
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S["bfloat16"] * 1e3
-    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
-        (t_ops, "operations")
-    timing["flash"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+    p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v,
+                                                         causal=True),
+                   reps=2, rounds=3)
+
+    def flash_bound(q, k, v, causal):
+        B, S, H, hd = q.shape
+        T = k.shape[1]
+        pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
+        flops = 4 * B * H * hd * pairs
+        moved = nbytes(q, k, v) + nbytes(q)       # q, k, v read; o written
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FLOPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        return flops, moved, b_ms, b_by
+
+    flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
+    timing["flash_wgmma"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernel_time", "arm": "flash_wgmma", "B": B, "S": S,
+          "H": H, "KV": KV, "hd": hd, "causal": True, "dtype": "bfloat16",
+          "flops": flops, "bytes": moved, "simt_ms": simt_ms,
+          "tflops_per_s": flops / k_ms / 1e9,
+          "simt_over_wgmma": simt_ms / k_ms, **timing["flash_wgmma"]})
+    check(simt_ms >= 5 * k_ms, f"the wgmma kernel ({k_ms} ms) is not 5x "
+                               f"faster than the SIMT kernel ({simt_ms} ms)")
+    del q, k, v, qt, kt, vt
+
+    # the SIMT kernel at the shape its main path now gives it: the float32
+    # qwen2-7b pin's prefill (phase 10), B 2, S 2048, H 28, KV 4, hd 128
+    B, S = LM_PIN_SHAPES["S2048"][:2]
+    q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.float32)
+    s_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                          causal=True),
+                   reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True,
+                                                   enable_gqa=True),
+                     reps=5)
+    p_ms = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v,
+                                                         causal=True),
+                   reps=2, rounds=3)
+    flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
+    timing["flash"] = {"ms": s_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms}
     emit({"phase": "kernel_time", "arm": "flash", "B": B, "S": S, "H": H,
-          "KV": KV, "hd": hd, "causal": True, "dtype": "bfloat16",
+          "KV": KV, "hd": hd, "causal": True, "dtype": "float32",
           "flops": flops, "bytes": moved,
-          "tflops_per_s": flops / k_ms / 1e9, **timing["flash"]})
+          "tflops_per_s": flops / s_ms / 1e9, **timing["flash"]})
     del q, k, v, qt, kt, vt
 
     # -- 10. the full-width LM pins of the JAX reference, on both arms -----
@@ -670,16 +759,22 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               "flash_launches": pin_launches,
               "wall_s": round(time.perf_counter() - t0, 3)})
         check_lm_pins(got, backend)
-        want = {"S2048": 2, "S100": 2, "whisper": 18} if backend == "cuda" \
-            else {"S2048": 0, "S100": 0, "whisper": 0}
+        # float32 pins: every cuda-arm launch is the SIMT kernel's
+        per = {"S2048": 2, "S100": 2, "whisper": 18}
+        want = {name: {"flash_simt": n if backend == "cuda" else 0,
+                       "flash_wgmma": 0} for name, n in per.items()}
         check(pin_launches == want, f"{backend}: flash launches per "
               f"prefill {pin_launches} != {want}")
+        if backend == "cuda":
+            launches["flash"] = sum(n["flash_simt"]
+                                    for n in pin_launches.values())
     torch.cuda.empty_cache()
 
     # -- 11. qwen2-7b served at full width and depth, bf16 -----------------
     cfg = configs.get_config("qwen2-7b")
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES["flash"] = 0
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -717,14 +812,15 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
         for backend in ("cuda", "torch", "torch", "cuda"):
             step = steps.make_prefill_step(cfg, backend)
             torch.cuda.synchronize()
-            before = fa.LAUNCHES["flash"]
+            before = dict(fa.LAUNCHES)
             t0 = time.perf_counter()
             nxt[backend] = step(model, batch)
             torch.cuda.synchronize()
             walls[backend].append(time.perf_counter() - t0)
-            n = fa.LAUNCHES["flash"] - before
-            check(n == (cfg.n_layers if backend == "cuda" else 0),
-                  f"{backend} prefill at S={S} launched the flash kernel "
+            n = {key: fa.LAUNCHES[key] - before[key] for key in before}
+            per = cfg.n_layers if backend == "cuda" else 0
+            check(n == {"flash": per, "flash_wgmma": per, "flash_simt": 0},
+                  f"{backend} prefill at S={S} launched the flash kernels "
                   f"{n} times")
         diff = float((logits["cuda"] - logits["torch"]).abs().max())
         scale = float(logits["torch"].abs().max())
@@ -742,15 +838,18 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               f"S={S}: the arms' bf16 logits differ by {diff} "
               f"(max |logit| {scale})")
     torch.cuda.synchronize()
-    launches["flash"] = fa.LAUNCHES["flash"]
+    launches["flash_wgmma"] = fa.LAUNCHES["flash_wgmma"]
     emit({"phase": "lm_memory", "peak_allocated_gib":
           torch.cuda.max_memory_allocated() / 2 ** 30,
-          "flash_launches": launches["flash"],
+          "flash_launches": dict(fa.LAUNCHES),
           "lm_phases_wall_s": round(time.perf_counter() - t_lm, 3)})
-    # three cuda-arm prefill calls at each of the two lengths
-    check(launches["flash"] == 6 * cfg.n_layers,
-          f"the LM path launched the flash kernel {launches['flash']} "
-          f"times, not {6 * cfg.n_layers}")
+    # three cuda-arm prefill calls at each of the two lengths, every one
+    # of their launches the wgmma kernel's
+    want = 6 * cfg.n_layers
+    check(fa.LAUNCHES == {"flash": want, "flash_wgmma": want,
+                          "flash_simt": 0},
+          f"the LM path launched the flash kernels {fa.LAUNCHES}, not "
+          f"{want} times flash_fwd_wgmma")
     del model, logits
 
 
@@ -791,7 +890,7 @@ def main() -> int:
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build(["segment_relations", "completion_gather", "counts",
-                         "flash_attention"])
+                         "flash_attention", "flash_attention_wgmma"])
     t_build = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in
                  (p.parent / "build.log").read_text().splitlines()
@@ -1499,6 +1598,8 @@ def main() -> int:
     lm_phases(torch, dev, max_err, timing, launches)
 
     # -- 12. summary ---------------------------------------------------------
+    check(all(launches[arm] > 0 for arm in KERNELS),
+          f"a kernel was launched no time on its path: {launches}")
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
                                             3)})
     emit({"kernels": [

@@ -1,25 +1,39 @@
-"""Flash attention forward for the LM substrate: the wrapper of the
-hand-written Hopper kernel (``csrc/flash_attention.cu``) and its plain
-PyTorch version.
+"""Flash attention forward for the LM substrate: the wrappers of the two
+hand-written Hopper kernels and their plain PyTorch version.
 
 Blocked online-softmax attention over q ``(B, S, H, hd)`` and k/v ``(B, T,
 KV, hd)`` with KV dividing H (query head ``h`` reads KV head ``h // (H //
 KV)``, ``jnp.repeat``'s mapping, which is ``torch.repeat_interleave``):
 causal with the mask ``t <= s`` aligned top-left from position 0, or
-unmasked; q scaled by ``1/sqrt(hd)`` before the product, float32 softmax
-and accumulation, the output in q's type (float32 or bf16). Any ``S`` and
-``T`` are taken: the kernel masks ragged tiles itself.
+unmasked; scores scaled by ``1/sqrt(hd)``, float32 softmax and
+accumulation, the output in q's type (float32 or bf16). Any ``S`` and
+``T`` are taken: the kernels mask ragged tiles themselves.
 
-It replaces the reference's TPU kernel ``_flash_fwd_kernel``
+Both kernels replace the reference's TPU kernel ``_flash_fwd_kernel``
 (``kernels/flash_attention.py``, launched by ``flash_attention_bh``; GQA
 wrapper ``flash_attention``). The model's ``"cuda"`` arm sends every
 attention without a KV cache here (``models.layers.attention``).
 
+Routing (:func:`_variant`), by dtype and shape, decided before the launch;
+nothing falls back after a failed build or launch:
+
+- ``"wgmma"`` -> ``flash_fwd_wgmma`` (``csrc/flash_attention_wgmma.cu``):
+  bf16 q, k, v with hd 64, 128 or 256 whose layout TMA can read (every
+  base address and every batch, sequence and head stride a multiple of 16
+  bytes; :func:`wgmma_problems`). Products on the tensor cores, K/V tiles
+  by TMA, P rounded to bf16 for the PV product. Every bf16 attention of
+  qwen2-7b (hd 128) and whisper-base (hd 64) takes it.
+- ``"simt"`` -> ``flash_fwd_kernel`` (``csrc/flash_attention.cu``): all
+  float32 inputs (TF32 products would not hold the float32 tolerance),
+  other head dims (hd 80, ...), and bf16 inputs TMA cannot read. float32
+  FMAs on the CUDA cores.
+
 Backends (:func:`~repro_torch.kernels.ops.resolve_backend`): ``"cuda"``
-launches the kernel on CUDA tensors and raises on anything else;
-``"torch"`` runs :func:`flash_attention_ref`, the plain version the kernel
-is held against. ``backend=None`` picks ``"cuda"`` on a card and
-``"torch"`` on the CPU. ``LAUNCHES["flash"]`` counts kernel launches.
+launches a kernel on CUDA tensors and raises on anything else;
+``"torch"`` runs :func:`flash_attention_ref`, the plain version the kernels
+are held against. ``backend=None`` picks ``"cuda"`` on a card and
+``"torch"`` on the CPU. ``LAUNCHES["flash"]`` counts every kernel launch,
+``LAUNCHES["flash_wgmma"]`` and ``LAUNCHES["flash_simt"]`` each kernel's.
 """
 
 from __future__ import annotations
@@ -27,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,16 +52,35 @@ from .ops import resolve_backend
 NEG_INF = -1e30
 # query rows per step of the plain version (bounds its score buffer)
 REF_Q_CHUNK = 1024
-# the grid's y and z extents (heads, batch) and the kernel's widest head
+# the grid's y and z extents (heads, batch) and the kernels' widest head
 _GRID_YZ = 65535
 _MAX_HD = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the wgmma kernel: its head dims, query rows per block, TMA's alignment
+WGMMA_HEAD_DIMS = (64, 128, 256)
+_WGMMA_Q_TILE = 128
+_TMA_ALIGN = 16
+_TMA_MAX_STRIDE = 1 << 40
 
-LAUNCHES: Dict[str, int] = {"flash": 0}
+LAUNCHES: Dict[str, int] = {"flash": 0, "flash_wgmma": 0, "flash_simt": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _lib_wgmma() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_wgmma")
+    if not getattr(lib, "_repro_bound", False):
+        lib.faw_error_string.argtypes = [_I]
+        lib.faw_error_string.restype = ctypes.c_char_p
+        lib.faw_forward.argtypes = [_I, _P, _P, _P, _P,
+                                    ctypes.POINTER(ctypes.c_longlong),
+                                    _I, _I, _I, _I, _I, _I, _I,
+                                    ctypes.c_float, _P]
+        lib.faw_forward.restype = _I
+        lib._repro_bound = True
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -105,13 +138,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def wgmma_problems(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> List[str]:
+    """Why ``flash_fwd_wgmma`` cannot take q, k, v ``(B, S|T, heads, hd)``
+    (empty when it can): the dtype, the head dim, and what TMA needs of
+    each tensor: a 16-byte aligned base address, and batch, sequence and
+    head strides that are positive multiples of 16 bytes below 2**40 (a
+    dimension of size 1 is never stepped, so its stride is not checked),
+    and the grid's limits."""
+    out = []
+    if q.dtype != torch.bfloat16:
+        out.append(f"dtype {q.dtype} is not bf16")
+    hd = q.shape[-1]
+    if hd not in WGMMA_HEAD_DIMS:
+        out.append(f"head dim {hd} is not one of {WGMMA_HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        esz = t.element_size()
+        if t.data_ptr() % _TMA_ALIGN:
+            out.append(f"{name}'s base address is not {_TMA_ALIGN}-byte "
+                       f"aligned")
+        for dim, label in enumerate(("batch", "sequence", "head")):
+            st = t.stride(dim) * esz
+            if t.shape[dim] > 1 and (st % _TMA_ALIGN or st <= 0
+                                     or st >= _TMA_MAX_STRIDE):
+                out.append(f"{name}'s {label} stride of {st} bytes is not a "
+                           f"positive multiple of {_TMA_ALIGN} below 2**40")
+    B, S = q.shape[:2]
+    if B > _GRID_YZ or -(-S // _WGMMA_Q_TILE) > _GRID_YZ:
+        out.append(f"B={B}, S={S} exceed the wgmma kernel's grid")
+    return out
+
+
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes q, k, v: ``"wgmma"`` for bf16 at hd 64, 128
+    or 256 with a layout TMA reads, else ``"simt"``."""
+    return "simt" if wgmma_problems(q, k, v) else "wgmma"
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """``t``'s batch, sequence and head strides (elements) for a tensor
+    map: a dimension of size 1 takes the stride a contiguous tensor would
+    have, which TMA accepts and the kernel never steps."""
+    return tuple(st if n > 1 else math.prod(t.shape[d + 1:])
+                 for d, (n, st) in enumerate(zip(t.shape[:3],
+                                                 t.stride()[:3])))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """Launch the kernel: q ``(B, S, H, hd)``, k/v ``(B, T, KV, hd)``, CUDA
+                         *, causal: bool = True,
+                         simt: bool = False) -> torch.Tensor:
+    """Launch a kernel: q ``(B, S, H, hd)``, k/v ``(B, T, KV, hd)``, CUDA
     float32 or bf16 tensors on one device with unit stride along hd (the
     other strides are passed through, so views of the model's activations
     are read in place). Returns a new contiguous ``(B, S, H, hd)`` tensor;
-    launches on the current stream without synchronising."""
+    launches on the current stream without synchronising.
+
+    The kernel is :func:`_variant`'s choice; ``simt=True`` launches
+    ``flash_fwd_kernel`` whatever that choice, so that the two kernels can
+    be timed on the same bf16 inputs."""
     _check_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -130,24 +214,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} outside the kernel's 1..{_MAX_HD}")
     if B > _GRID_YZ or H > _GRID_YZ:
         raise ValueError(f"B={B}, H={H} exceed the kernel's grid")
+    variant = "simt" if simt else _variant(q, k, v)
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    strides = (ctypes.c_longlong * 12)(*(
-        st for t in (q, k, v, o) for st in t.stride()[:3]))
     dev = q.device
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    lib = _lib()
-    rc = lib.fa_forward(idx, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                        v.data_ptr(), o.data_ptr(), strides, B, S, T, H, KV,
-                        hd, int(bool(causal)), 1.0 / math.sqrt(hd),
-                        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if variant == "wgmma":
+        strides = (ctypes.c_longlong * 12)(*(
+            st for t in (q, k, v, o) for st in _tma_strides(t)))
+        lib = _lib_wgmma()
+        rc = lib.faw_forward(idx, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), strides, B, S, T, H, KV, hd,
+                             int(bool(causal)),
+                             math.log2(math.e) / math.sqrt(hd), stream)
+        err = lib.faw_error_string
+    else:
+        strides = (ctypes.c_longlong * 12)(*(
+            st for t in (q, k, v, o) for st in t.stride()[:3]))
+        lib = _lib()
+        rc = lib.fa_forward(idx, _DTYPES[q.dtype], q.data_ptr(),
+                            k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            strides, B, S, T, H, KV, hd, int(bool(causal)),
+                            1.0 / math.sqrt(hd), stream)
+        err = lib.fa_error_string
     if rc != 0:
-        msg = lib.fa_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"flash attention kernel launch failed: "
-                           f"cudaError {rc} ({msg})")
+        msg = err(rc).decode(errors="replace")
+        raise RuntimeError(f"flash attention kernel ({variant}) launch "
+                           f"failed: error {rc} ({msg})")
     with _LAUNCH_LOCK:
         LAUNCHES["flash"] += 1
+        LAUNCHES[f"flash_{variant}"] += 1
     return o
 
 

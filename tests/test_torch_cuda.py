@@ -264,17 +264,33 @@ def test_analyze_audit_persistence_on_the_card_equals_the_cpu(cuda,
     (1, 150, 100, 8, 1, 80, False, torch.float32),
     (2, 1, 37, 4, 2, 256, True, torch.bfloat16),
     (1, 1000, 1500, 8, 8, 28, False, torch.float32),
+    # the wgmma kernel (bf16, hd 64/128/256): GQA 8/1 and 28/4, MHA,
+    # ragged S and T both ways, S != T causal, S=1, partial key tiles
+    (2, 130, 130, 8, 1, 64, True, torch.bfloat16),
+    (2, 130, 130, 8, 1, 64, False, torch.bfloat16),
+    (1, 1000, 1500, 28, 4, 128, True, torch.bfloat16),
+    (1, 1000, 1500, 28, 4, 128, False, torch.bfloat16),
+    (1, 1500, 1000, 28, 4, 128, True, torch.bfloat16),
+    (1, 1500, 1000, 4, 4, 128, False, torch.bfloat16),
+    (2, 200, 200, 16, 16, 256, True, torch.bfloat16),
+    (1, 300, 77, 8, 2, 256, False, torch.bfloat16),
+    (2, 1, 1500, 8, 8, 64, False, torch.bfloat16),
+    (2, 1, 37, 28, 4, 128, True, torch.bfloat16),
 ])
 def test_flash_kernel_equals_plain(cuda, B, S, T, H, KV, hd, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(S + T)
     q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype)
                for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
-    before = flash_attention.LAUNCHES["flash"]
+    variant = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) \
+        else "simt"
+    before = dict(flash_attention.LAUNCHES)
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     want = flash_attention.flash_attention(q, k, v, causal=causal,
                                            backend="torch")
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES["flash"] == before + 1
+    assert flash_attention.LAUNCHES["flash"] == before["flash"] + 1
+    assert flash_attention.LAUNCHES[f"flash_{variant}"] == \
+        before[f"flash_{variant}"] + 1
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -297,6 +313,35 @@ def test_flash_kernel_reads_strided_views(cuda):
         flash_attention.flash_attention_bh(qb, qb, qb, causal=False,
                                            backend="torch"),
         rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wgmma_reads_strided_views(cuda):
+    """bf16 views whose strides TMA takes run the wgmma kernel in place,
+    bit for bit like their contiguous copies; a sequence stride that is no
+    multiple of 16 bytes goes to the SIMT kernel."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    big = torch.randn((2, 300, 12, 128), device=cuda,
+                      generator=g).to(torch.bfloat16)
+    q, k, v = big[:, :, 0:8], big[:, :250, 8:10], big[:, :250, 10:12]
+    assert not q.is_contiguous()
+    before = flash_attention.LAUNCHES["flash_wgmma"]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    want = flash_attention.flash_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert flash_attention.LAUNCHES["flash_wgmma"] == before + 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_ref(q, k, v).float(),
+        rtol=2e-2, atol=2e-2)
+    odd = torch.randn((1, 90, 2 * 128 + 4), device=cuda,
+                      generator=g).to(torch.bfloat16)
+    t = odd[..., :256].unflatten(-1, (2, 128))     # 520-byte row stride
+    before = flash_attention.LAUNCHES["flash_simt"]
+    got = flash_attention.flash_attention_cuda(t, t, t, causal=False)
+    assert flash_attention.LAUNCHES["flash_simt"] == before + 1
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_ref(
+            t, t, t, causal=False).float(), rtol=2e-2, atol=2e-2)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
