@@ -6,7 +6,8 @@ Phases, one JSON line each:
 
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
-     together, sm_90a) with its ptxas report.
+     together, sm_90a) with its ptxas report, and the registers, shared
+     memory and spills of the TT and gather kernels by entry function.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
      VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
@@ -14,12 +15,17 @@ Phases, one JSON line each:
      FT/EF/ET) held bit for bit against its plain torch version on the
      card, on the 96^3 tables at B=64 and on edge cases (B=1; prime sizes;
      a fully valid lane vector; rows with L > deg; lanes too large for
-     shared memory, which run from a device workspace); then the two count
-     kernels of the dense fallback (meet: the 96^3 FF, EE and VF tables;
+     shared memory, which run from a device workspace; a TT table with
+     faces of three and four cofacets, run twice for equal blocks); then
+     the two count kernels of the dense fallback (meet: the 96^3 FF, EE
+     and VF tables;
      VV counts: the 96^3 tets) the same way, on B=1, prime sizes, all -1
      rows, nvl=257 and ids of an oversize nvl=2**11. Times from CUDA
      events beside the bound, the plain version's time and, for the count
-     kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick.
+     kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick;
+     each kernel's own time from CUDA-graph replay (``ms``) beside the
+     eager loop's (``eager_ms``, bound by the wrapper's host cost when the
+     kernel is faster than it).
   4. critical-points path: ``RelationEngine(["VV","VT"])`` ->
      ``critical_points`` on the kernels and on the plain torch arm, with
      the launch counters zeroed just before the kernels' run and read just
@@ -42,7 +48,10 @@ Phases, one JSON line each:
   7. completion gather: the resolve + gather kernel held bit for bit
      against its plain version on a real completion chunk of phase 6 (the
      plan of 1024 paired tets, the pool from ``get_full_dev_batch``, the T
-     inverse maps) and on edge cases; timed like phase 3.
+     inverse maps, the engine's segment start table) and on edge cases:
+     synthetic maps with empty segments, the last segment, segments past
+     the table and below 0, runs of 1 to 3000 gids, maps cut to an odd K
+     inside a run, and a combined key that wraps int32; timed like phase 3.
   8. the audit of a corrupted field and the completed FF rows of a seeded
      face sample, equal on the kernels and the plain arm at 96^3; then
      the whole audit + persistence path on both arms at 48^3, corrupted
@@ -562,6 +571,38 @@ def time_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
     return out[len(out) // 2]
 
 
+def graph_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    the median over ``rounds`` replays of the replay's CUDA-event time over
+    ``reps``. A kernel whose device time is below its wrapper's host cost
+    (tens of microseconds) shows its own time here, where ``time_ms``
+    shows the host's."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1) / reps)
+    out.sort()
+    return out[len(out) // 2]
+
+
 def bound_ms(nbytes: float, sorts, ops: float = 0.0) -> tuple:
     """Least time for the work: ``nbytes`` (each input read once, each
     output written once) at the HBM rate, or the int32 operations (``ops``,
@@ -902,6 +943,21 @@ def main() -> int:
           "build_s": round(t_build, 3), "ptxas": ptxas,
           "smem_optin_bytes": sr.smem_limit(dev)})
 
+    # the redesigned kernels' registers, shared memory and spills, by
+    # entry function (both template variants of the TT kernel)
+    def ptxas_of(lib, kernel):
+        out, fn = {}, None
+        for ln in (libs[lib].parent / "build.log").read_text().splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+            elif fn and kernel in fn and ("registers" in ln or "spill" in ln):
+                out.setdefault(fn, []).append(ln.strip())
+        return out
+
+    emit({"phase": "ptxas", "TT": ptxas_of("segment_relations",
+                                           "tt_entries_kernel"),
+          "gather": ptxas_of("completion_gather", "resolve_gather_kernel")})
+
     # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
     def quickstart_mesh(n):
         return structured_grid(n, n, n, scalar_fn=fields.gaussians(
@@ -1063,11 +1119,29 @@ def main() -> int:
     for s in range(8):
         tt[s][tt[s] >= 0] += (s % 4) * nvl
     tt = tt.reshape(2, 4 * tabs.NT, 4)
-    check(4 * sr.lane_ints(2 * sr.next_pow2(4 * tt.shape[1]), tt.shape[1])
-          > sr.smem_limit(dev), "the TT workspace case fits shared memory")
+    check(4 * sr.tt_lane_ints(tt.shape[1], 8) > sr.smem_limit(dev),
+          "the TT workspace case fits shared memory")
     want = compare("device-workspace lanes", "TT", cu(tt), cu(tt),
                    cu(colg_for(tt)), 4 * nvl, 8)
     check(int(want[1].max()) >= 4, "the TT workspace case shares no faces")
+    # TT past its precondition: faces of three and four cofacet tets. The
+    # blocks then depend on the order of a face's cofacets, which the
+    # kernel fixes by face lane: two runs give equal blocks
+    tt = rand_tets(2, 131, 40)
+    tt[:, 0] = [0, 1, 2, 3]
+    tt[:, 1:3, :3] = [0, 1, 2]
+    tt[:, 1:3, 3] = [[4], [5]]
+    tt[1, 3] = [2, 1, 0, 7]
+    ct = cu(colg_for(tt))
+    first = sr.relation_entries_cuda("TT", cu(tt), cu(tt), ct, nvl=40, deg=8)
+    again = sr.relation_entries_cuda("TT", cu(tt), cu(tt), ct, nvl=40, deg=8)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(first, again))
+    emit({"phase": "kernel_case", "case": "faces of 3 and 4 cofacets, twice",
+          "relation": "TT", "shape": [list(tt.shape)], "deterministic": ok,
+          "max_L": int(first[1].max())})
+    check(ok, "the TT kernel gives two blocks for one table past its "
+              "precondition")
     st = sub_tables(rand_tets(2, 2600, 200), pad=5)  # FT: E = 32768
     check(4 * sr.lane_ints(sr.next_pow2(st["F"].shape[1]
                                         + 4 * st["T"].shape[1]),
@@ -1079,8 +1153,9 @@ def main() -> int:
     timing = {}
 
     def time_arm(arm, relation, tx, ty, colg, deg, sorts):
-        k_ms = time_ms(torch, lambda: sr.relation_entries_cuda(
+        launch = (lambda: sr.relation_entries_cuda(
             relation, tx, ty, colg, nvl=nvl, deg=deg))
+        k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
         p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nvl,
                                             deg))
         M, L = plain(relation, tx, ty, colg, nvl, deg)
@@ -1089,8 +1164,8 @@ def main() -> int:
         read = {"VV": (tx,), "member": (ty,), "TT": (tx,),
                 "sub": (tx, ty)}[arm]
         b_ms, b_by = bound_ms(nbytes(*read, colg, M, L), sorts)
-        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-               "bound_by": b_by}
+        row = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel_time", "arm": arm, "relation": relation,
               "shape": [list(tx.shape), list(ty.shape)], "deg": deg, **row,
               "sorted_entries": int(sum(sorts))})
@@ -1194,7 +1269,8 @@ def main() -> int:
     Ax = onehot(Fm, nvl)
     At = onehot(T, nvl).transpose(1, 2).contiguous()  # (B, nvl, NT)
     C = ops.counts_meet(Fm, Fm)
-    k_ms = time_ms(torch, lambda: sr.relation_counts_meet_cuda(Fm, Fm))
+    launch = (lambda: sr.relation_counts_meet_cuda(Fm, Fm))
+    k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
     p_ms = time_ms(torch, lambda: ops.counts_meet(Fm, Fm, backend="torch"),
                    reps=5)
     lib_ms = time_ms(torch, lambda: torch.bmm(Ax, Ax.transpose(1, 2)))
@@ -1202,22 +1278,25 @@ def main() -> int:
         C, 2, True, False), cu(tabs.LF_global[:BATCH]), 48), reps=5)
     # the slot compares the outputs need: ax * ay per output
     b_ms, b_by = bound_ms(nbytes(Fm, Fm, C), [], ops=C.numel() * 9)
-    timing["meet"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": lib_ms}
+    timing["meet"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
     emit({"phase": "kernel_time", "arm": "meet", "relation": "FF",
           "shape": [list(Fm.shape), list(Fm.shape)], **timing["meet"],
           "epilogue_ms": epi_ms,
           "C_bytes": nbytes(C)})
     C = ops.counts_vv(T, nvl)
-    k_ms = time_ms(torch, lambda: sr.relation_counts_vv_cuda(T, nvl))
+    launch = (lambda: sr.relation_counts_vv_cuda(T, nvl))
+    k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
     p_ms = time_ms(torch, lambda: ops.counts_vv(T, nvl, backend="torch"),
                    reps=5)
     lib_ms = time_ms(torch, lambda: torch.bmm(At, At.transpose(1, 2)))
     # one add per ordered slot pair of each valid tet
     b_ms, b_by = bound_ms(nbytes(T, C), [],
                           ops=16 * int((T >= 0).all(-1).sum()))
-    timing["vv_counts"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": lib_ms}
+    timing["vv_counts"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms}
     emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
           "shape": [list(T.shape)], "nvl": nvl, **timing["vv_counts"],
           "C_bytes": nbytes(C)})
@@ -1472,6 +1551,7 @@ def main() -> int:
     S = ops.bucket_rows(len(plan.segments))
     pool_M, pool_L = eng.get_full_dev_batch("TT", plan.segments, pad_to=S)
     inv_seg, inv_gid, inv_row, inv_key, n_glob = eng.dev_inverse("T")
+    inv_start = eng.dev_inverse_starts("T")
     P = len(plan.pair_seg)
     P_pad = ops.bucket_rows(P)
     slot = np.full(P_pad, -1, np.int32)
@@ -1482,10 +1562,13 @@ def main() -> int:
     gid[:P] = plan.ids[plan.pair_query]
     pairs = (cu(slot), cu(seg), cu(gid))
 
-    def gather_compare(case, *args, inv=None, key=None, n_global=0):
+    def gather_compare(case, *args, inv=None, key=None, n_global=0,
+                       start=None, pool=None):
         inv = inv or (inv_seg, inv_gid, inv_row)
-        a = (pool_M, pool_L, *inv, *args)
-        got = cg.resolve_gather_cuda(*a, inv_key=key, n_global=n_global)
+        a = (*(pool or (pool_M, pool_L)), *inv, *args)
+        got = cg.resolve_gather_cuda(*a, inv_key=key, n_global=n_global,
+                                     inv_start=inv_start if start is None
+                                     else start)
         want = cg.resolve_gather_torch(*a, inv_key=key, n_global=n_global)
         torch.cuda.synchronize()
         ok = all(torch.equal(x, y) for x, y in zip(got, want))
@@ -1534,11 +1617,12 @@ def main() -> int:
     wslot = np.searchsorted(wplan.segments, wplan.pair_seg).astype(np.int32)
     wa = (cu(wslot), cu(wplan.pair_seg.astype(np.int32)),
           cu(wplan.ids[wplan.pair_query].astype(np.int32)))
+    wst = weng.dev_inverse_starts("T")
     got = cg.resolve_gather_cuda(wM, wL, ws, wg, wr, *wa, inv_key=wk,
-                                 n_global=wn)
+                                 n_global=wn, inv_start=wst)
     want = cg.resolve_gather_torch(wM, wL, ws, wg, wr, *wa, inv_key=wk,
                                    n_global=wn)
-    lex = cg.resolve_gather_cuda(wM, wL, ws, wg, wr, *wa)
+    lex = cg.resolve_gather_cuda(wM, wL, ws, wg, wr, *wa, inv_start=wst)
     torch.cuda.synchronize()
     ok = all(torch.equal(x, y) for x, y in zip(got, want)) and \
         all(torch.equal(x, y) for x, y in zip(lex, want))
@@ -1547,8 +1631,64 @@ def main() -> int:
           "K": int(ws.shape[0]), "key_search": True, "equal": ok})
     check(ok, "the gather kernel's key search disagrees with the plain arm")
 
-    k_ms = time_ms(torch, lambda: cg.resolve_gather_cuda(
-        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
+    # synthetic maps, both arms: runs of 1 to 3000 gids (one to three
+    # narrowing rounds), empty segments, the last segment, segments past S
+    # and below 0, the padding pair, and the maps cut to an odd K inside a
+    # run (the start table of the whole maps clamped to K)
+    def synthetic_maps(runs, n_seg, n_global):
+        sseg = np.concatenate([np.full(n, q) for q, n in runs.items()])
+        sgid = np.concatenate([np.sort(rng.choice(n_global, n, replace=False))
+                               for n in runs.values()])
+        key = sseg.astype(np.int64) * n_global + sgid
+        check(key[-1] < 2 ** 31, "synthetic keys past int32")
+        start = np.searchsorted(sseg, np.arange(n_seg + 1))
+        return (sseg.astype(np.int32), sgid.astype(np.int32),
+                rng.integers(0, 40, len(sseg)).astype(np.int32),
+                key.astype(np.int32), start.astype(np.int32))
+
+    spool = (cu(rng.integers(-1, 10 ** 5, (6, 40, 4)).astype(np.int32)),
+             cu(rng.integers(0, 5, (6, 40)).astype(np.int32)))
+    sseg, sgid, srow, skey, sstart = synthetic_maps(
+        {0: 3000, 1: 700, 2: 33, 3: 0, 4: 1, 5: 32, 6: 200, 7: 0, 8: 1500},
+        9, 5000)
+    pick = rng.integers(0, len(sseg), 600)
+    qs, qg = sseg[pick].copy(), sgid[pick].copy()
+    qg[::3] = rng.integers(-1, 5001, len(qg[::3]))            # absent
+    qs[1:12] = [3, 7, 8, 8, 9, 13, -1, -5, 0, 0, 0]
+    qg[1:12] = [5, 0, sgid[-1], 4999, 0, 3, sgid[0], 0, -1, sgid[0],
+                sgid[2999]]
+    sslot = rng.integers(-1, 6, 600).astype(np.int32)
+    sslot[-8:], qs[-8:], qg[-8:] = -1, 0, -1                   # padding
+    spairs = (cu(sslot), cu(qs), cu(qg))
+    for K_ in (len(sseg), 1501):
+        inv = tuple(cu(a[:K_]) for a in (sseg, sgid, srow))
+        for key in (None, cu(skey[:K_])):
+            want = gather_compare(
+                f"synthetic runs, K={K_}", *spairs, inv=inv, key=key,
+                n_global=5000, start=cu(sstart), pool=spool)
+            check(int((want[1] > 0).sum()) > (100 if K_ == len(sseg)
+                                              else 20),
+                  "the synthetic gather case resolved too few pairs")
+    # the inv_key arm: a combined key past 2**31 wraps onto another
+    # segment's appearance, which the plain arm finds (start table of 4100
+    # segments, so the wrapping pairs lie inside it)
+    sseg, sgid, srow, skey, sstart = synthetic_maps(
+        {0: 50, 1: 50, 2040: 50}, 4100, 2 ** 20)
+    wq = (cu(np.zeros(7, np.int32)),
+          cu(np.array([4096, 4097, 4096, 2048, 2040, 1, 4099], np.int32)),
+          cu(np.array([sgid[0], sgid[60], 7, sgid[3], sgid[120], sgid[70],
+                       0], np.int32)))
+    want = gather_compare("key wraps int32", *wq,
+                          inv=tuple(cu(a) for a in (sseg, sgid, srow)),
+                          key=cu(skey), n_global=2 ** 20, start=cu(sstart),
+                          pool=(spool[0], torch.full_like(spool[1], 4)))
+    check(want[1][:2].tolist() == [4, 4],
+          "the wrapped keys found no appearance")
+
+    launch = (lambda: cg.resolve_gather_cuda(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs,
+        inv_start=inv_start))
+    k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
     p_ms = time_ms(torch, lambda: cg.resolve_gather_torch(
         pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
     cand, clen = cg.resolve_gather_torch(
@@ -1561,8 +1701,8 @@ def main() -> int:
     need = (nbytes(*pairs) + P_pad * (steps * 8 + 4)
             + P_pad * (degp + 1) * 4 + nbytes(cand, clen))
     b_ms, b_by = bound_ms(need, [])
-    timing["gather"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by}
+    timing["gather"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernel_time", "arm": "gather", "pairs": P_pad,
           "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
           **timing["gather"]})

@@ -278,7 +278,8 @@ def execute_completion_device(eng: RelationEngine, plan: CompletionPlan,
         pool_M, pool_L, inv_seg, inv_gid, inv_row,
         *(torch.from_numpy(a).to(dev)
           for a in (pair_slot, pair_seg, pair_gid, pair_at)),
-        deg_out=deg, backend=eng.backend, inv_key=inv_key, n_global=n_glob)
+        deg_out=deg, backend=eng.backend, inv_key=inv_key, n_global=n_glob,
+        inv_start=eng.dev_inverse_starts(kind))
 
     eng.stat_bump(completion_raw_neighbors=int(raw),
                   completion_neighbors=int(kept))

@@ -345,13 +345,18 @@ class RelationEngine(StatsHost):
         # (seg, gid, row) columns, for the device completion gather
         # (kernels/completion_gather.py). When the combined key
         # ``seg * n_global + gid`` fits int32 it is staged too, as
-        # ``inv_key_*``, for the single-key search.
+        # ``inv_key_*``, for the single-key search. ``inv_start_*`` (S + 1
+        # int32) holds where each segment's run of the maps starts, so the
+        # gather kernel searches one segment's run.
         self._inv_nglob: Dict[str, int] = {}
+        n_seg = self.smesh.n_segments
         for kind, (keys, rows, n_glob) in (t.inverse or {}).items():
             if kind == "V":   # completion only spans E/F/T kinds
                 continue
-            self._dev[f"inv_seg_{kind}"] = put(
-                (keys // n_glob).astype(np.int32))
+            segs = keys // n_glob
+            self._dev[f"inv_start_{kind}"] = put(np.searchsorted(
+                segs, np.arange(n_seg + 1)).astype(np.int32))
+            self._dev[f"inv_seg_{kind}"] = put(segs.astype(np.int32))
             self._dev[f"inv_gid_{kind}"] = put(
                 (keys % n_glob).astype(np.int32))
             self._dev[f"inv_row_{kind}"] = put(rows.astype(np.int32))
@@ -463,6 +468,14 @@ class RelationEngine(StatsHost):
         return (self._dev[f"inv_seg_{kind}"], self._dev[f"inv_gid_{kind}"],
                 self._dev[f"inv_row_{kind}"],
                 self._dev.get(f"inv_key_{kind}"), self._inv_nglob[kind])
+
+    def dev_inverse_starts(self, kind: str) -> torch.Tensor:
+        """Device ``(S + 1,)`` int32 start table of :meth:`dev_inverse`'s
+        maps for kind ``E``/``F``/``T``: segment ``s``'s appearances are
+        rows ``start[s]:start[s + 1]``, and ``start[S]`` is their count."""
+        if kind not in self._inv_nglob:
+            raise KeyError(f"no device inverse map for kind {kind!r}")
+        return self._dev[f"inv_start_{kind}"]
 
     def local_rows(self, kind: str, segs: np.ndarray,
                    gids: np.ndarray) -> np.ndarray:

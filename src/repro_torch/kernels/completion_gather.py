@@ -4,7 +4,9 @@ Given the engine's device-resident inverse maps and a stacked pool of
 produced relation blocks, this module
 
   1. resolves every planned ``(segment, global id)`` pair to its local block
-     row by **batched binary search** over the sorted inverse maps,
+     row by **batched binary search** over the sorted inverse maps (the
+     kernel searches only the pair's segment's run, from the engine's start
+     table),
   2. gathers the pair's ``(M, L)`` row from the block pool, and
   3. performs the union / self-removal / dedup / compaction into the paper's
      padded ``(M, L)`` layout with two lane-wise sorts,
@@ -128,7 +130,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         lib.cg_error_string.argtypes = [_I]
         lib.cg_error_string.restype = ctypes.c_char_p
-        lib.cg_resolve_gather.argtypes = [_I] + [_P] * 11 + [_I] * 5 + [_P]
+        lib.cg_resolve_gather.argtypes = [_I] + [_P] * 12 + [_I] * 6 + [_P]
         lib.cg_resolve_gather.restype = _I
         lib._repro_bound = True
     return lib
@@ -136,12 +138,15 @@ def _lib() -> ctypes.CDLL:
 
 def resolve_gather_cuda(pool_M, pool_L, inv_seg, inv_gid, inv_row,
                         pair_slot, pair_seg, pair_gid, inv_key=None,
-                        n_global: int = 0
+                        n_global: int = 0, *, inv_start
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The resolve + gather on the card (``csrc/completion_gather.cu``):
-    the same ``(cand, clen)`` as :func:`resolve_gather_torch`. Takes CUDA
-    int32 contiguous tensors on one device and raises on anything else;
-    launches on the current stream without synchronising."""
+    the same ``(cand, clen)`` as :func:`resolve_gather_torch`. ``inv_start``
+    (``(S + 1,)`` int32, the engine's ``dev_inverse_starts``) holds where
+    each segment's run of the maps starts, so a pair searches only its own
+    segment's run. Takes CUDA int32 contiguous tensors on one device and
+    raises on anything else; launches on the current stream without
+    synchronising."""
     if not isinstance(pool_M, torch.Tensor) or pool_M.dim() != 3:
         raise ValueError("pool_M must be an (S, R, degp) tensor")
     S, R, degp = pool_M.shape
@@ -157,9 +162,14 @@ def resolve_gather_cuda(pool_M, pool_L, inv_seg, inv_gid, inv_row,
                            ("pair_gid", pair_gid, (P,))):
         if t is not None:
             _check(t, name, shape)
+    if not isinstance(inv_start, torch.Tensor) or inv_start.dim() != 1 \
+            or len(inv_start) < 1:
+        raise ValueError("inv_start must be the (S + 1,) segment start "
+                         "table of the inverse maps")
+    _check(inv_start, "inv_start", tuple(inv_start.shape))
     dev = pool_M.device
-    for t in (pool_L, inv_seg, inv_gid, inv_row, inv_key, pair_slot,
-              pair_seg, pair_gid):
+    for t in (pool_L, inv_seg, inv_gid, inv_row, inv_key, inv_start,
+              pair_slot, pair_seg, pair_gid):
         if t is not None and t.device != dev:
             raise ValueError("every input must lie on one device")
     if S * R == 0 or K >= 2 ** 31 or S * R * degp >= 2 ** 62:
@@ -175,9 +185,9 @@ def resolve_gather_cuda(pool_M, pool_L, inv_seg, inv_gid, inv_row,
         idx, pool_M.data_ptr(), pool_L.data_ptr(), inv_seg.data_ptr(),
         inv_gid.data_ptr(), inv_row.data_ptr(),
         inv_key.data_ptr() if inv_key is not None else None,
-        pair_slot.data_ptr(), pair_seg.data_ptr(), pair_gid.data_ptr(),
-        cand.data_ptr(), clen.data_ptr(), P, K, R, degp, int(n_global),
-        stream)
+        inv_start.data_ptr(), pair_slot.data_ptr(), pair_seg.data_ptr(),
+        pair_gid.data_ptr(), cand.data_ptr(), clen.data_ptr(), P, K, R, degp,
+        int(n_global), len(inv_start) - 1, stream)
     if rc != 0:
         msg = lib.cg_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"completion gather kernel launch failed: "
@@ -232,6 +242,7 @@ def gather_union(
     backend: str = "torch",
     inv_key: Optional[torch.Tensor] = None,
     n_global: int = 0,
+    inv_start: Optional[torch.Tensor] = None,   # (S + 1,) i32 run starts
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Device-side completion gather: resolve rows, gather, union, compact.
 
@@ -240,12 +251,13 @@ def gather_union(
     ``deg_out``, in which case ``M`` is truncated and the caller must raise
     (the engine's preallocated-width contract). ``raw``/``kept`` are the
     gathered-entry counters feeding ``EngineStats``. ``backend="cuda"``
-    launches the kernel (CUDA tensors only); ``"torch"`` runs the plain
-    version on any device."""
+    launches the kernel (CUDA tensors only), which needs ``inv_start``;
+    ``"torch"`` runs the plain version on any device and ignores it."""
     if backend == "cuda":
         cand, clen = resolve_gather_cuda(
             pool_M, pool_L, inv_seg, inv_gid, inv_row, pair_slot, pair_seg,
-            pair_gid, inv_key=inv_key, n_global=n_global)
+            pair_gid, inv_key=inv_key, n_global=n_global,
+            inv_start=inv_start)
     elif backend == "torch":
         cand, clen = resolve_gather_torch(
             pool_M, pool_L, inv_seg, inv_gid, inv_row, pair_slot, pair_seg,

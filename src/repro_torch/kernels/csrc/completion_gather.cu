@@ -1,42 +1,51 @@
 // Cross-segment completion gather for Hopper (sm_90a): resolve each planned
-// (segment, global id) pair to its local block row by binary search over
-// the engine's sorted inverse maps, then copy that row of the stacked block
-// pool and its length.
+// (segment, global id) pair to its local block row in the engine's sorted
+// inverse maps, then copy that row of the stacked block pool and its length.
 //
 // Replaces the TPU kernel of src/repro/kernels/completion_gather.py:
 //   resolve_gather_kernel <- _gather_kernel, launched there through
 //                            _resolve_gather_pallas (pl.pallas_call).
 //
-// What bounds it on this card. Each pair costs about log2(K) dependent
-// loads from the inverse maps (K = 10.1 M tet appearances at 96^3, so 24
-// steps reading seg and gid, 121 MB of maps in all) and one degp-wide row
-// copy. The TPU kernel kept the maps in VMEM; here they do not fit in
-// shared memory (or the 50 MB L2), so they stay in device memory and the
-// search is bound by the latency of its chain of dependent loads, not by
-// bytes or operations: a chunk of P = 4096 pairs touches at most
-// 4096 * 24 * 8 bytes of the maps. The top of every search reads the same
-// few lines, which stay in L2.
+// What bounds it on this card. The bytes are few (a chunk of 2048 pairs
+// moves about 0.6 MB), so the kernel is bound by the latency of the loads
+// that depend on each other. A binary search over the whole maps (K = 10.1 M
+// tet appearances at 96^3, 121 MB, past the 50 MB L2) is about 24 such
+// steps, each reading the segment and often the gid column.
 //
-// What the design does about it. One thread per pair runs its own search,
-// so a block keeps 256 independent load chains in flight and many blocks
-// overlap their latencies; the resolved flat rows go to shared memory and
-// the block then copies the rows cooperatively (consecutive threads on
-// consecutive words of the output). Making it faster (a shared-memory
-// top-of-tree cache, prefetching several levels) is later work.
+// What the design does about it. The maps are sorted by segment first, and
+// the engine stages a start table beside them (inv_start, S + 1 int32): the
+// pair's segment alone narrows its search to that segment's own run of
+// gids, at most NT = 896 long for tets. One warp takes one pair: it reads
+// the run's bounds, then narrows the run with 32 evenly spaced reads of
+// inv_gid and a __ballot_sync until at most 32 gids are left, and reads
+// those in one coalesced load. That is two rounds for a run of up to 1024,
+// about five dependent round trips in all with the row and pool reads.
+// A block of 8 warps takes 8 pairs, so a chunk of 2048 pairs is 256 blocks
+// on the 132 SMs. The resolved flat rows go to shared memory and the block
+// copies its rows cooperatively (consecutive threads on consecutive words).
+// Pairs outside the start table's domain (segment < 0 or >= S; on the
+// inv_key arm also gid outside [0, n_global) or a key that wraps int32)
+// keep the full binary search over the maps, in the same kernel, so every
+// answer is the plain arm's.
 //
 // Semantics (identical to the plain torch arm and the reference): with
 // inv_key (combined key seg * n_global + gid, int32, staged only when it
 // fits) the search is a lower bound on that key; otherwise a lexicographic
 // lower bound on (seg, gid). Not found gives row -1. A pair is ok when its
 // slot >= 0 and its row >= 0; flat = max(slot, 0) * R + clamp(row, 0, R-1);
-// cand = pool_M[flat] for every pair, clen = ok ? pool_L[flat] : 0.
+// cand = pool_M[flat] for every pair, clen = ok ? pool_L[flat] : 0. Inside
+// a segment's run the gids ascend, and in the domain both searches find
+// the first entry of the run at or past qg, so the run's search gives the
+// same row. The run's bounds are clamped to [0, K], so maps cut short keep
+// their answers.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kPairsPerBlock = 256;
+constexpr int kWarpsPerBlock = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int resolve_lex(const int* __restrict__ inv_seg,
                                            const int* __restrict__ inv_gid,
@@ -75,27 +84,62 @@ __device__ __forceinline__ int resolve_key(const int* __restrict__ inv_key,
   return inv_key[pos] == q ? inv_row[pos] : -1;
 }
 
-__global__ void __launch_bounds__(kPairsPerBlock)
+// The warp's lower bound of qg in the ascending gids[lo, hi): every lane
+// gets the same answer. While more than 32 are left, lane i reads position
+// lo + i * step (step = ceil(n / 32)); the lanes that read a gid below qg
+// form a prefix of c lanes, so the bound lies after lane c - 1's position
+// and at or before lane c's.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ gids,
+                                                int lo, int hi, int qg) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int pos = lo + lane * step;
+    const bool less = pos < hi && gids[pos] < qg;
+    const int c = __popc(__ballot_sync(kFull, less));
+    if (c == 0) return lo;
+    hi = min(lo + c * step, hi);
+    lo += (c - 1) * step + 1;
+  }
+  const int pos = lo + lane;
+  const bool less = pos < hi && gids[pos] < qg;
+  return lo + __popc(__ballot_sync(kFull, less));
+}
+
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
 resolve_gather_kernel(const int* __restrict__ pool_M,
                       const int* __restrict__ pool_L,
                       const int* __restrict__ inv_seg,
                       const int* __restrict__ inv_gid,
                       const int* __restrict__ inv_row,
                       const int* __restrict__ inv_key,
+                      const int* __restrict__ inv_start,
                       const int* __restrict__ pair_slot,
                       const int* __restrict__ pair_seg,
                       const int* __restrict__ pair_gid,
                       int* __restrict__ cand, int* __restrict__ clen, int P,
-                      int K, int R, int degp, int n_global) {
-  __shared__ long long flat_s[kPairsPerBlock];
-  const int base = blockIdx.x * kPairsPerBlock;
-  const int p = base + threadIdx.x;
-  if (p < P) {
+                      int K, int R, int degp, int n_global, int n_seg) {
+  __shared__ long long flat_s[kWarpsPerBlock];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kWarpsPerBlock;
+  const int p = base + warp;
+  if (p < P) {                       // warp-uniform
     const int qs = pair_seg[p];
     const int qg = pair_gid[p];
     int row = -1;
     if (K > 0) {
+      bool in_domain = qs >= 0 && qs < n_seg;
       if (inv_key != nullptr) {
+        in_domain = in_domain && qg >= 0 && qg < n_global &&
+                    (long long)qs * n_global + qg <= 0x7fffffffLL;
+      }
+      if (in_domain) {
+        const int lo = min(max(inv_start[qs], 0), K);
+        const int hi = min(max(inv_start[qs + 1], 0), K);
+        const int pos = warp_lower_bound(inv_gid, lo, hi, qg);
+        if (pos < hi && inv_gid[pos] == qg) row = inv_row[pos];
+      } else if (inv_key != nullptr) {
         // int32 arithmetic that wraps, as the reference's
         const int q = (int)((unsigned)qs * (unsigned)n_global + (unsigned)qg);
         row = resolve_key(inv_key, inv_row, K, q);
@@ -103,19 +147,22 @@ resolve_gather_kernel(const int* __restrict__ pool_M,
         row = resolve_lex(inv_seg, inv_gid, inv_row, K, qs, qg);
       }
     }
-    const int slot = pair_slot[p];
-    const bool ok = slot >= 0 && row >= 0;
-    const long long flat = (long long)max(slot, 0) * R + min(max(row, 0), R - 1);
-    flat_s[threadIdx.x] = flat;
-    clen[p] = ok ? pool_L[flat] : 0;
+    if (lane == 0) {
+      const int slot = pair_slot[p];
+      const bool ok = slot >= 0 && row >= 0;
+      const long long flat =
+          (long long)max(slot, 0) * R + min(max(row, 0), R - 1);
+      flat_s[warp] = flat;
+      clen[p] = ok ? pool_L[flat] : 0;
+    }
   }
   __syncthreads();
-  const int n = min(kPairsPerBlock, P - base);
-  const long long total = (long long)n * degp;
+  const int n = min(kWarpsPerBlock, P - base);
+  const int total = n * degp;
   int* out = cand + (size_t)base * degp;
-  for (long long i = threadIdx.x; i < total; i += blockDim.x) {
-    const int q = (int)(i / degp);
-    const int d = (int)(i - (long long)q * degp);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int q = i / degp;
+    const int d = i - q * degp;
     out[i] = pool_M[flat_s[q] * degp + d];
   }
 }
@@ -127,23 +174,26 @@ extern "C" const char* cg_error_string(int err) {
 }
 
 // Plain C interface, bound with ctypes; returns cudaGetLastError() after
-// the launch. inv_key is null for the lexicographic search.
+// the launch. inv_key is null for the lexicographic search; inv_start holds
+// n_seg + 1 run starts.
 extern "C" int cg_resolve_gather(int device, const void* pool_M,
                                  const void* pool_L, const void* inv_seg,
                                  const void* inv_gid, const void* inv_row,
-                                 const void* inv_key, const void* pair_slot,
-                                 const void* pair_seg, const void* pair_gid,
-                                 void* cand, void* clen, int P, int K, int R,
-                                 int degp, int n_global, void* stream) {
+                                 const void* inv_key, const void* inv_start,
+                                 const void* pair_slot, const void* pair_seg,
+                                 const void* pair_gid, void* cand, void* clen,
+                                 int P, int K, int R, int degp, int n_global,
+                                 int n_seg, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (P == 0) return (int)cudaSuccess;
-  const int blocks = (P + kPairsPerBlock - 1) / kPairsPerBlock;
-  resolve_gather_kernel<<<blocks, kPairsPerBlock, 0,
+  const int blocks = (P + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  resolve_gather_kernel<<<blocks, 32 * kWarpsPerBlock, 0,
                           (cudaStream_t)stream>>>(
       (const int*)pool_M, (const int*)pool_L, (const int*)inv_seg,
       (const int*)inv_gid, (const int*)inv_row, (const int*)inv_key,
-      (const int*)pair_slot, (const int*)pair_seg, (const int*)pair_gid,
-      (int*)cand, (int*)clen, P, K, R, degp, n_global);
+      (const int*)inv_start, (const int*)pair_slot, (const int*)pair_seg,
+      (const int*)pair_gid, (int*)cand, (int*)clen, P, K, R, degp, n_global,
+      n_seg);
   return (int)cudaGetLastError();
 }

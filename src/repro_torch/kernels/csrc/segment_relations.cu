@@ -19,10 +19,24 @@
 // memory, so one block runs per SM and a 64-segment launch fills 64 of the
 // 132 SMs.
 //
-// The TT and EF/ET/FT arms sort twice as many lanes per segment as they
-// emit rows for (TT at NT=896: a face-key sort of EJ = 4096 lanes, then the
-// E = 8192 entry lanes; EF/ET/FT at 96^3: E = 8192), so they are bound the
-// same way: 64 KB of lanes per block, barrier-separated passes.
+// The EF/ET/FT arm sorts twice as many lanes per segment as it emits rows
+// for (E = 8192 at 96^3), so it is bound the same way: 64 KB of lanes per
+// block, barrier-separated passes.
+//
+// TT is designed apart (tt_entries_kernel below). It sorts only its EJ face
+// lanes (4096 at NT = 896) and never inverts a list of entries: under the
+// arm's precondition a tet has at most four TT neighbours, the partners of
+// its own four face lanes, so each lane records its sorted neighbours' tets
+// in two slots of its own and one thread per tet builds its row from those
+// 8 slots in registers. The face sort keeps each warp's 128 lanes in
+// registers for strides below 128 (register compare-exchange and warp
+// shuffles), so a segment takes about 20 barrier-separated passes over
+// 32 KB of lanes where the entry-inversion design took about 270 over
+// 64 KB. What bounds it then is the latency of those passes within one
+// block per segment (64 blocks at B = 64), not bytes or operations. Its
+// lanes, slots and staged M rows (tt_lane_ints: 60 KB at NT = 896) move to
+// the device workspace past the opt-in limit (NT > 3168 at deg 8), as
+// below.
 //
 // What the design does about it. The lanes (int32 key + int32 value, 8*E
 // bytes) never leave shared memory between the entry generation and the
@@ -32,9 +46,8 @@
 // When 8*E exceeds the per-block opt-in limit (227 KB, NT > 1365 for VV)
 // the same code runs with its lanes in a workspace in device memory that
 // the wrapper allocates; it never falls back to another implementation.
-// Making it fast (warp-level sorting of short strides in registers, several
-// segments per SM) is later work; this version is the simple one that is
-// right.
+// Making VV, member and sub-join fast (warp-level sorting of short strides
+// in registers, as TT does, and several segments per SM) is later work.
 //
 // Key encoding (identical to the plain torch arm and the reference): an
 // entry's key is row * O + order in int32 (the wrapper's callers guarantee
@@ -144,7 +157,7 @@ __device__ __forceinline__ void emit_entries(int* key, int* val, int* starts,
 // shared-memory loads and stores.
 template <bool kGlobalLanes>
 __device__ __forceinline__ int* segment_lanes(int* work, int b, size_t per) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
   if (kGlobalLanes) return work + (size_t)b * per;
   return smem;
 }
@@ -228,7 +241,7 @@ __device__ __forceinline__ void sort4(int& a, int& b, int& c, int& d) {
 #undef SR_CSWAP
 }
 
-// Sorts the first n (<= 4) values of v ascending (insertion, in registers).
+// Sorts the first n values of v ascending (insertion, in registers).
 template <int n>
 __device__ __forceinline__ void sort_small(int* v) {
 #pragma unroll
@@ -244,78 +257,213 @@ __device__ __forceinline__ void sort_small(int* v) {
   }
 }
 
-// TT: each valid local tet contributes its four sorted vertex triples as
-// face keys (a * nvl + b) * nvl + c with its tet id; after one sort of the
-// EJ face lanes, equal neighbouring keys are a shared face (a face has at
-// most two cofacet tets) and give both directed entries: key t0 * NT + t1,
-// value col_global[t1], and key t1 * NT + t0, value col_global[t0]. Those
-// 2 * EJ = E entry lanes then go through emit_entries with R = O = NT.
-// tet is (B, NT, 4), colg (B, NT).
+// TT. Each valid local tet t gives its four sorted vertex triples as face
+// keys (a * nvl + b) * nvl + c at face lanes f * NT + t (face-major, as the
+// reference); padding tets and the lanes past 4 * NT carry kBig. One block
+// sorts the EJ lanes of its segment as 64-bit composites (face_key << 32) |
+// lane: equal faces are ordered by lane, so the order of a face's cofacets
+// does not depend on the sort network, and the lane rides in the key.
+//
+// Sort: bitonic, with the lanes of one warp's 128-lane chunk held in
+// registers (chunk element r * 32 + lane in v[r]): strides of 32 and 64 are
+// compare-exchanged inside a thread, strides below 32 through
+// __shfl_xor_sync. Only strides of 128 and more go through the lane array
+// (shared memory, or the device workspace) with a __syncthreads() each.
+//
+// Partner slots: each sorted position with a valid key compares its face
+// with its two neighbours and writes the neighbour's tet, or -1, into the
+// (previous, next) slots of its own lane: every lane writes only its own
+// slots. Under the arm's precondition (a face has at most two cofacet tets)
+// these are exactly the directed entries of the reference's adjacent-pair
+// construction, both ways round.
+//
+// Row pass: one thread per local tet reads the 8 slots of its four face
+// lanes, sorts them in registers, drops -1 and duplicates, and writes the
+// true count L[t] and M[t, d] = col_global[t1_d] (-1 past min(L, deg)) into
+// the block's staged M rows, which are then stored contiguously.
+constexpr int kTTPer = 4;                    // lanes a thread holds
+constexpr int kTTChunk = 32 * kTTPer;        // lanes a warp sorts alone
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ void cswap64(u64& a, u64& b, bool up) {
+  if ((a > b) == up) {
+    const u64 t = a;
+    a = b;
+    b = t;
+  }
+}
+
+// The bitonic passes of merge size k with strides jmax..1 (jmax < 128) over
+// one warp's chunk, starting at lane index base, held in registers.
+__device__ __forceinline__ void warp_passes(u64 (&v)[kTTPer], int base,
+                                            int k, int jmax) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = kTTChunk / 2; j > 0; j >>= 1) {
+    if (j > jmax) continue;
+    if (j >= 32) {
+      const int rj = j >> 5;
+#pragma unroll
+      for (int r = 0; r < kTTPer; ++r) {
+        if ((r & rj) == 0) {
+          cswap64(v[r], v[r | rj], ((base + r * 32 + lane) & k) == 0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kTTPer; ++r) {
+        const u64 o = __shfl_xor_sync(0xffffffffu, v[r], j);
+        const bool up = ((base + r * 32 + lane) & k) == 0;
+        const bool lower = (lane & j) == 0;
+        const bool keep_min = lower == up;
+        v[r] = (keep_min == (o < v[r])) ? o : v[r];
+      }
+    }
+  }
+}
+
+// int32 words of one TT segment's working set, as the wrapper's
+// tt_lane_ints: the EJ sorted 64-bit lanes (the staged M rows reuse them
+// once the slots are written), then two partner slots per face lane.
+__host__ __device__ __forceinline__ size_t tt_lane_ints(int NT, int deg,
+                                                        int EJ) {
+  size_t a = 2 * (size_t)EJ;
+  size_t m = (size_t)NT * deg;
+  m += m & 1;
+  return (a > m ? a : m) + 8 * (size_t)NT;
+}
+
+// tet is (B, NT, 4), colg (B, NT); EJ = max(128, next_pow2(4 * NT)) and
+// blockDim.x = min(1024, EJ / kTTPer).
 template <bool kGlobalLanes>
 __global__ void __launch_bounds__(1024)
 tt_entries_kernel(const int* __restrict__ tet, const int* __restrict__ colg,
                   int* __restrict__ M, int* __restrict__ L, int* work, int NT,
-                  int nvl, int deg, int EJ, int E) {
+                  int nvl, int deg, int EJ) {
   const int b = blockIdx.x;
-  const size_t per = 2 * (size_t)E + NT + 1;
-  int* key = segment_lanes<kGlobalLanes>(work, b, per);
-  int* val = key + E;
-  int* starts = val + E;
+  const size_t per = tt_lane_ints(NT, deg, EJ);
+  int* base_ints = segment_lanes<kGlobalLanes>(work, b, per);
+  u64* lanes = reinterpret_cast<u64*>(base_ints);
+  int* Ms = base_ints;
+  const size_t lane_words = per - 8 * (size_t)NT;
+  int2* slots = reinterpret_cast<int2*>(base_ints + lane_words);
   const int* tb = tet + (size_t)b * NT * 4;
   const int* cg = colg + (size_t)b * NT;
-  const int n = 4 * NT;
-  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
-    int k = kBig;
-    int t = 0;
-    if (i < n) {
-      const int f = i / NT;            // face-major, as the reference
-      t = i - f * NT;
-      int w0 = tb[t * 4 + 0], w1 = tb[t * 4 + 1];
-      int w2 = tb[t * 4 + 2], w3 = tb[t * 4 + 3];
-      sort4(w0, w1, w2, w3);
-      if (w0 >= 0) {                   // -1 padding sorts first
-        // faces (0,1,2), (0,1,3), (0,2,3), (1,2,3) of the sorted tet
-        const int a = f == 3 ? w1 : w0;
-        const int bb = f >= 2 ? w2 : w1;
-        const int c = f == 0 ? w2 : w3;
-        k = (a * nvl + bb) * nvl + c;
+  const int n4 = 4 * NT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int nchunk = EJ / kTTChunk;
+
+  // face lanes, each chunk sorted in registers (merge sizes up to 128)
+  for (int c = warp; c < nchunk; c += nwarps) {
+    const int base = c * kTTChunk;
+    u64 v[kTTPer];
+#pragma unroll
+    for (int r = 0; r < kTTPer; ++r) {
+      const int i = base + r * 32 + lane;
+      unsigned k = (unsigned)kBig;
+      if (i < n4) {
+        const int f = i / NT;
+        const int t = i - f * NT;
+        int w0 = tb[t * 4 + 0], w1 = tb[t * 4 + 1];
+        int w2 = tb[t * 4 + 2], w3 = tb[t * 4 + 3];
+        sort4(w0, w1, w2, w3);
+        if (w0 >= 0) {                 // -1 padding sorts first
+          // faces (0,1,2), (0,1,3), (0,2,3), (1,2,3) of the sorted tet
+          const int a = f == 3 ? w1 : w0;
+          const int bb = f >= 2 ? w2 : w1;
+          const int cc = f == 0 ? w2 : w3;
+          k = (unsigned)((a * nvl + bb) * nvl + cc);
+        }
+      }
+      v[r] = ((u64)k << 32) | (unsigned)i;
+    }
+#pragma unroll
+    for (int k = 2; k <= kTTChunk; k <<= 1) warp_passes(v, base, k, k >> 1);
+#pragma unroll
+    for (int r = 0; r < kTTPer; ++r) lanes[base + r * 32 + lane] = v[r];
+  }
+  __syncthreads();
+
+  // merge sizes past one chunk: strides >= 128 through the lane array,
+  // then the rest of each merge in registers
+  for (int k = 2 * kTTChunk; k <= EJ; k <<= 1) {
+    for (int j = k >> 1; j >= kTTChunk; j >>= 1) {
+      for (int i = threadIdx.x; i < (EJ >> 1); i += blockDim.x) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        u64 a = lanes[lo];
+        u64 c = lanes[lo + j];
+        if ((a > c) == ((lo & k) == 0)) {
+          lanes[lo] = c;
+          lanes[lo + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int c = warp; c < nchunk; c += nwarps) {
+      const int base = c * kTTChunk;
+      u64 v[kTTPer];
+#pragma unroll
+      for (int r = 0; r < kTTPer; ++r) v[r] = lanes[base + r * 32 + lane];
+      warp_passes(v, base, k, kTTChunk / 2);
+#pragma unroll
+      for (int r = 0; r < kTTPer; ++r) lanes[base + r * 32 + lane] = v[r];
+    }
+    __syncthreads();
+  }
+
+  // partner slots: each face lane's (previous, next) cofacet tet, or -1
+  for (int p = threadIdx.x; p < EJ; p += blockDim.x) {
+    const u64 me = lanes[p];
+    const int ln = (int)(unsigned)me;
+    if (ln >= n4) continue;            // a lane past 4 * NT: no slots
+    const unsigned f = (unsigned)(me >> 32);
+    int prev = -1;
+    int next = -1;
+    if (f != (unsigned)kBig) {
+      if (p > 0) {
+        const u64 o = lanes[p - 1];
+        if ((unsigned)(o >> 32) == f) prev = (int)((unsigned)o % NT);
+      }
+      if (p + 1 < EJ) {
+        const u64 o = lanes[p + 1];
+        if ((unsigned)(o >> 32) == f) next = (int)((unsigned)o % NT);
       }
     }
-    key[i] = k;
-    val[i] = t;
+    slots[ln] = make_int2(prev, next);
   }
   __syncthreads();
-  bitonic_sort(key, val, EJ);
 
-  // The second directed entry of each shared face goes to the upper half
-  // (it reads only the lower half) ...
-  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
-    const int k = key[i];
-    const bool eq = i + 1 < EJ && k != kBig && key[i + 1] == k;
-    const int t0 = val[i];
-    const int t1 = eq ? val[i + 1] : 0;
-    key[EJ + i] = eq ? t1 * NT + t0 : kBig;
-    val[EJ + i] = eq ? cg[t0] : 0;
-  }
-  __syncthreads();
-  // ... and the first is rebuilt from it in place, so no lane is read after
-  // another thread rewrote it.
-  for (int i = threadIdx.x; i < EJ; i += blockDim.x) {
-    const int k2 = key[EJ + i];
-    int k = kBig;
-    int v = 0;
-    if (k2 != kBig) {
-      const int t1 = k2 / NT;
-      const int t0 = k2 - t1 * NT;
-      k = t0 * NT + t1;
-      v = cg[t1];
+  // row pass: the 8 slots of each tet's face lanes -> L and staged M rows
+  for (int t = threadIdx.x; t < NT; t += blockDim.x) {
+    int s[8];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int2 q = slots[f * NT + t];
+      s[2 * f] = q.x;
+      s[2 * f + 1] = q.y;
     }
-    key[i] = k;
-    val[i] = v;
+    sort_small<8>(s);
+    int* row = Ms + (size_t)t * deg;
+    int n = 0;
+    int last = -1;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      if (s[d] >= 0 && s[d] != last) {
+        if (n < deg) row[n] = cg[s[d]];
+        ++n;
+      }
+      last = s[d];
+    }
+    for (int d = n; d < deg; ++d) row[d] = -1;
+    L[(size_t)b * NT + t] = n;         // the TRUE count
   }
   __syncthreads();
-  emit_entries(key, val, starts, E, NT, NT, deg,
-               M + (size_t)b * NT * deg, L + (size_t)b * NT);
+  const int total = NT * deg;
+  int* Mb = M + (size_t)b * total;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) Mb[i] = Ms[i];
 }
 
 // The arity-AX vertex subsets of an arity-AY simplex, as slot indices, in
@@ -492,7 +640,7 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 // Plain C interface, bound with ctypes. Every entry returns a cudaError_t
 // (0 on success), read with cudaGetLastError() right after the launch.
 // ``work`` is null for the shared-memory variant, else a device workspace
-// of B * (2E + nvl + 1) int32 for the lanes.
+// of B segments' lanes: 2E + R + 1 int32 each (tt_lane_ints for TT).
 
 extern "C" int sr_smem_optin_limit(int device, int* out) {
   return (int)cudaDeviceGetAttribute(
@@ -550,22 +698,24 @@ extern "C" int sr_member_entries(int device, const void* taby,
 
 extern "C" int sr_tt_entries(int device, const void* tet, const void* colg,
                              void* M, void* L, void* work, int B, int NT,
-                             int nvl, int deg, int EJ, int E, void* stream) {
+                             int nvl, int deg, int EJ, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = threads_for(E);
+  if (EJ < kTTChunk || (EJ & (EJ - 1)) != 0 || EJ < 4 * NT)
+    return (int)cudaErrorInvalidValue;
+  const int threads = EJ / kTTPer < 1024 ? EJ / kTTPer : 1024;
   cudaStream_t s = (cudaStream_t)stream;
   if (work != nullptr) {
     tt_entries_kernel<true><<<B, threads, 0, s>>>(
         (const int*)tet, (const int*)colg, (int*)M, (int*)L, (int*)work, NT,
-        nvl, deg, EJ, E);
+        nvl, deg, EJ);
   } else {
-    const size_t bytes = (2 * (size_t)E + NT + 1) * sizeof(int);
+    const size_t bytes = tt_lane_ints(NT, deg, EJ) * sizeof(int);
     e = allow_smem((const void*)tt_entries_kernel<false>, bytes);
     if (e != cudaSuccess) return (int)e;
     tt_entries_kernel<false><<<B, threads, bytes, s>>>(
         (const int*)tet, (const int*)colg, (int*)M, (int*)L, nullptr, NT,
-        nvl, deg, EJ, E);
+        nvl, deg, EJ);
   }
   return (int)cudaGetLastError();
 }

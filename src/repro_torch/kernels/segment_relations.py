@@ -4,12 +4,16 @@ entry assembly (``csrc/segment_relations.cu``).
 One thread block per batched segment emits that segment's padded
 ``(M (B, nvl, deg), L (B, nvl))`` block straight from its local tables: the
 entry lanes are generated, sorted, deduplicated and inverted in shared
-memory. Four arms:
+memory (TT: the face lanes sorted, then the rows built from partner
+slots). Four arms:
 
   - ``"VV"``     — the 12 ordered vertex pairs of every local tet;
   - ``"member"`` — VE/VF/VT, where the ``(NY, arity)`` table is the entry
                    list;
-  - ``"TT"``     — a sort join of the tets' canonical face keys;
+  - ``"TT"``     — one sort of the tets' canonical face keys; each face
+                   lane keeps its equal neighbours' tets in two partner
+                   slots, and one thread per tet builds its row from its
+                   four lanes' slots (no entry inversion);
   - ``"sub"``    — EF/ET/FT, a sort join of subject keys against the
                    subset keys of the cofaces.
 
@@ -75,7 +79,7 @@ def _lib() -> ctypes.CDLL:
                                           _I, _I, _I, _I, _I, _I, _P]
         lib.sr_member_entries.restype = _I
         lib.sr_tt_entries.argtypes = [_I, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _P]
+                                      _I, _I, _I, _I, _I, _P]
         lib.sr_tt_entries.restype = _I
         lib.sr_sub_entries.argtypes = [_I, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -112,6 +116,24 @@ def lane_ints(E: int, R: int) -> int:
     """int32 words of one segment's lanes: keys, values, the R + 1 row
     starts."""
     return 2 * E + R + 1
+
+
+# face lanes one warp of the TT kernel sorts in registers (kTTChunk)
+_TT_CHUNK = 128
+
+
+def tt_face_lanes(NT: int) -> int:
+    """Face lanes of one TT segment: ``4 * NT`` up to a power of two, at
+    least one warp's chunk."""
+    return max(_TT_CHUNK, next_pow2(4 * NT))
+
+
+def tt_lane_ints(NT: int, deg: int) -> int:
+    """int32 words of one TT segment's working set: the sorted 64-bit face
+    lanes (whose space the staged ``M`` rows reuse), then two partner slots
+    per face lane (``tt_lane_ints`` of ``csrc/segment_relations.cu``)."""
+    m = NT * deg
+    return max(2 * tt_face_lanes(NT), m + m % 2) + 8 * NT
 
 
 # static shared memory of the sub-join kernel (its scan's warp carries)
@@ -191,8 +213,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         B, N, a = tab.shape
         _check(tab, "tabX", (B, N, 4))
         _check(col_global, "col_global", (B, N))
-        EJ = next_pow2(4 * N)
-        E, R = 2 * EJ, N
+        EJ, R = tt_face_lanes(N), N
     elif relation in _SUB_ARITY:
         arm, tab = "sub", tabX
         ax, ay = _SUB_ARITY[relation]
@@ -208,16 +229,16 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     same = (col_global, tabY) if arm == "sub" else (col_global,)
     if any(t.device != tab.device for t in same):
         raise ValueError("the tables and col_global must share one device")
-    if max(nvl, deg) < 1 or R * deg >= 2 ** 31 \
-            or lane_ints(E, R) >= 2 ** 31:
-        raise ValueError(f"nvl={nvl}, deg={deg}, E={E} out of range")
+    per = tt_lane_ints(N, deg) if arm == "TT" else lane_ints(E, R)
+    if max(nvl, deg) < 1 or R * deg >= 2 ** 31 or per >= 2 ** 31:
+        raise ValueError(f"nvl={nvl}, deg={deg}, {per} lane words out of "
+                         f"range")
     dev = tab.device
     M = torch.empty((B, R, deg), dtype=torch.int32, device=dev)
     L = torch.empty((B, R), dtype=torch.int32, device=dev)
     if B == 0:
         return M, L
     lib = _lib()
-    per = lane_ints(E, R)
     work = None
     if 4 * per + extra > smem_limit(dev):
         work = torch.empty(B * per, dtype=torch.int32, device=dev)
@@ -236,7 +257,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     elif arm == "TT":
         rc = lib.sr_tt_entries(idx, tab.data_ptr(), col_global.data_ptr(),
                                M.data_ptr(), L.data_ptr(), wp, B, N, nvl,
-                               deg, EJ, E, stream)
+                               deg, EJ, stream)
     else:
         rc = lib.sr_sub_entries(idx, tab.data_ptr(), tabY.data_ptr(),
                                 col_global.data_ptr(), M.data_ptr(),

@@ -239,3 +239,191 @@ def test_boundary_flag_equals_the_reference(meshes, consumer, workers):
                              workers=workers)
     np.testing.assert_array_equal(mask, want_mask)
     assert 0 < mask.sum() < len(mask)
+
+
+# -- the gather kernel's design, in numpy ------------------------------------
+
+def _warp_lower_bound(gids, lo, hi, qg):
+    """``warp_lower_bound`` of ``csrc/completion_gather.cu``: 32 evenly
+    spaced reads and a ballot narrow the run until at most 32 gids are
+    left, then one read of those."""
+    lanes = np.arange(32)
+    while hi - lo > 32:
+        step = (hi - lo + 31) // 32
+        pos = lo + lanes * step
+        less = (pos < hi) & (gids[np.minimum(pos, hi - 1)] < qg)
+        c = int(less.sum())
+        assert less[:c].all()                 # the ballot is a prefix
+        if c == 0:
+            return lo
+        lo, hi = lo + (c - 1) * step + 1, min(lo + c * step, hi)
+    pos = lo + lanes
+    less = (pos < hi) & (gids[np.minimum(pos, max(hi - 1, 0))] < qg)
+    return lo + int(less.sum())
+
+
+def _windowed_resolve_gather(pool_M, pool_L, inv_seg, inv_gid, inv_row,
+                             slot, seg, gid, inv_key=None, n_global=0,
+                             start=None):
+    """What ``resolve_gather_kernel`` computes for each pair: inside the
+    start table's domain, the warp's search of the pair's segment run
+    (bounds clamped to [0, K]); outside it, the full binary search (the
+    combined key wrapping as int32 on the key arm)."""
+    S, R, degp = pool_M.shape
+    K, n_seg = len(inv_seg), len(start) - 1
+    rows = np.full(len(slot), -1, dtype=np.int64)
+    for p, (qs, qg) in enumerate(zip(seg.tolist(), gid.tolist())):
+        if K == 0:
+            continue
+        dom = 0 <= qs < n_seg
+        if inv_key is not None:
+            dom = dom and 0 <= qg < n_global and qs * n_global + qg < 2 ** 31
+        if dom:
+            lo = min(max(int(start[qs]), 0), K)
+            hi = min(max(int(start[qs + 1]), 0), K)
+            pos = _warp_lower_bound(inv_gid, lo, hi, qg)
+            if pos < hi and inv_gid[pos] == qg:
+                rows[p] = inv_row[pos]
+        elif inv_key is not None:
+            q = (qs * n_global + qg + 2 ** 31) % 2 ** 32 - 2 ** 31
+            pos = min(int(np.searchsorted(inv_key, q)), K - 1)
+            rows[p] = inv_row[pos] if inv_key[pos] == q else -1
+        else:
+            pos = int(np.searchsorted(
+                inv_seg.astype(np.int64) * 2 ** 32 + inv_gid + 2 ** 31,
+                qs * 2 ** 32 + qg + 2 ** 31))
+            if pos < K and inv_seg[pos] == qs and inv_gid[pos] == qg:
+                rows[p] = inv_row[pos]
+    ok = (slot >= 0) & (rows >= 0)
+    flat = np.maximum(slot, 0).astype(np.int64) * R + rows.clip(0, R - 1)
+    cand = pool_M.reshape(S * R, degp)[flat]
+    clen = np.where(ok, pool_L.reshape(S * R)[flat], 0).astype(np.int32)
+    return cand, clen
+
+
+def _assert_gather_equal(args, **kw):
+    """The design's answer equals the plain arm's, on the same inputs."""
+    start = kw.pop("start")
+    key = kw.get("inv_key")
+    want = cg.resolve_gather_torch(
+        *map(_t, args), **{k: _t(v) if k == "inv_key" else v
+                           for k, v in kw.items()})
+    got = _windowed_resolve_gather(*args, start=start, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert key is None or key.dtype == np.int32
+    return want
+
+
+def _start_table(seg, n_seg):
+    return np.searchsorted(seg, np.arange(n_seg + 1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("use_key", [False, True])
+def test_windowed_gather_equals_the_plain_arm_on_synthetic_maps(use_key):
+    """Runs longer than 32 and 1024 gids (two and three rounds), an empty
+    segment, the last segment, a far segment, segments past S and below 0,
+    the padding pair, and maps cut to an odd K inside a segment's run."""
+    rng = np.random.default_rng(3 + use_key)
+    n_seg, n_global, R, degp = 9, 5000, 40, 4
+    runs = {0: 3000, 1: 700, 2: 33, 3: 0, 4: 1, 5: 32, 6: 200, 7: 0,
+            8: 1500}                                   # 3 and 7 are empty
+    seg = np.concatenate([np.full(n, s) for s, n in runs.items()])
+    gid = np.concatenate([np.sort(rng.choice(n_global, n, replace=False))
+                          for n in runs.values()])
+    seg, gid = seg.astype(np.int32), gid.astype(np.int32)
+    row = rng.integers(0, R, len(seg)).astype(np.int32)
+    start = _start_table(seg, n_seg)
+    P = 600
+    pick = rng.integers(0, len(seg), P)
+    qs, qg = seg[pick].copy(), gid[pick].copy()
+    qg[::3] = rng.integers(-1, n_global + 1, len(qg[::3]))    # absent
+    qs[::7] = rng.integers(0, n_seg, len(qs[::7]))            # far
+    qs[1:12] = [3, 7, 8, 8, n_seg, n_seg + 4, -1, -5, 0, 0, 0]
+    qg[1:12] = [5, 0, gid[-1], n_global - 1, 0, 3, gid[0], 0, -1,
+                gid[0], gid[2999]]
+    slot = rng.integers(-1, 6, P).astype(np.int32)
+    slot[-8:] = -1                                             # padding
+    qs[-8:], qg[-8:] = 0, -1
+    pool_M = rng.integers(-1, 10 ** 5, (6, R, degp)).astype(np.int32)
+    pool_L = rng.integers(0, degp + 1, (6, R)).astype(np.int32)
+    key = (seg.astype(np.int64) * n_global + gid).astype(np.int32)
+    kw = dict(inv_key=key, n_global=n_global) if use_key else {}
+    want = _assert_gather_equal(
+        (pool_M, pool_L, seg, gid, row, slot, qs, qg), start=start, **kw)
+    assert (want[1] > 0).sum() > P // 3 and (want[1] == 0).sum() > P // 5
+    # maps cut to an odd K inside segment 0's run: the start table of the
+    # whole maps still serves, its bounds clamped to K
+    K2 = 1501
+    cut = tuple(a[:K2] for a in (seg, gid, row))
+    kw = dict(inv_key=key[:K2], n_global=n_global) if use_key else {}
+    _assert_gather_equal((pool_M, pool_L, *cut, slot, qs, qg), start=start,
+                         **kw)
+    # no appearance at all
+    empty = tuple(a[:0] for a in (seg, gid, row))
+    kw = dict(inv_key=key[:0], n_global=n_global) if use_key else {}
+    cand, clen = _windowed_resolve_gather(pool_M, pool_L, *empty, slot, qs,
+                                          qg, start=start, **kw)
+    assert (clen == 0).all()
+
+
+def test_windowed_gather_follows_a_key_that_wraps_int32():
+    """On the inv_key arm a pair whose combined key passes 2**31 leaves the
+    start table's domain and takes the full search with the wrapped key,
+    which may land on another segment's appearance: the plain arm's
+    answer, found rows included."""
+    rng = np.random.default_rng(11)
+    n_global, n_seg = 2 ** 20, 4100                   # start table past 2**32
+    seg = np.repeat(np.array([0, 1, 2040], np.int32), 50)
+    gid = np.concatenate([np.sort(rng.choice(n_global, 50, replace=False))
+                          for _ in range(3)]).astype(np.int32)
+    row = rng.integers(0, 9, len(seg)).astype(np.int32)
+    key = (seg.astype(np.int64) * n_global + gid)
+    assert key[-1] < 2 ** 31
+    start = _start_table(seg, n_seg)
+    qs = np.array([4096, 4097, 4096, 2048, 2040, 1, 4099], np.int32)
+    qg = np.array([gid[0], gid[60], 7, gid[3], gid[120], gid[70], 0],
+                  np.int32)
+    slot = np.zeros(len(qs), np.int32)
+    pool_M = rng.integers(0, 99, (1, 9, 2)).astype(np.int32)
+    pool_L = np.full((1, 9), 2, np.int32)
+    want = _assert_gather_equal(
+        (pool_M, pool_L, seg, gid, row, slot, qs, qg), start=start,
+        inv_key=key.astype(np.int32), n_global=n_global)
+    assert want[1][:2].tolist() == [2, 2]          # found through the wrap
+    assert want[1][2] == 0 and want[1][4] == 2
+
+
+def test_windowed_gather_with_the_engines_start_table(meshes):
+    """A real TT completion chunk: the engine's inverse maps and start
+    table, the pool of its planned segments, on the key arm (this mesh's
+    keys fit int32) and the lexicographic arm, plus far and past-the-end
+    segments."""
+    from repro_torch.core.adjacency import plan_completion
+
+    _, pre = meshes
+    kind, relation = "T", "TT"
+    eng = RelationEngine(pre, ["TT"], device="cpu")
+    ids = np.random.default_rng(2).permutation(pre.smesh.n_tets)[:200]
+    plan = plan_completion(eng, relation, ids, prefetch=False)
+    pool_M, pool_L = (t.numpy() for t in eng.get_full_dev_batch(
+        relation, plan.segments, pad_to=8 * len(plan.segments)))
+    seg, gid, row, key, n_glob = (t.numpy() if isinstance(t, torch.Tensor)
+                                  else t for t in eng.dev_inverse(kind))
+    assert key is not None
+    start = eng.dev_inverse_starts(kind).numpy()
+    P = len(plan.pair_seg)
+    slot = np.searchsorted(plan.segments, plan.pair_seg).astype(np.int32)
+    qs = plan.pair_seg.astype(np.int32)
+    qg = plan.ids[plan.pair_query].astype(np.int32)
+    ns = pre.smesh.n_segments
+    far = qs.copy()
+    far[::3] = (far[::3] + ns // 2) % ns
+    far[1::5] = ns + 2
+    for q in (qs, far):
+        for kw in ({}, dict(inv_key=key, n_global=n_glob)):
+            want = _assert_gather_equal(
+                (pool_M, pool_L, seg, gid, row, slot, q, qg), start=start,
+                **kw)
+            if q is qs:
+                assert (want[1] > 0).sum() >= min(P, 200)

@@ -147,15 +147,114 @@ def test_gather_kernel_equals_plain_arm(cuda, use_key, P):
     if use_key:
         kw = dict(inv_key=torch.from_numpy(key.astype(np.int32)).to(cuda),
                   n_global=n_global)
+    start = torch.from_numpy(np.searchsorted(
+        key // n_global, np.arange(ns + 1)).astype(np.int32)).to(cuda)
     before = completion_gather.LAUNCHES["gather"]
     got = completion_gather.resolve_gather_cuda(pool_M, pool_L, *inv,
-                                                *pairs, **kw)
+                                                *pairs, inv_start=start,
+                                                **kw)
     want = completion_gather.resolve_gather_torch(pool_M, pool_L, *inv,
                                                   *pairs, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert completion_gather.LAUNCHES["gather"] == before + 1
+
+
+def _gather_both_arms(cuda, maps, start, slot, seg, gid, L_fill=None,
+                      **kw):
+    """The kernel and the plain arm on one synthetic case: equal, and the
+    plain arm's answer."""
+    rng = np.random.default_rng(len(seg))
+    pool_M = rng.integers(-1, 10 ** 5, (4, 40, 4)).astype(np.int32)
+    pool_L = rng.integers(0, 5, (4, 40)).astype(np.int32) \
+        if L_fill is None else np.full((4, 40), L_fill, np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in
+         (pool_M, pool_L, *maps, slot, seg, gid)]
+    if kw.get("inv_key") is not None:
+        kw["inv_key"] = torch.from_numpy(kw["inv_key"]).to(cuda)
+    got = completion_gather.resolve_gather_cuda(
+        *t, inv_start=torch.from_numpy(start).to(cuda), **kw)
+    want = completion_gather.resolve_gather_torch(*t, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return want
+
+
+def _runs(rng, runs, n_global):
+    seg = np.concatenate([np.full(n, q) for q, n in runs.items()])
+    gid = np.concatenate([np.sort(rng.choice(n_global, n, replace=False))
+                          for n in runs.values()])
+    key = seg.astype(np.int64) * n_global + gid
+    assert key[-1] < 2 ** 31
+    row = rng.integers(0, 40, len(seg))
+    return ([a.astype(np.int32) for a in (seg, gid, row)],
+            key.astype(np.int32))
+
+
+@pytest.mark.parametrize("use_key", [False, True])
+@pytest.mark.parametrize("cut", [None, 1501])
+def test_gather_kernel_edge_cases_equal_plain_arm(cuda, use_key, cut):
+    """Empty segments, the last segment, segments past the start table and
+    below 0, the padding pair, runs of 1 to 3000 gids, and maps cut to an
+    odd K inside a run (the whole maps' start table clamped to K)."""
+    rng = np.random.default_rng(16)
+    n_seg, n_global = 9, 5000
+    maps, key = _runs(rng, {0: 3000, 1: 700, 2: 33, 3: 0, 4: 1, 5: 32,
+                            6: 200, 7: 0, 8: 1500}, n_global)
+    start = np.searchsorted(maps[0], np.arange(n_seg + 1)).astype(np.int32)
+    pick = rng.integers(0, len(key), 600)
+    seg, gid = maps[0][pick].copy(), maps[1][pick].copy()
+    gid[::3] = rng.integers(-1, n_global + 1, len(gid[::3]))
+    seg[1:12] = [3, 7, 8, 8, 9, 13, -1, -5, 0, 0, 0]
+    gid[1:12] = [5, 0, maps[1][-1], n_global - 1, 0, 3, maps[1][0], 0, -1,
+                 maps[1][0], maps[1][2999]]
+    slot = rng.integers(-1, 4, 600).astype(np.int32)
+    slot[-8:], seg[-8:], gid[-8:] = -1, 0, -1
+    K = len(key) if cut is None else cut
+    kw = dict(inv_key=key[:K], n_global=n_global) if use_key else {}
+    want = _gather_both_arms(cuda, [a[:K] for a in maps], start, slot, seg,
+                             gid, **kw)
+    assert int((want[1] > 0).sum()) > (100 if cut is None else 20)
+
+
+def test_gather_kernel_follows_a_key_that_wraps_int32(cuda):
+    """On the inv_key arm a combined key past 2**31 wraps onto another
+    segment's appearance; the kernel finds what the plain arm finds."""
+    rng = np.random.default_rng(17)
+    maps, key = _runs(rng, {0: 50, 1: 50, 2040: 50}, 2 ** 20)
+    start = np.searchsorted(maps[0], np.arange(4101)).astype(np.int32)
+    seg = np.array([4096, 4097, 4096, 2048, 2040, 1, 4099], np.int32)
+    gid = np.array([maps[1][0], maps[1][60], 7, maps[1][3], maps[1][120],
+                    maps[1][70], 0], np.int32)
+    want = _gather_both_arms(cuda, maps, start, np.zeros(7, np.int32), seg,
+                             gid, L_fill=4, inv_key=key, n_global=2 ** 20)
+    assert want[1].tolist() == [4, 4, 0, 0, 4, 4, 0]
+
+
+def test_tt_kernel_is_deterministic_past_its_precondition(cuda):
+    """A table whose faces have three and four cofacet tets: the blocks
+    depend on the order of a face's cofacets, which the kernel fixes by
+    face lane, so two runs are equal."""
+    rng = np.random.default_rng(5)
+    tt = _rand_tets(rng, 2, 131, 40)
+    tt[:, 0] = [0, 1, 2, 3]
+    tt[:, 1:3, :3] = [0, 1, 2]
+    tt[:, 1:3, 3] = [[4], [5]]
+    tt[1, 3] = [2, 1, 0, 7]
+    t = torch.from_numpy(tt).to(cuda)
+    colg = torch.from_numpy(
+        rng.integers(0, 10 ** 6, (2, 131)).astype(np.int32)).to(cuda)
+    first = segment_relations.relation_entries_cuda("TT", t, t, colg,
+                                                    nvl=40, deg=8)
+    again = segment_relations.relation_entries_cuda("TT", t, t, colg,
+                                                    nvl=40, deg=8)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    # tet 1 sits between tets 0 and 2 in face (0, 1, 2)'s lane order
+    assert int(first[1][:, 1].min()) >= 2
 
 
 def test_analyze_on_the_card_equals_the_cpu(cuda):

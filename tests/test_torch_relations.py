@@ -21,7 +21,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.segment_relations import relation_entries_pallas
 from repro_torch.core.engine import RelationEngine
 from repro_torch.core.segtables import from_arrays
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, segment_relations
 
 JOIN_RELATIONS = ("TT", "EF", "ET", "FT")
 _ARITY = {"E": 2, "F": 3, "T": 4}
@@ -206,3 +206,126 @@ def test_inverse_maps_and_boundary_relations_equal_the_reference(engines):
         q = rng.integers(0, n, 50)
         np.testing.assert_array_equal(getattr(ref, f"boundary_{rel}")(q),
                                       getattr(port, f"boundary_{rel}")(q))
+
+
+
+def test_inverse_start_tables_are_consistent(engines):
+    """Each kind's start table covers its maps: segment ``s``'s appearances
+    are exactly rows ``start[s]:start[s + 1]`` and ``start[S] == K``."""
+    _, port = engines
+    S = port.smesh.n_segments
+    for kind in "EFT":
+        seg = port.dev_inverse(kind)[0].numpy()
+        start = port.dev_inverse_starts(kind)
+        assert start.dtype == torch.int32 and start.shape == (S + 1,)
+        start = start.numpy()
+        assert start[0] == 0 and start[S] == len(seg)
+        assert (np.diff(start) >= 0).all()
+        for s in range(S):
+            assert (seg[start[s]:start[s + 1]] == s).all()
+    with pytest.raises(KeyError, match="inverse map"):
+        port.dev_inverse_starts("V")
+
+
+# -- the TT kernel's design, in numpy ----------------------------------------
+
+_BIG = 2 ** 31 - 1
+_TET_FACES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
+
+
+def _tt_partner_slots(T_local, col_global, nvl, deg):
+    """What ``tt_entries_kernel`` computes, step for step: face lanes
+    ``f * NT + t`` sorted as 64-bit ``(face_key << 32) | lane`` composites,
+    each lane's (previous, next) partner slots, then one row per tet from
+    the 8 slots of its four face lanes (sorted, ``-1`` and duplicates
+    dropped, ``L`` the true count)."""
+    B, NT, _ = T_local.shape
+    EJ = segment_relations.tt_face_lanes(NT)
+    M = np.full((B, NT, deg), -1, dtype=np.int32)
+    L = np.zeros((B, NT), dtype=np.int32)
+    for b in range(B):
+        w = np.sort(T_local[b].astype(np.int64), axis=1)
+        fk = np.stack([(w[:, i] * nvl + w[:, j]) * nvl + w[:, k]
+                       for i, j, k in _TET_FACES])           # face-major
+        key = np.full(EJ, _BIG, dtype=np.int64)
+        key[:4 * NT] = np.where(w[None, :, 0] >= 0, fk, _BIG).reshape(-1)
+        comp = np.sort((key << 32) | np.arange(EJ))          # all distinct
+        face, lane = comp >> 32, comp & 0xffffffff
+        same = (face[1:] == face[:-1]) & (face[1:] != _BIG)
+        prev = np.full(EJ, -1, dtype=np.int64)
+        nxt = np.full(EJ, -1, dtype=np.int64)
+        prev[1:] = np.where(same, lane[:-1] % max(NT, 1), -1)
+        nxt[:-1] = np.where(same, lane[1:] % max(NT, 1), -1)
+        real = lane < 4 * NT
+        slots = np.full((4 * NT, 2), -1, dtype=np.int64)
+        slots[lane[real], 0] = prev[real]
+        slots[lane[real], 1] = nxt[real]
+        s = np.sort(slots.reshape(4, NT, 2).transpose(1, 0, 2)
+                    .reshape(NT, 8), axis=1)
+        before = np.concatenate([np.full((NT, 1), -1), s[:, :-1]], axis=1)
+        keep = (s >= 0) & (s != before)
+        L[b] = keep.sum(1)
+        order = np.argsort(~keep, axis=1, kind="stable")     # kept first
+        vals = np.take_along_axis(s, order, axis=1)[:, :deg]
+        d = np.arange(vals.shape[1])
+        M[b, :, :vals.shape[1]] = np.where(
+            d < L[b][:, None], col_global[b][vals.clip(min=0)], -1)
+    return M, L
+
+
+@pytest.mark.parametrize("seed,n_tets,pad", [(0, 19, 2), (1, 19, 2),
+                                             (2, 37, 5)])
+@pytest.mark.parametrize("deg", [8, 2])
+def test_tt_partner_slots_equal_the_blocks(seed, n_tets, pad, deg):
+    """Random segment tables (shared faces as in a mesh, -1 padding rows,
+    NT not a power of two): the kernel's design gives the plain arm's block
+    and the reference's xla block, with at most 4 neighbours a tet."""
+    rng = np.random.default_rng(seed)
+    nvl = 31
+    tabs = _segment_tables(rng, 3, n_tets, nvl, pad=pad)
+    tx, _, colg = _inputs("TT", tabs, rng)
+    got = _tt_partner_slots(tx, colg, nvl, deg)
+    want = ops.relation_block("TT", _t(tx), _t(tx), _t(colg), nvl, deg=deg)
+    _assert_blocks_equal(want, got)
+    _assert_blocks_equal(want, ref_ops.relation_block(
+        "TT", tx, tx, colg, nvl, deg=deg, backend="xla"))
+    assert 0 < got[1].max() <= 4
+    if deg == 2:                       # the TRUE counts past a narrow width
+        assert (got[1] > deg).any()
+
+
+@pytest.mark.parametrize("name", ["engine", "foot", "fish", "bar"])
+def test_tt_partner_slots_on_the_meshgen_datasets(name):
+    """The port's datasets, segmented and preconditioned: every segment's
+    TT block from the kernel's design equals the plain arm's and the
+    reference's xla arm's (NT = 768: 3072 face lanes padded to 4096)."""
+    from repro_torch.core.mesh import segment_mesh
+    from repro_torch.core.segtables import precondition
+    from repro_torch.data.meshgen import load_dataset
+
+    pre = precondition(segment_mesh(load_dataset(name), capacity=64),
+                       ["TT"])
+    tx = pre.tables.T_local[:16]
+    colg = pre.tables.LT_global[:16]
+    nvl = pre.tables.NV
+    got = _tt_partner_slots(tx, colg, nvl, 8)
+    _assert_blocks_equal(ops.relation_block("TT", _t(tx), _t(tx), _t(colg),
+                                            nvl, deg=8), got)
+    for w, g in zip(ref_ops.relation_block("TT", tx, tx, colg, nvl, deg=8,
+                                           backend="xla"), got):
+        np.testing.assert_array_equal(np.asarray(w), g)
+    assert got[1].max() == 4
+
+
+def test_tt_face_lanes_and_working_set():
+    """The wrapper's sizes match the kernel's layout: at least one warp's
+    chunk of 128 face lanes, 4 * NT up to a power of two, and the lane,
+    staged-row and slot words of one segment."""
+    assert segment_relations.tt_face_lanes(1) == 128
+    assert segment_relations.tt_face_lanes(32) == 128
+    assert segment_relations.tt_face_lanes(33) == 256
+    assert segment_relations.tt_face_lanes(896) == 4096
+    # NT = 896, deg 8: 4096 lanes of 8 bytes, then 2 slots a face lane
+    assert segment_relations.tt_lane_ints(896, 8) == 8192 + 8 * 896
+    # staged rows wider than the lanes take their place, kept even
+    assert segment_relations.tt_lane_ints(3, 101) == 304 + 24
