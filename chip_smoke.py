@@ -7,16 +7,21 @@ Phases, one JSON line each:
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
      together, sm_90a) with its ptxas report, and the registers, shared
-     memory and spills of the TT and gather kernels by entry function.
+     memory and spills of the VV, member, TT and gather kernels by entry
+     function.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
      VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
-  3. kernels: each relation-entry kernel arm (VV, member, TT, sub-join for
-     FT/EF/ET) held bit for bit against its plain torch version on the
-     card, on the 96^3 tables at B=64 and on edge cases (B=1; prime sizes;
-     a fully valid lane vector; rows with L > deg; lanes too large for
-     shared memory, which run from a device workspace; a TT table with
-     faces of three and four cofacets, run twice for equal blocks); then
+  3. kernels: each relation-entry kernel arm (VV and member for
+     VE/VF/VT on both routes, the bitmask kernels and the sort kernels;
+     TT; sub-join for FT/EF/ET) held bit for bit against its plain torch
+     version on the card, on the 96^3 tables at B=64 and on edge cases
+     (B=1; prime sizes, nvl 8/31/33/127 and row counts that are not
+     multiples of 32; a fully valid lane vector; rows with L > deg; tables
+     on each side of the bitmask route's shared-memory limit; lanes too
+     large for shared memory, which run from a device workspace; the
+     bitmask kernels and a TT table with faces of three and four cofacets
+     run twice for equal blocks); then
      the two count kernels of the dense fallback (meet: the 96^3 FF, EE
      and VF tables;
      VV counts: the 96^3 tets) the same way, on B=1, prime sizes, all -1
@@ -25,13 +30,20 @@ Phases, one JSON line each:
      kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick;
      each kernel's own time from CUDA-graph replay (``ms``) beside the
      eager loop's (``eager_ms``, bound by the wrapper's host cost when the
-     kernel is faster than it).
+     kernel is faster than it); VV and VE/VF/VT on both routes at the
+     96^3 shapes.
   4. critical-points path: ``RelationEngine(["VV","VT"])`` ->
      ``critical_points`` on the kernels and on the plain torch arm, with
      the launch counters zeroed just before the kernels' run and read just
      after; ``types`` equal to the JAX reference's (pinned below); then
      the same path under ``assembly="dense"`` (the VV count and meet
      kernels) with its own counters, ``types`` equal to the same pin.
+     Every VV and member launch of the mesh paths (phases 4-6) takes the
+     bitmask route. Then the sort kernels' path: the same path on the
+     48^3 mesh segmented at capacity 1024 (NV 2048: masks past the
+     shared-memory limit), on both arms, counters zeroed just before the
+     kernels' run and read just after, ``types`` equal to the capacity-64
+     segmentation's on the kernels; the sort kernels timed at its shapes.
   5. gradient -> Morse-Smale path at 48^3 (phase 6 drives it at 96^3):
      ``RelationEngine(["VE","VF","VT","FT","TT"])`` ->
      ``discrete_gradient(co_prefetch=("TT",))`` -> ``morse_smale`` on the
@@ -192,6 +204,9 @@ REF_PATH = {
 # the plain torch arm of phase 5, and both arms of phase 7's pinned
 # corrupted audit and FF rows, run at this size
 SMALL_N = 48
+# the sort kernels' path: the SMALL_N mesh in segments of this many
+# vertices (NV 2048, NT 8576: VV and VT masks past the opt-in limit)
+BIG_CAPACITY = 1024
 
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
 # notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
@@ -207,10 +222,14 @@ CT_SOURCE = "src/repro_torch/kernels/csrc/counts.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FAW_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 KERNELS = {
-    "VV": {"name": "vv_entries_kernel", "source": SR_SOURCE,
-           "replaces": "src/repro/kernels/segment_relations.py:360"},
-    "member": {"name": "member_entries_kernel", "source": SR_SOURCE,
-               "replaces": "src/repro/kernels/segment_relations.py:343"},
+    "VV_bits": {"name": "vv_bits_kernel", "source": SR_SOURCE,
+                "replaces": "src/repro/kernels/segment_relations.py:360"},
+    "member_bits": {"name": "member_bits_kernel", "source": SR_SOURCE,
+                    "replaces": "src/repro/kernels/segment_relations.py:343"},
+    "VV_sort": {"name": "vv_entries_kernel", "source": SR_SOURCE,
+                "replaces": "src/repro/kernels/segment_relations.py:360"},
+    "member_sort": {"name": "member_entries_kernel", "source": SR_SOURCE,
+                    "replaces": "src/repro/kernels/segment_relations.py:343"},
     "TT": {"name": "tt_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:381"},
     "sub": {"name": "sub_entries_kernel", "source": SR_SOURCE,
@@ -532,6 +551,20 @@ class Failed(Exception):
 def check(cond, msg) -> None:
     if not cond:
         raise Failed(msg)
+
+
+# the VV and member launch counters: per arm, and per route
+ROUTED = ("VV", "VV_bits", "VV_sort", "member", "member_bits",
+          "member_sort")
+
+
+def all_bits(path: str, counts: dict) -> None:
+    """Every VV and member launch in ``counts`` took the bitmask route."""
+    for arm in ("VV", "member"):
+        if arm in counts:
+            check(counts[arm] == counts[f"{arm}_bits"]
+                  and counts[f"{arm}_sort"] == 0,
+                  f"{path}: a {arm} launch took the sort route: {counts}")
 
 
 def nvidia_smi() -> str:
@@ -954,8 +987,9 @@ def main() -> int:
                 out.setdefault(fn, []).append(ln.strip())
         return out
 
-    emit({"phase": "ptxas", "TT": ptxas_of("segment_relations",
-                                           "tt_entries_kernel"),
+    emit({"phase": "ptxas",
+          **{arm: ptxas_of("segment_relations", k["name"])
+             for arm, k in KERNELS.items() if k["source"] == SR_SOURCE},
           "gather": ptxas_of("completion_gather", "resolve_gather_kernel")})
 
     # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
@@ -994,21 +1028,47 @@ def main() -> int:
         return ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
                                   backend="torch")
 
-    def compare(case, relation, tx, ty, colg, nvl, deg):
-        got = sr.relation_entries_cuda(relation, tx, ty, colg, nvl=nvl,
-                                       deg=deg)
-        want = plain(relation, tx, ty, colg, nvl, deg)
-        torch.cuda.synchronize()
+    def routed(arm, before):
+        """The KERNELS key of the kernel that ran since ``before``: the
+        route whose counter moved for VV and member, else the arm."""
+        if arm not in ("VV", "member"):
+            return arm
+        moved = [f"{arm}_{r}" for r in ("bits", "sort")
+                 if sr.LAUNCHES[f"{arm}_{r}"] != before[f"{arm}_{r}"]]
+        check(len(moved) == 1, f"{arm}: route counters moved {moved}")
+        return moved[0]
+
+    def compare(case, relation, tx, ty, colg, nvl, deg, route=None,
+                want_route=None):
+        """The wrapper (its own route, or ``route`` forced) against the
+        plain arm, bit for bit; a bitmask block launched twice, equal."""
         arm = arm_of[relation]
+        before = dict(sr.LAUNCHES)
+        kw = {"route": route} if route else {}
+        got = sr.relation_entries_cuda(relation, tx, ty, colg, nvl=nvl,
+                                       deg=deg, **kw)
+        key = routed(arm, before)
+        want = plain(relation, tx, ty, colg, nvl, deg)
+        again = got
+        if key.endswith("_bits"):
+            again = sr.relation_entries_cuda(relation, tx, ty, colg,
+                                             nvl=nvl, deg=deg, **kw)
+        torch.cuda.synchronize()
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
-        max_err[arm] = max(max_err[arm], err)
+        max_err[key] = max(max_err[key], err)
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        twice = all(torch.equal(g, a) for g, a in zip(got, again))
         emit({"phase": "kernel_case", "case": case, "relation": relation,
-              "shape": [list(tx.shape), list(ty.shape)], "deg": deg,
-              "equal": ok,
+              "kernel": KERNELS[key]["name"],
+              "shape": [list(tx.shape), list(ty.shape)], "nvl": nvl,
+              "deg": deg, "equal": ok, "equal_twice": twice,
               "max_L": int(want[1].max()) if want[1].numel() else 0})
         check(ok, f"{relation} kernel disagrees with the plain arm ({case})")
+        check(twice, f"{relation}: two launches of {KERNELS[key]['name']} "
+                     f"gave two blocks ({case})")
+        check(want_route is None or key == f"{arm}_{want_route}",
+              f"{relation} ({case}) ran {key}, not the {want_route} route")
         return want
 
     def rand_simplices(B, n, arity, nvl, fill=0.8):
@@ -1056,9 +1116,12 @@ def main() -> int:
 
     nvl = tabs.NV
     T = cu(tabs.T_local[:BATCH])
+    V = cu(tabs.table("V")[0][:BATCH])
     main_inputs = {
         "VV": (T, T, cu(tabs.LV_global[:BATCH])),
-        "VT": (cu(tabs.table("V")[0][:BATCH]), T, cu(tabs.LT_global[:BATCH])),
+        "VE": (V, cu(tabs.E_local[:BATCH]), cu(tabs.LE_global[:BATCH])),
+        "VF": (V, cu(tabs.F_local[:BATCH]), cu(tabs.LF_global[:BATCH])),
+        "VT": (V, T, cu(tabs.LT_global[:BATCH])),
         "TT": (T, T, cu(tabs.LT_global[:BATCH])),
         "FT": (cu(tabs.F_local[:BATCH]), T, cu(tabs.LT_global[:BATCH])),
         "EF": (cu(tabs.E_local[:BATCH]), cu(tabs.F_local[:BATCH]),
@@ -1067,30 +1130,55 @@ def main() -> int:
     }
     for relation, (tx, ty, colg) in main_inputs.items():
         deg = ops.DEFAULT_DEG[relation]
-        compare("main", relation, tx, ty, colg, nvl, deg)
-        compare("B=1", relation, tx[:1].contiguous(), ty[:1].contiguous(),
-                colg[:1].contiguous(), nvl, deg)
-        narrow = {"VV": 4, "VT": 4, "TT": 2, "FT": 1, "EF": 2, "ET": 2}
-        want = compare("L>deg", relation, tx, ty, colg, nvl, narrow[relation])
-        check(int(want[1].max()) > narrow[relation],
-              f"the {relation} L > deg case has no such row")
+        routes = ("bits", "sort") if arm_of[relation] in ("VV", "member") \
+            else (None,)
+        narrow = {"VV": 4, "VE": 4, "VF": 4, "VT": 4, "TT": 2, "FT": 1,
+                  "EF": 2, "ET": 2}
+        for route in routes:
+            what = f", {route} route" if route else ""
+            compare("main" + what, relation, tx, ty, colg, nvl, deg,
+                    route=route)
+            compare("B=1" + what, relation, tx[:1].contiguous(),
+                    ty[:1].contiguous(), colg[:1].contiguous(), nvl, deg,
+                    route=route)
+            want = compare("L>deg" + what, relation, tx, ty, colg, nvl,
+                           narrow[relation], route=route)
+            check(int(want[1].max()) > narrow[relation],
+                  f"the {relation} L > deg case has no such row")
+        if len(routes) == 2:
+            compare("main, the wrapper's own route", relation, tx, ty, colg,
+                    nvl, deg, want_route="bits")
     for n in (1, 7, 127):
         nv_ = max(8, n)
         tt = rand_tets(2, n, nv_)
-        cv = cu(rng.integers(0, 10 ** 6, (2, nv_)).astype(np.int32))
         ct = cu(rng.integers(0, 10 ** 6, (2, n)).astype(np.int32))
-        compare(f"prime {n}", "VV", cu(tt), cu(tt), cv, nv_, 8)
-        compare(f"prime {n}", "VT", cu(tt), cu(tt), ct, nv_, 8)
         compare(f"prime {n}", "TT", cu(tt), cu(tt), ct, nv_, 8)
         st = sub_tables(rand_tets(2, n, 11), pad=3)
         for relation in ("FT", "EF", "ET"):
             tx, ty = st[relation[0]], st[relation[1]]
             compare(f"prime {n}", relation, cu(tx), cu(ty), cu(colg_for(ty)),
                     11, 8)
+    # VV and VE/VF/VT: nvl on both sides of a word's edge, tables of a
+    # prime number of rows
+    for n, nv_ in ((1, 8), (7, 8), (7, 31), (37, 33), (127, 127)):
+        tt = rand_tets(2, n, nv_)
+        st = sub_tables(tt, pad=3)
+        cv = cu(rng.integers(0, 10 ** 6, (2, nv_)).astype(np.int32))
+        compare(f"prime {n}, nvl {nv_}", "VV", cu(tt), cu(tt), cv, nv_, 8,
+                want_route="bits")
+        for relation in ("VE", "VF", "VT"):
+            ty = st[relation[1]]
+            compare(f"prime {n}, nvl {nv_}", relation, cu(ty), cu(ty),
+                    cu(colg_for(ty)), nv_, 8, want_route="bits")
     # fully valid lane vectors: every lane a real entry, none padding
     tt = rand_tets(3, 128, 64, valid_all=True)       # 4 * 128 member lanes
-    compare("fully valid lanes", "VT", cu(tt), cu(tt),
-            cu(np.arange(3 * 128, dtype=np.int32).reshape(3, 128)), 64, 64)
+    for route in ("sort", "bits"):
+        compare(f"fully valid lanes, {route} route", "VT", cu(tt), cu(tt),
+                cu(np.arange(3 * 128, dtype=np.int32).reshape(3, 128)), 64,
+                64, route=route)
+    compare("fully valid tets", "VV", cu(tt), cu(tt),
+            cu(np.arange(3 * 64, dtype=np.int32).reshape(3, 64)), 64, 64,
+            want_route="bits")
     compare("fully valid lanes", "TT", cu(tt), cu(tt),   # EJ = 4 * 128
             cu(np.arange(3 * 128, dtype=np.int32).reshape(3, 128)), 64, 64)
     fx = rng.integers(0, 40, (3, 64, 3)).astype(np.int32)   # 64 + 4 * 16
@@ -1104,12 +1192,29 @@ def main() -> int:
     check(4 * sr.lane_ints(sr.next_pow2(12 * big), 256) > sr.smem_limit(dev),
           "the VV workspace case fits shared memory")
     tt = rand_tets(2, big, 256)
-    compare("device-workspace lanes", "VV", cu(tt), cu(tt),
-            cu(rng.integers(0, 10 ** 6, (2, 256)).astype(np.int32)), 256, 256)
+    cv = cu(rng.integers(0, 10 ** 6, (2, 256)).astype(np.int32))
+    for route in ("sort", "bits"):
+        compare(f"device-workspace lanes, {route} route", "VV", cu(tt),
+                cu(tt), cv, 256, 256, route=route)
     tv = rand_tets(2, 2 ** 14 // 4 + 64, 256)
-    compare("device-workspace lanes", "VT", cu(tv), cu(tv),
-            cu(rng.integers(0, 10 ** 6, (2, tv.shape[1])).astype(np.int32)),
-            256, 128)
+    cv = cu(rng.integers(0, 10 ** 6, (2, tv.shape[1])).astype(np.int32))
+    for route in ("sort", "bits"):
+        compare(f"device-workspace lanes, {route} route", "VT", cu(tv),
+                cu(tv), cv, 256, 128, route=route)
+    # each side of the bitmask route's limit: VV by nvl, VT by NY (on an
+    # H100's 227 KB: nvl 1344 and NY 6816 fit, 1376 and 6848 do not)
+    limit = sr.smem_limit(dev)
+    sides = []
+    for relation, nv_, n in (("VV", 1344, 2000), ("VV", 1376, 2000),
+                             ("VT", 256, 6816), ("VT", 256, 6848)):
+        side = sr.entry_route(relation, nv_, n, limit)
+        sides.append(side)
+        tt = rand_tets(2, n, nv_)
+        cv = rng.integers(0, 10 ** 6, (2, nv_ if relation == "VV" else n))
+        compare(f"{side} side of the route limit", relation, cu(tt), cu(tt),
+                cu(cv.astype(np.int32)), nv_, 32, want_route=side)
+    check(sides == ["bits", "sort"] * 2,
+          f"the route-limit cases fell on {sides} at {limit} bytes")
     # TT: four real segments' tets as one (NT = 3584, EJ = 16384,
     # E = 32768), so faces are shared as in the mesh. Each segment's local
     # vertices are shifted to a range of their own: a face keeps at most
@@ -1152,34 +1257,39 @@ def main() -> int:
 
     timing = {}
 
-    def time_arm(arm, relation, tx, ty, colg, deg, sorts):
+    def time_arm(key, relation, tx, ty, colg, deg, sorts, nv=nvl,
+                 route=None):
+        kw = {"route": route} if route else {}
         launch = (lambda: sr.relation_entries_cuda(
-            relation, tx, ty, colg, nvl=nvl, deg=deg))
+            relation, tx, ty, colg, nvl=nv, deg=deg, **kw))
+        before = dict(sr.LAUNCHES)
+        launch()
+        ran = routed(arm_of[relation], before)
+        check(ran == key, f"{relation} timed on {ran}, not {key}")
         k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
-        p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nvl,
+        p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nv,
                                             deg))
-        M, L = plain(relation, tx, ty, colg, nvl, deg)
+        M, L = plain(relation, tx, ty, colg, nv, deg)
         # the tables the arm reads: VV and TT the tets, the member arm the
         # coface table, the sub-join both
         read = {"VV": (tx,), "member": (ty,), "TT": (tx,),
-                "sub": (tx, ty)}[arm]
+                "sub": (tx, ty)}[arm_of[relation]]
         b_ms, b_by = bound_ms(nbytes(*read, colg, M, L), sorts)
         row = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by}
-        emit({"phase": "kernel_time", "arm": arm, "relation": relation,
-              "shape": [list(tx.shape), list(ty.shape)], "deg": deg, **row,
-              "sorted_entries": int(sum(sorts))})
+        emit({"phase": "kernel_time", "arm": key, "relation": relation,
+              "kernel": KERNELS[key]["name"],
+              "shape": [list(tx.shape), list(ty.shape)], "nvl": nv,
+              "deg": deg, **row, "sorted_entries": int(sum(sorts))})
         return row
 
     def valid_rows(t):
         return (t >= 0).all(-1).sum(-1)               # per segment
 
-    for relation, arm in (("VV", "VV"), ("VT", "member"), ("TT", "TT"),
-                          ("FT", "sub"), ("EF", "sub"), ("ET", "sub")):
-        tx, ty, colg = main_inputs[relation]
-        deg = ops.DEFAULT_DEG[relation]
-        L = plain(relation, tx, ty, colg, nvl, deg)[1]
-        emitted = L.sum(-1)
+    def entry_sorts(relation, tx, ty, colg, nv, deg):
+        """The comparison sorts of the arm's valid entries (n of each):
+        the row bound counts the same work whatever implements it."""
+        arm = arm_of[relation]
         if relation == "VV":
             va = (tx >= 0).sum(-1)
             first = (va * (va - 1)).sum(-1)           # ordered pairs
@@ -1190,13 +1300,29 @@ def main() -> int:
         else:
             n_sub = math.comb(ty.shape[2], tx.shape[2])
             first = valid_rows(tx) + n_sub * valid_rows(ty)
-        # each kernel sorts its entry lanes twice (emit_entries); TT and
-        # the sub-join sort their join lanes once before that
-        sorts = first.tolist() * 2 if arm in ("VV", "member") else \
-            first.tolist() + emitted.tolist() * 2
-        row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
-        if relation in ("VV", "VT", "TT", "FT"):
-            timing[arm] = row
+        # the entry lanes sorted twice (emit_entries); TT and the sub-join
+        # sort their join lanes once before that
+        if arm in ("VV", "member"):
+            return first.tolist() * 2
+        emitted = plain(relation, tx, ty, colg, nv, deg)[1].sum(-1)
+        return first.tolist() + emitted.tolist() * 2
+
+    for relation in ("VV", "VE", "VF", "VT", "TT", "FT", "EF", "ET"):
+        tx, ty, colg = main_inputs[relation]
+        deg = ops.DEFAULT_DEG[relation]
+        arm = arm_of[relation]
+        sorts = entry_sorts(relation, tx, ty, colg, nvl, deg)
+        if arm in ("VV", "member"):
+            # the sort kernels forced onto the same tables, for comparison
+            for route in ("bits", "sort"):
+                row = time_arm(f"{arm}_{route}", relation, tx, ty, colg,
+                               deg, sorts, route=route)
+                if route == "bits" and relation in ("VV", "VT"):
+                    timing[f"{arm}_bits"] = row
+        else:
+            row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
+            if relation in ("TT", "FT"):
+                timing[arm] = row
 
     # -- 3b. the count kernels of the dense fallback ------------------------
     def counts_compare(case, kind, *args):
@@ -1332,7 +1458,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if backend == "cuda":
-            cp_launches = {k: sr.LAUNCHES[k] for k in ("VV", "member")}
+            cp_launches = {k: sr.LAUNCHES[k] for k in ROUTED}
             cp_types = types
         s = eng.stats
         digest_t = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
@@ -1356,9 +1482,10 @@ def main() -> int:
               "a block was produced twice or not at all")
         check(backend == "cuda" or np.array_equal(types, cp_types),
               "cuda and plain torch arms give different types")
-    check(all(v > 0 for v in cp_launches.values()),
+    check(cp_launches["VV_bits"] > 0 and cp_launches["member_bits"] > 0,
           f"a kernel was not launched on the critical-points path: "
           f"{cp_launches}")
+    all_bits("the critical-points path", cp_launches)
 
     # the same path under assembly="dense": VV through the VV count kernel,
     # VT through the meet kernel, predicate and compaction in torch
@@ -1387,6 +1514,64 @@ def main() -> int:
           f"path: {dense_launches}")
     check(dense_launches["VV"] == dense_launches["member"] == 0,
           "the dense assembly launched a sparse entry kernel")
+
+    # -- 4b. the sort kernels' path: segments whose masks do not fit --------
+    psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
+    ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
+    t0 = time.perf_counter()
+    bsm = segment_mesh(quickstart_mesh(SMALL_N), capacity=BIG_CAPACITY)
+    bpre = precondition(bsm, relations=["VV", "VT"])
+    brank = total_order(bsm.scalars)
+    bt = bpre.tables
+    setup_s = time.perf_counter() - t0
+    for relation in ("VV", "VT"):
+        check(sr.entry_route(relation, bt.NV, bt.NT, sr.smem_limit(dev))
+              == "sort", f"the capacity-{BIG_CAPACITY} {relation} mask "
+                         f"fits shared memory")
+    small_types = critical_points(RelationEngine(
+        ppre, ["VV", "VT"], lookahead=8, device="cuda"), ppre, prank)[0]
+    for backend in ("cuda", "torch"):
+        if backend == "cuda":
+            for k in sr.LAUNCHES:
+                sr.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = RelationEngine(bpre, ["VV", "VT"], lookahead=8, device="cuda",
+                             backend=backend)
+        types, counts = critical_points(eng, bpre, brank)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if backend == "cuda":
+            big_launches = {k: sr.LAUNCHES[k] for k in ROUTED}
+        emit({"phase": "critical_points_path", "backend": backend,
+              "n": SMALL_N, "capacity": BIG_CAPACITY,
+              "segments": bsm.n_segments, "NV": bt.NV, "NT": bt.NT,
+              "setup_s": round(setup_s, 3), "counts": counts,
+              "kernel_launches": eng.stats.kernel_launches,
+              "segments_produced": eng.stats.segments_produced,
+              "wall_s": round(wall, 3),
+              **({"kernel_counters": big_launches}
+                 if backend == "cuda" else {})})
+        check(np.array_equal(types, small_types),
+              f"{backend}: the capacity-{BIG_CAPACITY} types differ from "
+              f"the capacity-64 segmentation's")
+    check(big_launches["VV_sort"] == big_launches["VV"] > 0
+          and big_launches["member_sort"] == big_launches["member"] > 0,
+          f"the capacity-{BIG_CAPACITY} path did not run the sort kernels "
+          f"alone: {big_launches}")
+    # the sort kernels held and timed at this path's shapes
+    bT, bV = cu(bt.T_local[:BATCH]), cu(bt.table("V")[0][:BATCH])
+    for relation, tx, ty, colg in (
+            ("VV", bT, bT, cu(bt.LV_global[:BATCH])),
+            ("VT", bV, bT, cu(bt.LT_global[:BATCH]))):
+        deg = ops.DEFAULT_DEG[relation]
+        key = f"{arm_of[relation]}_sort"
+        compare(f"capacity-{BIG_CAPACITY} tables", relation, tx, ty, colg,
+                bt.NV, deg, want_route="sort")
+        timing[key] = time_arm(key, relation, tx, ty, colg, deg,
+                               entry_sorts(relation, tx, ty, colg, bt.NV,
+                                           deg), nv=bt.NV)
+    del bT, bV, bpre, bsm
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
     def ms_path(p, r, backend, n):
@@ -1435,20 +1620,24 @@ def main() -> int:
     # at 48^3: the audit + persistence path below drives the same gradient
     # and complex at 96^3, against the same pins
     check(chi == 1, f"the mesh's Euler characteristic is {chi}, not 1")
-    psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
-    ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
     for k in sr.LAUNCHES:
         sr.LAUNCHES[k] = 0
     cg.LAUNCHES["gather"] = 0
     eng, g, ms, out = ms_path(ppre, prank, "cuda", SMALL_N)
-    ms_launches = {k: sr.LAUNCHES[k] for k in ("member", "TT", "sub")}
+    ms_launches = {k: sr.LAUNCHES[k] for k in ("member", "member_bits",
+                                               "member_sort", "TT", "sub")}
     ms_launches["gather"] = cg.LAUNCHES["gather"]
     emit({**out, "kernel_counters": ms_launches})
-    check(all(v > 0 for v in ms_launches.values()),
+    check(all(ms_launches[k] > 0 for k in ("member_bits", "TT", "sub",
+                                           "gather")),
           f"a kernel was not launched on the gradient -> Morse-Smale path: "
           f"{ms_launches}")
-    launches = {"VV": cp_launches["VV"],
-                "member": cp_launches["member"] + ms_launches["member"],
+    all_bits("the gradient -> Morse-Smale path", ms_launches)
+    launches = {"VV_bits": cp_launches["VV_bits"],
+                "member_bits": cp_launches["member_bits"]
+                + ms_launches["member_bits"],
+                "VV_sort": big_launches["VV_sort"],
+                "member_sort": big_launches["member_sort"],
                 **{k: ms_launches[k] for k in ("TT", "sub", "gather")}}
 
     # the FT-gather route: the sub-join kernel over every segment
@@ -1531,14 +1720,16 @@ def main() -> int:
         sr.LAUNCHES[k] = 0
     cg.LAUNCHES["gather"] = 0
     eng, g, out = audit_path(pre, rank, "cuda", N)
-    path_launches = {k: sr.LAUNCHES[k] for k in ("member", "TT", "sub",
+    path_launches = {k: sr.LAUNCHES[k] for k in ("member", "member_bits",
+                                                 "member_sort", "TT", "sub",
                                                  "meet")}
     path_launches["gather"] = cg.LAUNCHES["gather"]
     emit({**out, "kernel_counters": path_launches})
     check(path_launches["meet"] > 0 and path_launches["gather"] > 0,
           f"a kernel was not launched on the audit + persistence path: "
           f"{path_launches}")
-    for k in ("member", "TT", "sub", "gather"):
+    all_bits("the audit + persistence path", path_launches)
+    for k in ("member_bits", "TT", "sub", "gather"):
         launches[k] += path_launches[k]
     launches["meet"] = dense_launches["meet"] + path_launches["meet"]
     launches["vv_counts"] = dense_launches["vv_counts"]

@@ -1,27 +1,52 @@
 // Sparse relation-entry assembly for Hopper (sm_90a): one thread block per
-// batched segment emits that segment's padded (M, L) relation block.
+// batched segment (or per share of a segment's rows) emits that segment's
+// padded (M, L) relation block.
 //
 // Replaces the TPU kernels of src/repro/kernels/segment_relations.py:
-//   vv_entries_kernel     <- _vv_entries_kernel     (+ _emit_entries)
-//   member_entries_kernel <- _member_entries_kernel (+ _emit_entries)
-//   tt_entries_kernel     <- _tt_entries_kernel     (+ _emit_entries)
-//   sub_entries_kernel    <- _sub_entries_kernel    (+ _cummax_lanes,
-//                                                    _emit_entries)
+//   vv_bits_kernel, vv_entries_kernel         <- _vv_entries_kernel
+//                                                (+ _emit_entries)
+//   member_bits_kernel, member_entries_kernel <- _member_entries_kernel
+//                                                (+ _emit_entries)
+//   tt_entries_kernel                         <- _tt_entries_kernel
+//                                                (+ _emit_entries)
+//   sub_entries_kernel                        <- _sub_entries_kernel
+//                                                (+ _cummax_lanes,
+//                                                 _emit_entries)
 // all launched there through relation_entries_pallas (pl.pallas_call).
 //
-// What bounds it on this card. The bytes a launch must move are small (VV
-// at B=64, NT=896: 0.9 MB of tets in, 2.1 MB of M out), so the byte bound
-// is about a microsecond. The work is a comparison sort of the entry lanes:
-// E = next_pow2(12*NT) = 16384 lanes for VV, sorted twice by a bitonic
-// network of log2(E)*(log2(E)+1)/2 = 105 block-wide passes, each ending in
-// a __syncthreads(). The kernel is bound by those barrier-separated
-// shared-memory passes and by occupancy: a VV block takes 128 KB of shared
-// memory, so one block runs per SM and a 64-segment launch fills 64 of the
-// 132 SMs.
+// VV and VE/VF/VT: row bitmasks (vv_bits_kernel, member_bits_kernel). A VV
+// row is the ascending set of local vertices that share a tet with its
+// vertex; a member row the ascending set of simplices y whose table row
+// holds its vertex. Neither needs a sort: the whole (row, order) relation
+// of one segment fits in shared memory as R = nvl rows of W = ceil(O / 32)
+// words (O = nvl for VV, NY for member; at 96^3 8 KB for VV, 28/40/60 KB
+// for VT/VE/VF). A block zeroes its rows' mask, walks the table once,
+// coalesced, setting bit (row, order) by a shared atomicOr, and emits one
+// row per warp: the lanes count the set bits of the row's words, a warp
+// scan gives each word its first rank, and lane d finds the d-th set bit
+// by a search of those ranks and a select in the word, so a row's deg ints
+// go out as contiguous warp stores. Setting a bit is idempotent and
+// commutes, so the blocks do not depend on the order of the atomics and
+// duplicate entries need no pass. What bounds it then: three barrier-
+// separated phases within a block (the sort kernels took some 210 passes
+// for VV at NT = 896), the shared atomics of the walk, and the latency of
+// each warp's row emission. So a segment's rows are split over up to four
+// blocks (the wrapper's bits_row_blocks: two blocks an SM), each walking
+// the whole table, which L2 serves after the first, and keeping only its
+// own rows. The wrapper routes a table here when its mask and the warps'
+// rank rows fit in the per-block opt-in limit (every table the repo's
+// paths build); ids outside [0, nvl) are dropped, and no bit past O is
+// ever set.
 //
-// The EF/ET/FT arm sorts twice as many lanes per segment as it emits rows
-// for (E = 8192 at 96^3), so it is bound the same way: 64 KB of lanes per
-// block, barrier-separated passes.
+// The sort route (vv_entries_kernel, member_entries_kernel) serves the
+// tables whose mask does not fit (a mask in device memory would grow as
+// nvl^2): the entry lanes are generated, sorted by a block-wide bitonic
+// network, deduplicated and inverted (emit_entries). VV at NT = 896 sorts
+// E = next_pow2(12 * NT) = 16384 lanes twice, log2(E)*(log2(E)+1)/2 = 105
+// barrier-separated passes a sort; it is bound by those passes and by
+// occupancy (128 KB of lanes a block). The EF/ET/FT arm (sub_entries_kernel)
+// sorts twice as many lanes per segment as it emits rows for (E = 8192 at
+// 96^3), and is bound the same way.
 //
 // TT is designed apart (tt_entries_kernel below). It sorts only its EJ face
 // lanes (4096 at NT = 896) and never inverts a list of entries: under the
@@ -38,22 +63,19 @@
 // the device workspace past the opt-in limit (NT > 3168 at deg 8), as
 // below.
 //
-// What the design does about it. The lanes (int32 key + int32 value, 8*E
-// bytes) never leave shared memory between the entry generation and the
-// store of M: device memory sees each table row once and each M row once.
-// Nothing is staged through device memory between the phases (the TPU
-// kernel's VMEM-resident lane vectors, kept on-chip here the same way).
-// When 8*E exceeds the per-block opt-in limit (227 KB, NT > 1365 for VV)
-// the same code runs with its lanes in a workspace in device memory that
-// the wrapper allocates; it never falls back to another implementation.
-// Making VV, member and sub-join fast (warp-level sorting of short strides
-// in registers, as TT does, and several segments per SM) is later work.
+// Lanes of the sort kernels (int32 key + int32 value, 8*E bytes) never
+// leave shared memory between the entry generation and the store of M:
+// device memory sees each table row once and each M row once. When 8*E
+// exceeds the per-block opt-in limit (227 KB) the same code runs with its
+// lanes in a workspace in device memory that the wrapper allocates; no
+// kernel ever falls back to another implementation.
 //
-// Key encoding (identical to the plain torch arm and the reference): an
-// entry's key is row * O + order in int32 (the wrapper's callers guarantee
-// R * O + O < 2^31), invalid lanes carry INT32_MAX and value 0. Every key
-// family is tie-insensitive (equal keys carry equal values), so the
-// unstable bitonic network gives the same blocks as any stable sort.
+// Key encoding of the sort kernels (identical to the plain torch arm and
+// the reference): an entry's key is row * O + order in int32 (the
+// wrapper's callers guarantee R * O + O < 2^31), invalid lanes carry
+// INT32_MAX and value 0. Every key family is tie-insensitive (equal keys
+// carry equal values), so the unstable bitonic network gives the same
+// blocks as any stable sort.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -231,6 +253,174 @@ member_entries_kernel(const int* __restrict__ taby,
   __syncthreads();
   emit_entries(key, val, starts, E, nvl, NY, deg,
                M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
+}
+
+// -- VV and VE/VF/VT as row bitmasks ----------------------------------------
+//
+// A block owns rows [r0, r0 + nr) of one segment: a mask of nr rows of W
+// words (bit j of word w is order 32 * w + j), then one row of W ints per
+// warp for the words' first ranks, all in dynamic shared memory
+// (bits_smem_ints).
+
+constexpr int kBitsThreads = 512;
+constexpr int kBitsWarps = kBitsThreads / 32;
+
+__host__ __device__ __forceinline__ size_t bits_smem_ints(int rows, int W) {
+  return ((size_t)rows + kBitsWarps) * (size_t)W;
+}
+
+// Position of the k-th (from 0) set bit of x, which has more than k: five
+// halvings of the window, each keeping the half that holds it.
+__device__ __forceinline__ int select_bit(unsigned x, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(x & ((1u << s) - 1u));
+    if (k >= c) {
+      k -= c;
+      x >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// M's value of VV order o (a local vertex): its global id, 0 past the map.
+struct VVValue {
+  const int* cg;
+  int NV;
+  __device__ int operator()(int o) const { return o < NV ? cg[o] : 0; }
+};
+
+// M's value of member order o (a local simplex): its global id.
+struct MemberValue {
+  const int* cg;
+  __device__ int operator()(int o) const { return cg[o]; }
+};
+
+// Rows [r0, r0 + nr) of the mask -> their M rows (deg ints each) and L,
+// one warp a row. The lanes count the set bits of the row's words 32 at a
+// time, a warp scan writes each word's first rank to the warp's pre row,
+// and L[r] is the TRUE count (it may exceed deg: the engine's width
+// check). Lane d then writes M[r, d]: the word holding rank d is the last
+// one whose first rank is <= d (a binary search of pre), the order is that
+// word's (d - pre)-th set bit, and -1 from min(L, deg) on.
+template <class Value>
+__device__ __forceinline__ void emit_bit_rows(const unsigned* mask,
+                                              int* pre_rows, int r0, int nr,
+                                              int W, int deg,
+                                              const Value& value, int* M,
+                                              int* L) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int* pre = pre_rows + (size_t)warp * W;
+  for (int r = warp; r < nr; r += kBitsWarps) {
+    const unsigned* row = mask + (size_t)r * W;
+    int total = 0;
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      const int w = w0 + lane;
+      const int c = w < W ? __popc(row[w]) : 0;
+      int incl = c;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += o;
+      }
+      if (w < W) pre[w] = total + incl - c;
+      total += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    __syncwarp();
+    if (lane == 0) L[r0 + r] = total;
+    int* Mr = M + (size_t)(r0 + r) * deg;
+    const int n = min(total, deg);
+    for (int d = lane; d < deg; d += 32) {
+      int out = -1;
+      if (d < n) {
+        int lo = 0;
+        int hi = W - 1;
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (pre[mid] <= d) {
+            lo = mid;
+          } else {
+            hi = mid - 1;
+          }
+        }
+        out = value(lo * 32 + select_bit(row[lo], d - pre[lo]));
+      }
+      Mr[d] = out;
+    }
+    __syncwarp();                      // pre is the next row's
+  }
+}
+
+// VV: each tet's 12 ordered pairs (va, vb) of valid ids set bit vb of row
+// va. tet is (B, NT, 4), colg (B, NV); grid (B, ceil(nvl / rows)).
+__global__ void __launch_bounds__(kBitsThreads)
+vv_bits_kernel(const int* __restrict__ tet, const int* __restrict__ colg,
+               int* __restrict__ M, int* __restrict__ L, int NT, int NV,
+               int nvl, int deg, int rows) {
+  extern __shared__ __align__(16) unsigned bits_smem[];
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * rows;
+  const int nr = min(rows, nvl - r0);
+  const int W = (nvl + 31) >> 5;
+  unsigned* mask = bits_smem;
+  int* pre = reinterpret_cast<int*>(bits_smem + (size_t)rows * W);
+  for (int i = threadIdx.x; i < nr * W; i += blockDim.x) mask[i] = 0u;
+  __syncthreads();
+  const int* tb = tet + (size_t)b * NT * 4;
+  const bool vec = (reinterpret_cast<size_t>(tet) & 15) == 0;
+  for (int t = threadIdx.x; t < NT; t += blockDim.x) {
+    const int4 q = vec ? reinterpret_cast<const int4*>(tb)[t]
+                       : make_int4(tb[4 * t], tb[4 * t + 1], tb[4 * t + 2],
+                                   tb[4 * t + 3]);
+    const int v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int ra = v[a] - r0;
+      if ((unsigned)v[a] >= (unsigned)nvl || (unsigned)ra >= (unsigned)nr)
+        continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c == a || (unsigned)v[c] >= (unsigned)nvl) continue;
+        atomicOr(&mask[(size_t)ra * W + (v[c] >> 5)], 1u << (v[c] & 31));
+      }
+    }
+  }
+  __syncthreads();
+  emit_bit_rows(mask, pre, r0, nr, W, deg, VVValue{colg + (size_t)b * NV, NV},
+                M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
+}
+
+// VE/VF/VT: each valid slot v of taby[y] sets bit y of row v. taby is
+// (B, NY, ay), colg (B, NY); grid (B, ceil(nvl / rows)).
+__global__ void __launch_bounds__(kBitsThreads)
+member_bits_kernel(const int* __restrict__ taby, const int* __restrict__ colg,
+                   int* __restrict__ M, int* __restrict__ L, int NY, int ay,
+                   int nvl, int deg, int rows) {
+  extern __shared__ __align__(16) unsigned bits_smem[];
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * rows;
+  const int nr = min(rows, nvl - r0);
+  const int W = (NY + 31) >> 5;
+  unsigned* mask = bits_smem;
+  int* pre = reinterpret_cast<int*>(bits_smem + (size_t)rows * W);
+  for (int i = threadIdx.x; i < nr * W; i += blockDim.x) mask[i] = 0u;
+  __syncthreads();
+  const int* tb = taby + (size_t)b * NY * ay;
+  const int n = NY * ay;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {   // coalesced walk
+    const int v = tb[i];
+    const int r = v - r0;
+    if ((unsigned)v < (unsigned)nvl && (unsigned)r < (unsigned)nr) {
+      const int y = i / ay;
+      atomicOr(&mask[(size_t)r * W + (y >> 5)], 1u << (y & 31));
+    }
+  }
+  __syncthreads();
+  emit_bit_rows(mask, pre, r0, nr, W, deg, MemberValue{colg + (size_t)b * NY},
+                M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
 }
 
 // Sorts four values ascending in registers: the 5-comparator network.
@@ -693,6 +883,54 @@ extern "C" int sr_member_entries(int device, const void* taby,
         (const int*)taby, (const int*)colg, (int*)M, (int*)L, nullptr, NY,
         ay, nvl, deg, E);
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// Grid and shared memory of a bitmask launch: B segments by ceil(nvl /
+// rows) row shares, mask rows and rank rows of W words.
+cudaError_t bits_launch_shape(const void* fn, int nvl, int W, int rows,
+                              int B, dim3* grid, size_t* bytes) {
+  if (rows < 1 || B < 1 || W < 0) return cudaErrorInvalidValue;
+  const int shares = (nvl + rows - 1) / rows;
+  if (shares > 65535) return cudaErrorInvalidValue;
+  *grid = dim3(B, shares);
+  *bytes = bits_smem_ints(rows, W) * sizeof(int);
+  return allow_smem(fn, *bytes);
+}
+
+}  // namespace
+
+extern "C" int sr_vv_bits(int device, const void* tet, const void* colg,
+                          void* M, void* L, int B, int NT, int NV, int nvl,
+                          int deg, int rows, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid;
+  size_t bytes;
+  e = bits_launch_shape((const void*)vv_bits_kernel, nvl, (nvl + 31) >> 5,
+                        rows, B, &grid, &bytes);
+  if (e != cudaSuccess) return (int)e;
+  vv_bits_kernel<<<grid, kBitsThreads, bytes, (cudaStream_t)stream>>>(
+      (const int*)tet, (const int*)colg, (int*)M, (int*)L, NT, NV, nvl, deg,
+      rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sr_member_bits(int device, const void* taby, const void* colg,
+                              void* M, void* L, int B, int NY, int ay,
+                              int nvl, int deg, int rows, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid;
+  size_t bytes;
+  e = bits_launch_shape((const void*)member_bits_kernel, nvl, (NY + 31) >> 5,
+                        rows, B, &grid, &bytes);
+  if (e != cudaSuccess) return (int)e;
+  member_bits_kernel<<<grid, kBitsThreads, bytes, (cudaStream_t)stream>>>(
+      (const int*)taby, (const int*)colg, (int*)M, (int*)L, NY, ay, nvl, deg,
+      rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,8 @@
 """Python wrapper of the hand-written Hopper kernels for the sparse relation
 entry assembly (``csrc/segment_relations.cu``).
 
-One thread block per batched segment emits that segment's padded
-``(M (B, nvl, deg), L (B, nvl))`` block straight from its local tables: the
-entry lanes are generated, sorted, deduplicated and inverted in shared
-memory (TT: the face lanes sorted, then the rows built from partner
-slots). Four arms:
+Each launch emits the padded ``(M (B, R, deg), L (B, R))`` blocks of B
+batched segments straight from their local tables. Four arms:
 
   - ``"VV"``     — the 12 ordered vertex pairs of every local tet;
   - ``"member"`` — VE/VF/VT, where the ``(NY, arity)`` table is the entry
@@ -17,6 +14,22 @@ slots). Four arms:
   - ``"sub"``    — EF/ET/FT, a sort join of subject keys against the
                    subset keys of the cofaces.
 
+VV and member have two routes, chosen in Python before the launch by
+:func:`entry_route`:
+
+  - ``"bits"``   — ``vv_bits_kernel`` / ``member_bits_kernel``: one
+                   segment's whole ``(row, order)`` relation as a bitmask
+                   in shared memory (``nvl`` rows of ``ceil(O / 32)``
+                   words, O = ``nvl`` for VV and NY for member), set by
+                   atomics in one walk of the table and emitted one warp a
+                   row, with no sort; a segment's rows may be shared by a
+                   few blocks (:func:`bits_row_blocks`). Every table the
+                   repo's paths build takes it;
+  - ``"sort"``   — ``vv_entries_kernel`` / ``member_entries_kernel``: the
+                   entry lanes sorted, deduplicated and inverted in shared
+                   memory (or a device workspace past the limit), for the
+                   tables whose mask does not fit.
+
 They replace the TPU kernels of the reference's
 ``kernels/segment_relations.py`` (``_vv_entries_kernel``,
 ``_member_entries_kernel``, ``_tt_entries_kernel`` and
@@ -24,8 +37,8 @@ They replace the TPU kernels of the reference's
 arm is :func:`repro_torch.kernels.ops._block_vv` /
 :func:`~repro_torch.kernels.ops._block_member_v` /
 :func:`~repro_torch.kernels.ops._block_tt` /
-:func:`~repro_torch.kernels.ops._block_sub_join`; the kernels are
-bit-identical to it.
+:func:`~repro_torch.kernels.ops._block_sub_join`; the kernels, on both
+routes, are bit-identical to it.
 
 Two more kernels (``csrc/counts.cu``) compute the count blocks of the dense
 fallback arm, from which ``ops`` builds ``(M, L)`` by predicate and
@@ -37,11 +50,13 @@ replacing ``_meet_kernel``) and :func:`relation_counts_vv_cuda`
 bit-identical to them.
 
 The wrappers take CUDA int32 tensors only and raise on anything else; they
-allocate the outputs (and, when a segment's lanes exceed the per-block
+allocate the outputs (and, when a sort kernel's lanes exceed the per-block
 shared-memory limit, a lane workspace in device memory), launch on the
 current stream without synchronising, and raise on a refused launch.
 ``LAUNCHES`` counts kernel launches per arm (``"meet"`` and
-``"vv_counts"`` for the two count kernels).
+``"vv_counts"`` for the two count kernels), and per route for VV and
+member (``"VV_bits"``, ``"VV_sort"``, ``"member_bits"``,
+``"member_sort"``).
 """
 
 from __future__ import annotations
@@ -49,16 +64,18 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
-LAUNCHES: Dict[str, int] = {"VV": 0, "member": 0, "TT": 0, "sub": 0,
-                             "meet": 0, "vv_counts": 0}
+LAUNCHES: Dict[str, int] = {"VV": 0, "VV_bits": 0, "VV_sort": 0,
+                             "member": 0, "member_bits": 0, "member_sort": 0,
+                             "TT": 0, "sub": 0, "meet": 0, "vv_counts": 0}
 _LAUNCH_LOCK = threading.Lock()
 _SMEM_LIMIT: Dict[int, int] = {}
+_SMS: Dict[int, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +95,12 @@ def _lib() -> ctypes.CDLL:
         lib.sr_member_entries.argtypes = [_I, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _I, _P]
         lib.sr_member_entries.restype = _I
+        lib.sr_vv_bits.argtypes = [_I, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_vv_bits.restype = _I
+        lib.sr_member_bits.argtypes = [_I, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_member_bits.restype = _I
         lib.sr_tt_entries.argtypes = [_I, _P, _P, _P, _P, _P,
                                       _I, _I, _I, _I, _I, _P]
         lib.sr_tt_entries.restype = _I
@@ -143,6 +166,42 @@ _SUB_STATIC_SMEM = 32 * 4
 _SUB_ARITY = {"EF": (2, 3), "ET": (2, 4), "FT": (3, 4)}
 
 
+# warps of a bitmask block (kBitsWarps): each emits one row at a time
+_BITS_WARPS = 16
+# VE/VF/VT: the member arm
+_MEMBER = ("VE", "VF", "VT")
+
+
+def bits_smem_bytes(rows: int, O: int) -> int:
+    """Shared memory of one bitmask block, in bytes: ``rows`` mask rows and
+    one rank row per warp, each ``ceil(O / 32)`` words
+    (``bits_smem_ints`` of ``csrc/segment_relations.cu``)."""
+    return 4 * (rows + _BITS_WARPS) * (-(-O // 32))
+
+
+def entry_route(relation: str, nvl: int, NY: int, limit: int) -> str:
+    """The kernel that serves a VV or VE/VF/VT block: ``"bits"`` when one
+    segment's whole bitmask (``nvl`` rows over O = ``nvl`` orders for VV,
+    O = ``NY`` for member; ``NY`` is ignored for VV) and the warps' rank
+    rows fit in ``limit`` bytes of shared memory, ``"sort"`` otherwise."""
+    if relation == "VV":
+        O = nvl
+    elif relation in _MEMBER:
+        O = NY
+    else:
+        raise KeyError(f"relation {relation!r} has one entry kernel")
+    return "bits" if bits_smem_bytes(nvl, O) <= limit else "sort"
+
+
+def bits_row_blocks(B: int, R: int, sms: int) -> int:
+    """Blocks that share one segment's R rows on the bitmask route: enough
+    for B segments to give each of the card's ``sms`` multiprocessors two
+    blocks, at most four a segment (each block walks the whole table; on
+    an H100 at B = 64, 4 blocks beat 1, 2 and 3, and 6 or 8 gained
+    nothing: ``tools/time_entries.py``)."""
+    return max(1, min(4, -(-2 * sms // max(B, 1)), R))
+
+
 def smem_limit(device: torch.device) -> int:
     """Shared memory one block may opt into on ``device``, in bytes."""
     idx = _dev_index(device)
@@ -155,9 +214,16 @@ def smem_limit(device: torch.device) -> int:
     return _SMEM_LIMIT[idx]
 
 
-def _count(arm: str) -> None:
+def _sm_count(idx: int) -> int:
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _count(*keys: str) -> None:
     with _LAUNCH_LOCK:
-        LAUNCHES[arm] += 1
+        for key in keys:
+            LAUNCHES[key] += 1
 
 
 def _dev_index(dev: torch.device) -> int:
@@ -180,7 +246,7 @@ def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
 
 def relation_entries_cuda(relation: str, tabX: torch.Tensor,
                           tabY: torch.Tensor, col_global: torch.Tensor, *,
-                          nvl: int, deg: int
+                          nvl: int, deg: int, route: Optional[str] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(M (B, R, deg), L (B, R))`` int32, where R is ``nvl`` for VV
     (``tabX`` is the ``(B, NT, 4)`` tet table, ``col_global`` the
@@ -189,8 +255,15 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     (``tabX`` the tet table, ``col_global`` the ``(B, NT)`` tet map); and
     ``NX`` for EF/ET/FT (``tabX`` the ``(B, NX, ax)`` subject table,
     ``tabY`` the ``(B, NY, ay)`` coface table, ``col_global`` its ``(B,
-    NY)`` map). The caller guarantees local ids ``< nvl`` and keys that fit
-    int32 (``ops.sparse_arm_ok``)."""
+    NY)`` map). The caller guarantees local ids in ``[0, nvl)`` (``-1``
+    marks padding) and keys that fit int32 (``ops.sparse_arm_ok``); the
+    blocks equal the plain arm's within that precondition. The bitmask
+    kernels drop an entry with an id outside it and never write outside
+    their mask.
+
+    ``route`` picks the VV or member kernel: ``None`` takes
+    :func:`entry_route`'s choice on this device, ``"bits"`` or ``"sort"``
+    forces one (``"bits"`` raises when the mask does not fit)."""
     for name, t in (("tabX", tabX), ("tabY", tabY)):
         if isinstance(t, torch.Tensor) and t.dim() != 3:
             raise ValueError(f"{name} must be (B, N, arity), got "
@@ -202,7 +275,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         _check(tab, "tabX", (B, N, 4))
         _check(col_global, "col_global", (B, col_global.shape[-1]))
         E, R = next_pow2(12 * N), nvl
-    elif relation in ("VE", "VF", "VT"):
+    elif relation in _MEMBER:
         arm, tab = "member", tabY
         B, N, a = tab.shape
         _check(tab, "tabY", (B, N, a))
@@ -229,6 +302,11 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     same = (col_global, tabY) if arm == "sub" else (col_global,)
     if any(t.device != tab.device for t in same):
         raise ValueError("the tables and col_global must share one device")
+    if route not in (None, "bits", "sort") or (
+            route is not None and arm not in ("VV", "member")):
+        raise ValueError(f"route={route!r} for relation {relation!r}: "
+                         f"VV and VE/VF/VT take None, 'bits' or 'sort', "
+                         f"the rest None")
     per = tt_lane_ints(N, deg) if arm == "TT" else lane_ints(E, R)
     if max(nvl, deg) < 1 or R * deg >= 2 ** 31 or per >= 2 ** 31:
         raise ValueError(f"nvl={nvl}, deg={deg}, {per} lane words out of "
@@ -239,11 +317,31 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     if B == 0:
         return M, L
     lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    idx = _dev_index(dev)
+    if arm in ("VV", "member"):
+        fits = entry_route(relation, nvl, N, smem_limit(dev))
+        if route == "bits" and fits == "sort":
+            raise ValueError(f"{relation} at nvl={nvl}, N={N}: the bitmask "
+                             f"does not fit in shared memory")
+        route = route or fits
+    if route == "bits":
+        rows = -(-nvl // bits_row_blocks(B, nvl, _sm_count(idx)))
+        if arm == "VV":
+            rc = lib.sr_vv_bits(idx, tab.data_ptr(), col_global.data_ptr(),
+                                M.data_ptr(), L.data_ptr(), B, N,
+                                col_global.shape[1], nvl, deg, rows, stream)
+        else:
+            rc = lib.sr_member_bits(idx, tab.data_ptr(),
+                                    col_global.data_ptr(), M.data_ptr(),
+                                    L.data_ptr(), B, N, a, nvl, deg, rows,
+                                    stream)
+        _check_rc(lib, rc, f"{arm} bitmask kernel launch")
+        _count(arm, f"{arm}_bits")
+        return M, L
     work = None
     if 4 * per + extra > smem_limit(dev):
         work = torch.empty(B * per, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    idx = _dev_index(dev)
     wp = work.data_ptr() if work is not None else None
     if arm == "VV":
         rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
@@ -264,7 +362,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
                                 L.data_ptr(), wp, B, N, ax, NY, ay, nvl,
                                 deg, E, stream)
     _check_rc(lib, rc, f"{arm} entry kernel launch")
-    _count(arm)
+    _count(arm, *([f"{arm}_sort"] if route else []))
     return M, L
 
 

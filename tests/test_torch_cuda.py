@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
-entry-assembly arm (VV, member, TT, sub-join) at the main path's shapes and
-at edge sizes (including lanes too large for shared memory), the completion
+entry-assembly arm (VV, member, TT, sub-join; VV and member on both the
+bitmask and the sort route, and on each side of the routing limit) at the
+main path's shapes and at edge sizes (including lanes too large for shared
+memory), the completion
 gather kernel, the meet and VV count kernels of the dense fallback, the
 flash-attention kernel (float32 2e-5, bf16 2e-2), the critical-points (both
 assemblies), gradient -> Morse-Smale and audit + persistence paths on the
@@ -43,25 +45,81 @@ def _rand_tets(rng, B, NT, nvl, fill=0.7):
     return tab
 
 
-@pytest.mark.parametrize("relation", ["VV", "VT"])
+def _entry_inputs(rng, cuda, relation, B, NT, nvl):
+    """The tet table of B segments and the table, column map and row count
+    (``nvl`` for VV, NY for the member arm) of ``relation``."""
+    tets = _rand_tets(rng, B, NT, nvl)
+    if relation == "VV":
+        tab, N = tets, nvl
+    else:
+        tab = _sub_tables(rng, tets)[relation[1]] if relation != "VT" \
+            else tets
+        N = tab.shape[1]
+    colg = rng.integers(0, 10 ** 6, (B, N)).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (tab, colg)]
+
+
+@pytest.mark.parametrize("route", ["bits", "sort"])
+@pytest.mark.parametrize("relation", ["VV", "VE", "VF", "VT"])
 @pytest.mark.parametrize("B,NT,deg", [(1, 1, 8), (2, 127, 4), (64, 896, 64),
                                       (2, 1408, 256)])
-def test_kernel_equals_plain_arm(cuda, relation, B, NT, deg):
+def test_kernel_equals_plain_arm(cuda, relation, B, NT, deg, route):
+    """Both routes of the VV and member arms on the same tables; each
+    launch moves its route's counter, and ``route=None`` picks the
+    bitmask kernel at nvl 256."""
     rng = np.random.default_rng(NT)
     nvl = 256
-    tt = torch.from_numpy(_rand_tets(rng, B, NT, nvl)).to(cuda)
-    N = nvl if relation == "VV" else NT
-    colg = torch.from_numpy(
-        rng.integers(0, 10 ** 6, (B, N)).astype(np.int32)).to(cuda)
+    tab, colg = _entry_inputs(rng, cuda, relation, B, NT, nvl)
     arm = "VV" if relation == "VV" else "member"
-    before = segment_relations.LAUNCHES[arm]
-    got = ops.relation_block(relation, tt, tt, colg, nvl, deg=deg)
-    want = ops.relation_block(relation, tt, tt, colg, nvl, deg=deg,
+    before = dict(segment_relations.LAUNCHES)
+    got = segment_relations.relation_entries_cuda(
+        relation, tab, tab, colg, nvl=nvl, deg=deg, route=route)
+    want = ops.relation_block(relation, tab, tab, colg, nvl, deg=deg,
                               backend="torch")
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert segment_relations.LAUNCHES[arm] == before + 1
+    assert segment_relations.LAUNCHES[arm] == before[arm] + 1
+    assert segment_relations.LAUNCHES[f"{arm}_{route}"] == \
+        before[f"{arm}_{route}"] + 1
+    before = dict(segment_relations.LAUNCHES)
+    again = ops.relation_block(relation, tab, tab, colg, nvl, deg=deg)
+    torch.cuda.synchronize()
+    for g, w in zip(again, want):     # two launches: equal blocks
+        assert torch.equal(g, w)
+    assert segment_relations.LAUNCHES[f"{arm}_bits"] == \
+        before[f"{arm}_bits"] + 1
+
+
+@pytest.mark.parametrize("relation,nvl,NT", [("VV", 1344, 2000),
+                                             ("VV", 1376, 2000),
+                                             ("VT", 256, 6816),
+                                             ("VT", 256, 6848)])
+def test_entry_route_on_the_card(cuda, relation, nvl, NT):
+    """Tables on each side of the routing limit (on an H100: VV at nvl
+    1344 and VT at NY 6816 fit, nvl 1376 and NY 6848 do not): the
+    wrapper's own choice (``entry_route`` at the card's opt-in limit) runs, equals the plain
+    arm, and moves that route's counter; forcing the bitmask kernel past
+    the limit raises."""
+    rng = np.random.default_rng(nvl + NT)
+    tab, colg = _entry_inputs(rng, cuda, relation, 2, NT, nvl)
+    arm = "VV" if relation == "VV" else "member"
+    route = segment_relations.entry_route(
+        relation, nvl, NT, segment_relations.smem_limit(cuda))
+    before = dict(segment_relations.LAUNCHES)
+    got = ops.relation_block(relation, tab, tab, colg, nvl, deg=32)
+    want = ops.relation_block(relation, tab, tab, colg, nvl, deg=32,
+                              backend="torch")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert segment_relations.LAUNCHES[f"{arm}_{route}"] == \
+        before[f"{arm}_{route}"] + 1
+    if route == "sort":
+        with pytest.raises(ValueError, match="does not fit"):
+            segment_relations.relation_entries_cuda(
+                relation, tab, tab, colg, nvl=nvl, deg=32, route="bits")
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -329,3 +329,169 @@ def test_tt_face_lanes_and_working_set():
     assert segment_relations.tt_lane_ints(896, 8) == 8192 + 8 * 896
     # staged rows wider than the lanes take their place, kept even
     assert segment_relations.tt_lane_ints(3, 101) == 304 + 24
+
+
+# -- the VV and member bitmask kernels' design, in numpy ----------------------
+
+_VV_PAIRS = tuple((a, c) for a in range(4) for c in range(4) if a != c)
+
+
+def _select_bit(x, k):
+    """The ``k``-th (from 0) set bit of each uint32 ``x``: five halvings of
+    the window, as ``select_bit`` in ``csrc/segment_relations.cu``."""
+    x, k = x.astype(np.uint64), k.astype(np.int64)
+    pos = np.zeros(x.shape, dtype=np.int64)
+    for s in (16, 8, 4, 2, 1):
+        c = _popcount(x & ((1 << s) - 1))
+        up = k >= c
+        k = np.where(up, k - c, k)
+        x = np.where(up, x >> s, x)
+        pos += np.where(up, s, 0)
+    return pos
+
+
+def _popcount(x):
+    x = np.asarray(x, dtype=np.uint64)
+    return np.unpackbits(x.view(np.uint8).reshape(*x.shape, 8),
+                         axis=-1).sum(-1).astype(np.int64)
+
+
+def _bits_rows(relation, tab, col_global, nvl, deg):
+    """What ``vv_bits_kernel`` / ``member_bits_kernel`` compute, step for
+    step. The mask: ``nvl`` rows of ``W = ceil(O / 32)`` uint32 words (bit
+    ``j`` of word ``w`` is order ``32 * w + j``; O = ``nvl`` for VV, NY for
+    member), OR-ed from one walk of the table with ids outside ``[0, nvl)``
+    dropped: VV a tet's 12 ordered pairs ``(va, vb)``, member each slot
+    ``v`` of row ``y``. Then each word's popcount, their exclusive scan
+    along the row (each word's first rank), ``L`` the row's total, and
+    ``M[r, d]`` for ``d < min(L, deg)`` the value of rank ``d``'s order:
+    the last word whose first rank is ``<= d``, its ``(d - first)``-th set
+    bit; ``-1`` past."""
+    B, N, a = tab.shape
+    O = nvl if relation == "VV" else N
+    W = -(-O // 32)
+    M = np.full((B, nvl, deg), -1, dtype=np.int32)
+    L = np.zeros((B, nvl), dtype=np.int32)
+    for b in range(B):
+        mask = np.zeros((nvl, W), dtype=np.uint32)
+        if relation == "VV":
+            rows = np.concatenate([tab[b, :, p] for p, _ in _VV_PAIRS])
+            orders = np.concatenate([tab[b, :, c] for _, c in _VV_PAIRS])
+            ok = (rows >= 0) & (rows < nvl) & (orders >= 0) & (orders < nvl)
+        else:
+            rows = tab[b].reshape(-1)
+            orders = np.repeat(np.arange(N), a)
+            ok = (rows >= 0) & (rows < nvl)
+        rows, orders = rows[ok].astype(np.int64), orders[ok].astype(np.int64)
+        np.bitwise_or.at(mask, (rows, orders >> 5),
+                         (np.uint32(1) << (orders & 31).astype(np.uint32)))
+        count = _popcount(mask)                               # (nvl, W)
+        first = np.cumsum(count, axis=1) - count              # exclusive
+        L[b] = count.sum(1)
+        d = np.arange(deg)
+        live = d[None, :] < np.minimum(L[b], deg)[:, None]    # (nvl, deg)
+        word = (first[:, None, :] <= d[None, :, None]).sum(-1) - 1
+        word = word.clip(0, max(W - 1, 0))
+        r = np.arange(nvl)[:, None]
+        if W:
+            o = word * 32 + _select_bit(mask[r, word], d[None, :]
+                                        - first[r, word])
+        else:
+            o = np.zeros((nvl, deg), dtype=np.int64)
+        colg = col_global[b]
+        if relation == "VV":
+            val = np.where(o < len(colg), colg[o.clip(max=len(colg) - 1)], 0)
+        else:
+            val = colg[o.clip(max=max(N - 1, 0))] if N else o
+        M[b] = np.where(live, val, -1)
+    return M, L
+
+
+@pytest.mark.parametrize("seed,nvl,holes", [(0, 31, False), (1, 32, True),
+                                            (2, 33, False)])
+@pytest.mark.parametrize("relation", ["VV", "VE", "VF", "VT"])
+def test_bits_rows_equal_the_blocks(relation, seed, nvl, holes):
+    """Random segment tables (tets of a grid, so VV pairs repeat across
+    tets; -1 padding rows; NY of 116/78/21, not multiples of 32; nvl
+    31/32/33 around a word's edge; with ``holes``, -1 slots inside rows):
+    the bitmask kernels' design gives the plain arm's block and the
+    reference's xla block, at the default width and at one below the
+    true counts."""
+    rng = np.random.default_rng(seed)
+    tabs = _segment_tables(rng, 3, 19, nvl, pad=2)
+    if relation == "VV":
+        tab = tabs["T"]
+        colg = rng.integers(0, 10 ** 6, (3, nvl)).astype(np.int32)
+    else:
+        tab = tabs[relation[1]]
+        colg = rng.integers(0, 10 ** 6, tab.shape[:2]).astype(np.int32)
+        colg[(tab < 0).all(-1)] = -1
+    if holes:
+        tab = tab.copy()
+        tab[rng.random(tab.shape) < 0.1] = -1
+    for deg in (ops.DEFAULT_DEG[relation], 2):
+        got = _bits_rows(relation, tab, colg, nvl, deg)
+        _assert_blocks_equal(ops.relation_block(
+            relation, _t(tab), _t(tab), _t(colg), nvl, deg=deg), got)
+        for w, g in zip(ref_ops.relation_block(relation, tab, tab, colg, nvl,
+                                               deg=deg, backend="xla"), got):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert (got[1] > 2).any()          # the TRUE counts past deg 2
+
+
+@pytest.mark.parametrize("name", ["engine", "foot", "fish", "bar"])
+def test_bits_rows_on_the_meshgen_datasets(name):
+    """The port's datasets, segmented and preconditioned: every segment's
+    VV/VE/VF/VT block from the bitmask design equals the plain arm's and
+    the reference's xla arm's (NV of 256 or 384 rows; NE 1024-1280, NF
+    1536-1792, NT 768 at capacity 64: 8 to 56 words a row)."""
+    from repro_torch.core.mesh import segment_mesh
+    from repro_torch.core.segtables import precondition
+    from repro_torch.data.meshgen import load_dataset
+
+    rels = ["VV", "VE", "VF", "VT"]
+    pre = precondition(segment_mesh(load_dataset(name), capacity=64), rels)
+    t, nvl = pre.tables, pre.tables.NV
+    cases = {"VV": (t.T_local, t.LV_global), "VE": (t.E_local, t.LE_global),
+             "VF": (t.F_local, t.LF_global), "VT": (t.T_local, t.LT_global)}
+    for relation, (tab, colg) in cases.items():
+        tab, colg = tab[:8], colg[:8]
+        deg = ops.DEFAULT_DEG[relation]
+        got = _bits_rows(relation, tab, colg, nvl, deg)
+        _assert_blocks_equal(ops.relation_block(
+            relation, _t(tab), _t(tab), _t(colg), nvl, deg=deg), got)
+        for w, g in zip(ref_ops.relation_block(relation, tab, tab, colg, nvl,
+                                               deg=deg, backend="xla"), got):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert got[1].max() > 0
+
+
+def test_entry_route_on_both_sides_of_the_limit():
+    """``entry_route`` takes the bitmask kernel exactly while one
+    segment's mask and the 16 warps' rank rows fit the given limit:
+    ``4 * (nvl + 16) * ceil(O / 32)`` bytes, O = nvl for VV and NY for
+    VE/VF/VT."""
+    route, size = segment_relations.entry_route, \
+        segment_relations.bits_smem_bytes
+    assert size(256, 256) == 4 * 272 * 8
+    assert size(256, 1920) == 4 * 272 * 60 and size(256, 1921) == \
+        4 * 272 * 61
+    for relation, nvl, NY in (("VV", 256, 0), ("VV", 33, 5), ("VT", 256, 896),
+                              ("VF", 256, 1920), ("VE", 31, 1281)):
+        need = size(nvl, nvl if relation == "VV" else NY)
+        assert route(relation, nvl, NY, need) == "bits"
+        assert route(relation, nvl, NY, need - 1) == "sort"
+    h100 = 232448                          # the opt-in limit of an H100
+    for relation, NY in (("VV", 896), ("VE", 1280), ("VF", 1920),
+                         ("VT", 896)):     # the 96^3 tables
+        assert route(relation, 256, NY, h100) == "bits"
+    assert route("VV", 1344, 0, h100) == "bits"
+    assert route("VV", 1376, 0, h100) == "sort"
+    assert route("VT", 1664, 7680, h100) == "sort"
+    with pytest.raises(KeyError):
+        route("TT", 256, 896, h100)
+    # row shares: two blocks for each of 132 SMs, at most 4 a segment
+    blocks = segment_relations.bits_row_blocks
+    assert [blocks(B, 256, 132) for B in (1, 64, 66, 67, 88, 132, 264,
+                                          500)] == [4, 4, 4, 4, 3, 2, 1, 1]
+    assert blocks(1, 3, 132) == 3
