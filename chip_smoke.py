@@ -7,21 +7,23 @@ Phases, one JSON line each:
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
      together, sm_90a) with its ptxas report, and the registers, shared
-     memory and spills of the VV, member, TT and gather kernels by entry
-     function.
+     memory and spills of the VV, member, TT, sub-join and gather kernels
+     by entry function.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
      VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
-  3. kernels: each relation-entry kernel arm (VV and member for
-     VE/VF/VT on both routes, the bitmask kernels and the sort kernels;
-     TT; sub-join for FT/EF/ET) held bit for bit against its plain torch
-     version on the card, on the 96^3 tables at B=64 and on edge cases
-     (B=1; prime sizes, nvl 8/31/33/127 and row counts that are not
-     multiples of 32; a fully valid lane vector; rows with L > deg; tables
-     on each side of the bitmask route's shared-memory limit; lanes too
-     large for shared memory, which run from a device workspace; the
-     bitmask kernels and a TT table with faces of three and four cofacets
-     run twice for equal blocks); then
+  3. kernels: each relation-entry kernel arm (VV, member for VE/VF/VT
+     and sub-join for FT/EF/ET on both routes, the bitmask kernels and the
+     sort kernels; TT) held bit for bit against its plain torch version on
+     the card, on the 96^3 tables at B=64 and on edge cases (B=1; prime
+     sizes, nvl 8/11/31/33/127 and row counts that are not multiples of
+     32; -1 slots inside sub-join rows; a fully valid lane vector; rows
+     with L > deg; tables on each side of the old whole-mask limit, now
+     row shares, and past the member and sub-join one-row limits; lanes
+     too large for shared memory, which run from a device workspace; the
+     bitmask kernels, a TT table with faces of three and four cofacets and
+     a sub-join table with a repeated face key run twice for equal
+     blocks); then
      the two count kernels of the dense fallback (meet: the 96^3 FF, EE
      and VF tables;
      VV counts: the 96^3 tets) the same way, on B=1, prime sizes, all -1
@@ -30,27 +32,29 @@ Phases, one JSON line each:
      kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick;
      each kernel's own time from CUDA-graph replay (``ms``) beside the
      eager loop's (``eager_ms``, bound by the wrapper's host cost when the
-     kernel is faster than it); VV and VE/VF/VT on both routes at the
-     96^3 shapes.
+     kernel is faster than it); VV, VE/VF/VT and FT/EF/ET on both routes
+     at the 96^3 shapes, with the bitmask launches' row shares.
   4. critical-points path: ``RelationEngine(["VV","VT"])`` ->
      ``critical_points`` on the kernels and on the plain torch arm, with
      the launch counters zeroed just before the kernels' run and read just
      after; ``types`` equal to the JAX reference's (pinned below); then
      the same path under ``assembly="dense"`` (the VV count and meet
      kernels) with its own counters, ``types`` equal to the same pin.
-     Every VV and member launch of the mesh paths (phases 4-6) takes the
-     bitmask route. Then the sort kernels' path: the same path on the
-     48^3 mesh segmented at capacity 1024 (NV 2048: masks past the
-     shared-memory limit), on both arms, counters zeroed just before the
-     kernels' run and read just after, ``types`` equal to the capacity-64
-     segmentation's on the kernels; the sort kernels timed at its shapes.
+     Every VV, member and sub-join launch of the mesh paths (phases 4-6)
+     takes the bitmask route. Then the same path on the 48^3 mesh
+     segmented at capacity 1024 (NV 2048, NT 8576: whole masks past the
+     shared-memory limit, so the bitmask kernels run in row shares), on
+     both arms, counters zeroed just before the kernels' run and read just
+     after, ``types`` equal to the capacity-64 segmentation's; both routes
+     held and timed at its shapes (the sort kernels forced: no path
+     reaches them any more, so they count no launch on the paths).
   5. gradient -> Morse-Smale path at 48^3 (phase 6 drives it at 96^3):
      ``RelationEngine(["VE","VF","VT","FT","TT"])`` ->
      ``discrete_gradient(co_prefetch=("TT",))`` -> ``morse_smale`` on the
      kernels, counters zeroed just before and read just after; Euler =
      chi, counts and SHA-256 digests equal to the JAX reference's;
-     ``morse_smale(adjacency="ft")`` (the sub-join kernel over every
-     segment) equal to the TT route; the plain torch arm equal too.
+     ``morse_smale(adjacency="ft")`` (the sub-join bitmask kernel over
+     every segment) equal to the TT route; the plain torch arm equal too.
   6. audit + persistence path at 96^3: ``RelationEngine(["VE","VF","VT",
      "FT","TT","FF"])`` -> ``discrete_gradient(audit=True)`` (TT and FF
      completion; FF blocks from the meet kernel) -> ``morse_smale`` ->
@@ -204,8 +208,9 @@ REF_PATH = {
 # the plain torch arm of phase 5, and both arms of phase 7's pinned
 # corrupted audit and FF rows, run at this size
 SMALL_N = 48
-# the sort kernels' path: the SMALL_N mesh in segments of this many
-# vertices (NV 2048, NT 8576: VV and VT masks past the opt-in limit)
+# the row-share path: the SMALL_N mesh in segments of this many vertices
+# (NV 2048, NT 8576: whole VV and VT masks past the opt-in limit, so the
+# bitmask kernels split each segment's rows over 4 and 11 blocks)
 BIG_CAPACITY = 1024
 
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
@@ -232,8 +237,10 @@ KERNELS = {
                     "replaces": "src/repro/kernels/segment_relations.py:343"},
     "TT": {"name": "tt_entries_kernel", "source": SR_SOURCE,
            "replaces": "src/repro/kernels/segment_relations.py:381"},
-    "sub": {"name": "sub_entries_kernel", "source": SR_SOURCE,
-            "replaces": "src/repro/kernels/segment_relations.py:413"},
+    "sub_bits": {"name": "sub_bits_kernel", "source": SR_SOURCE,
+                 "replaces": "src/repro/kernels/segment_relations.py:413"},
+    "sub_sort": {"name": "sub_entries_kernel", "source": SR_SOURCE,
+                 "replaces": "src/repro/kernels/segment_relations.py:413"},
     "gather": {"name": "resolve_gather_kernel", "source": CG_SOURCE,
                "replaces": "src/repro/kernels/completion_gather.py:209"},
     "meet": {"name": "meet_counts_kernel", "source": CT_SOURCE,
@@ -553,14 +560,20 @@ def check(cond, msg) -> None:
         raise Failed(msg)
 
 
-# the VV and member launch counters: per arm, and per route
-ROUTED = ("VV", "VV_bits", "VV_sort", "member", "member_bits",
-          "member_sort")
+# the arms with two routes, and their launch counters: per arm and route
+ROUTED_ARMS = ("VV", "member", "sub")
+ROUTED = tuple(f"{arm}{r}" for arm in ROUTED_ARMS
+               for r in ("", "_bits", "_sort"))
+# kernels that no path reaches at the repo's sizes since the bitmask route
+# holds every table one mask row fits: held and timed by force (route=
+# "sort") in phases 3-4, 0 launches on the paths
+FORCED = ("VV_sort", "member_sort", "sub_sort")
 
 
 def all_bits(path: str, counts: dict) -> None:
-    """Every VV and member launch in ``counts`` took the bitmask route."""
-    for arm in ("VV", "member"):
+    """Every VV, member and sub-join launch in ``counts`` took the bitmask
+    route."""
+    for arm in ROUTED_ARMS:
         if arm in counts:
             check(counts[arm] == counts[f"{arm}_bits"]
                   and counts[f"{arm}_sort"] == 0,
@@ -1030,8 +1043,8 @@ def main() -> int:
 
     def routed(arm, before):
         """The KERNELS key of the kernel that ran since ``before``: the
-        route whose counter moved for VV and member, else the arm."""
-        if arm not in ("VV", "member"):
+        route whose counter moved for VV, member and sub, else the arm."""
+        if arm not in ROUTED_ARMS:
             return arm
         moved = [f"{arm}_{r}" for r in ("bits", "sort")
                  if sr.LAUNCHES[f"{arm}_{r}"] != before[f"{arm}_{r}"]]
@@ -1130,7 +1143,7 @@ def main() -> int:
     }
     for relation, (tx, ty, colg) in main_inputs.items():
         deg = ops.DEFAULT_DEG[relation]
-        routes = ("bits", "sort") if arm_of[relation] in ("VV", "member") \
+        routes = ("bits", "sort") if arm_of[relation] in ROUTED_ARMS \
             else (None,)
         narrow = {"VV": 4, "VE": 4, "VF": 4, "VT": 4, "TT": 2, "FT": 1,
                   "EF": 2, "ET": 2}
@@ -1156,8 +1169,21 @@ def main() -> int:
         st = sub_tables(rand_tets(2, n, 11), pad=3)
         for relation in ("FT", "EF", "ET"):
             tx, ty = st[relation[0]], st[relation[1]]
-            compare(f"prime {n}", relation, cu(tx), cu(ty), cu(colg_for(ty)),
-                    11, 8)
+            for route in ("bits", "sort"):
+                compare(f"prime {n}, {route} route", relation, cu(tx),
+                        cu(ty), cu(colg_for(ty)), 11, 8, route=route)
+    # the sub-join on -1 slots inside rows, nvl and row counts off a word's
+    # edge, and a width below the true counts, on both routes
+    st = sub_tables(rand_tets(3, 97, 33), pad=2)
+    for relation in ("FT", "EF", "ET"):
+        tx, ty = (np.where(rng.random(t.shape) < 0.08, -1, t)
+                  .astype(np.int32) for t in (st[relation[0]],
+                                              st[relation[1]]))
+        for route in ("bits", "sort"):
+            for deg in (8, 1):
+                compare(f"-1 slots, deg {deg}, {route} route", relation,
+                        cu(tx), cu(ty), cu(colg_for(ty)), 33, deg,
+                        route=route)
     # VV and VE/VF/VT: nvl on both sides of a word's edge, tables of a
     # prime number of rows
     for n, nv_ in ((1, 8), (7, 8), (7, 31), (37, 33), (127, 127)):
@@ -1186,7 +1212,7 @@ def main() -> int:
                              for _ in range(16)]) for _ in range(3)]) \
         .astype(np.int32)
     compare("fully valid lanes", "FT", cu(fx), cu(ft), cu(colg_for(ft)),
-            40, 16)
+            40, 16, route="sort")
     # lanes past the shared-memory opt-in limit -> device workspace
     big = 1408                       # VV: 8 * E = 256 KB of lanes
     check(4 * sr.lane_ints(sr.next_pow2(12 * big), 256) > sr.smem_limit(dev),
@@ -1201,20 +1227,26 @@ def main() -> int:
     for route in ("sort", "bits"):
         compare(f"device-workspace lanes, {route} route", "VT", cu(tv),
                 cu(tv), cv, 256, 128, route=route)
-    # each side of the bitmask route's limit: VV by nvl, VT by NY (on an
-    # H100's 227 KB: nvl 1344 and NY 6816 fit, 1376 and 6848 do not)
+    # each side of the old whole-mask limit (on an H100's 227 KB: nvl 1344
+    # and NY 6816 fit whole, 1376 and 6848 now take row shares) and a
+    # member table past the one-row limit (NY 110,000: the sort kernel)
     limit = sr.smem_limit(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sides = []
     for relation, nv_, n in (("VV", 1344, 2000), ("VV", 1376, 2000),
-                             ("VT", 256, 6816), ("VT", 256, 6848)):
+                             ("VT", 256, 6816), ("VT", 256, 6848),
+                             ("VT", 8, 110000)):
         side = sr.entry_route(relation, nv_, n, limit)
-        sides.append(side)
+        fit = sr.bits_rows_fit(relation, nv_, n, limit)
+        sides.append((side, sr.bits_shares(relation, 2, nv_, fit, sms) if fit
+                      else None))
         tt = rand_tets(2, n, nv_)
         cv = rng.integers(0, 10 ** 6, (2, nv_ if relation == "VV" else n))
         compare(f"{side} side of the route limit", relation, cu(tt), cu(tt),
                 cu(cv.astype(np.int32)), nv_, 32, want_route=side)
-    check(sides == ["bits", "sort"] * 2,
+    check([r for r, _ in sides] == ["bits"] * 4 + ["sort"],
           f"the route-limit cases fell on {sides} at {limit} bytes")
+    emit({"phase": "route_limits", "limit": limit, "sides": sides})
     # TT: four real segments' tets as one (NT = 3584, EJ = 16384,
     # E = 32768), so faces are shared as in the mesh. Each segment's local
     # vertices are shifted to a range of their own: a face keeps at most
@@ -1253,7 +1285,44 @@ def main() -> int:
                            st["F"].shape[1]) > sr.smem_limit(dev),
           "the FT workspace case fits shared memory")
     compare("device-workspace lanes", "FT", cu(st["F"]), cu(st["T"]),
-            cu(colg_for(st["T"])), 200, 4)
+            cu(colg_for(st["T"])), 200, 4, route="sort")
+    # each side of the sub-join's one-row limit (on an H100's 227 KB: the
+    # lookup of NX = 8192 subject keys fits beside one row, of 8193 not)
+    ft = rand_tets(2, 1800, 200)
+    fx = sub_tables(ft, pad=0)["F"]
+    sides = []
+    for nx in (8192, 8193):
+        check(fx.shape[1] <= nx, "the FT limit case has too many faces")
+        tx = np.full((2, nx, 3), -1, dtype=np.int32)
+        tx[:, :fx.shape[1]] = fx
+        side = sr.entry_route("FT", 200, ft.shape[1], limit, nx)
+        sides.append(side)
+        compare(f"{side} side of the sub-join limit", "FT", cu(tx), cu(ft),
+                cu(colg_for(ft)), 200, 4, want_route=side)
+    check(sides == ["bits", "sort"],
+          f"the sub-join limit cases fell on {sides} at {limit} bytes")
+    # the sub-join past its precondition: one face listed three times. The
+    # bitmask kernel gives every entry of the key to the largest of the
+    # three rows (its tie rule): two runs give equal blocks
+    st = sub_tables(rand_tets(2, 300, 64), pad=3)
+    tx = st["F"].copy()
+    tx[:, 40] = tx[:, 3][:, ::-1]
+    tx[:, 90] = tx[:, 3]
+    ct = cu(colg_for(st["T"]))
+    first = sr.relation_entries_cuda("FT", cu(tx), cu(st["T"]), ct, nvl=64,
+                                     deg=4, route="bits")
+    again = sr.relation_entries_cuda("FT", cu(tx), cu(st["T"]), ct, nvl=64,
+                                     deg=4, route="bits")
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in zip(first, again))
+    tie = bool((first[1][:, 90] > 0).all() and
+               (first[1][:, [3, 40]] == 0).all())
+    emit({"phase": "kernel_case", "case": "a repeated face key, twice",
+          "relation": "FT", "kernel": KERNELS["sub_bits"]["name"],
+          "shape": [list(tx.shape)], "deterministic": ok,
+          "largest_row_holds_the_key": tie})
+    check(ok and tie, "the sub-join bitmask kernel gives two blocks, or "
+                      "breaks its tie rule, past its precondition")
 
     timing = {}
 
@@ -1280,8 +1349,18 @@ def main() -> int:
         emit({"phase": "kernel_time", "arm": key, "relation": relation,
               "kernel": KERNELS[key]["name"],
               "shape": [list(tx.shape), list(ty.shape)], "nvl": nv,
-              "deg": deg, **row, "sorted_entries": int(sum(sorts))})
+              "deg": deg, **row, "sorted_entries": int(sum(sorts)),
+              **({"shares": shares_of(relation, tx, ty, nv)}
+                 if key.endswith("_bits") else {})})
         return row
+
+    def shares_of(relation, tx, ty, nv):
+        """Blocks a segment of the wrapper's bitmask launch."""
+        sub = arm_of[relation] == "sub"
+        R = tx.shape[1] if sub else nv
+        fit = sr.bits_rows_fit(relation, nv, ty.shape[1], limit,
+                               tx.shape[1] if sub else 0)
+        return sr.bits_shares(relation, tx.shape[0], R, fit, sms)
 
     def valid_rows(t):
         return (t >= 0).all(-1).sum(-1)               # per segment
@@ -1312,17 +1391,17 @@ def main() -> int:
         deg = ops.DEFAULT_DEG[relation]
         arm = arm_of[relation]
         sorts = entry_sorts(relation, tx, ty, colg, nvl, deg)
-        if arm in ("VV", "member"):
+        if arm in ROUTED_ARMS:
             # the sort kernels forced onto the same tables, for comparison
             for route in ("bits", "sort"):
                 row = time_arm(f"{arm}_{route}", relation, tx, ty, colg,
                                deg, sorts, route=route)
-                if route == "bits" and relation in ("VV", "VT"):
-                    timing[f"{arm}_bits"] = row
+                if relation in ("VV", "VT", "FT") and (
+                        route == "bits" or arm == "sub"):
+                    timing[f"{arm}_{route}"] = row
         else:
             row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
-            if relation in ("TT", "FT"):
-                timing[arm] = row
+            timing[arm] = row
 
     # -- 3b. the count kernels of the dense fallback ------------------------
     def counts_compare(case, kind, *args):
@@ -1515,7 +1594,7 @@ def main() -> int:
     check(dense_launches["VV"] == dense_launches["member"] == 0,
           "the dense assembly launched a sparse entry kernel")
 
-    # -- 4b. the sort kernels' path: segments whose masks do not fit --------
+    # -- 4b. segments whose whole masks do not fit: the row-share path ----
     psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
     ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
     t0 = time.perf_counter()
@@ -1525,9 +1604,11 @@ def main() -> int:
     bt = bpre.tables
     setup_s = time.perf_counter() - t0
     for relation in ("VV", "VT"):
-        check(sr.entry_route(relation, bt.NV, bt.NT, sr.smem_limit(dev))
-              == "sort", f"the capacity-{BIG_CAPACITY} {relation} mask "
-                         f"fits shared memory")
+        O = bt.NV if relation == "VV" else bt.NT
+        check(sr.bits_smem_bytes(bt.NV, O) > limit
+              and sr.entry_route(relation, bt.NV, bt.NT, limit) == "bits",
+              f"the capacity-{BIG_CAPACITY} {relation} mask fits shared "
+              f"memory whole, or not one row of it does")
     small_types = critical_points(RelationEngine(
         ppre, ["VV", "VT"], lookahead=8, device="cuda"), ppre, prank)[0]
     for backend in ("cuda", "torch"):
@@ -1550,27 +1631,34 @@ def main() -> int:
               "kernel_launches": eng.stats.kernel_launches,
               "segments_produced": eng.stats.segments_produced,
               "wall_s": round(wall, 3),
+              "t_sync_s": round(eng.stats.t_sync, 3),
+              "t_kernel_s": round(eng.stats.t_kernel, 3),
               **({"kernel_counters": big_launches}
                  if backend == "cuda" else {})})
         check(np.array_equal(types, small_types),
               f"{backend}: the capacity-{BIG_CAPACITY} types differ from "
               f"the capacity-64 segmentation's")
-    check(big_launches["VV_sort"] == big_launches["VV"] > 0
-          and big_launches["member_sort"] == big_launches["member"] > 0,
-          f"the capacity-{BIG_CAPACITY} path did not run the sort kernels "
-          f"alone: {big_launches}")
-    # the sort kernels held and timed at this path's shapes
+    check(big_launches["VV_bits"] > 0 and big_launches["member_bits"] > 0,
+          f"a bitmask kernel was not launched on the capacity-"
+          f"{BIG_CAPACITY} path: {big_launches}")
+    all_bits(f"the capacity-{BIG_CAPACITY} path", big_launches)
+    # both routes held and timed at this path's shapes: the bitmask kernels
+    # in row shares, the sort kernels forced (device workspace)
     bT, bV = cu(bt.T_local[:BATCH]), cu(bt.table("V")[0][:BATCH])
     for relation, tx, ty, colg in (
             ("VV", bT, bT, cu(bt.LV_global[:BATCH])),
             ("VT", bV, bT, cu(bt.LT_global[:BATCH]))):
         deg = ops.DEFAULT_DEG[relation]
-        key = f"{arm_of[relation]}_sort"
-        compare(f"capacity-{BIG_CAPACITY} tables", relation, tx, ty, colg,
-                bt.NV, deg, want_route="sort")
-        timing[key] = time_arm(key, relation, tx, ty, colg, deg,
-                               entry_sorts(relation, tx, ty, colg, bt.NV,
-                                           deg), nv=bt.NV)
+        sorts = entry_sorts(relation, tx, ty, colg, bt.NV, deg)
+        for route in ("bits", "sort"):
+            key = f"{arm_of[relation]}_{route}"
+            compare(f"capacity-{BIG_CAPACITY} tables, {route} route",
+                    relation, tx, ty, colg, bt.NV, deg, route=route,
+                    want_route=route)
+            row = time_arm(key, relation, tx, ty, colg, deg, sorts,
+                           nv=bt.NV, route=route)
+            if route == "sort":
+                timing[key] = row
     del bT, bV, bpre, bsm
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
@@ -1624,33 +1712,39 @@ def main() -> int:
         sr.LAUNCHES[k] = 0
     cg.LAUNCHES["gather"] = 0
     eng, g, ms, out = ms_path(ppre, prank, "cuda", SMALL_N)
-    ms_launches = {k: sr.LAUNCHES[k] for k in ("member", "member_bits",
-                                               "member_sort", "TT", "sub")}
+    ms_launches = {k: sr.LAUNCHES[k] for k in ROUTED + ("TT",)
+                   if not k.startswith("VV")}
     ms_launches["gather"] = cg.LAUNCHES["gather"]
     emit({**out, "kernel_counters": ms_launches})
-    check(all(ms_launches[k] > 0 for k in ("member_bits", "TT", "sub",
+    check(all(ms_launches[k] > 0 for k in ("member_bits", "TT", "sub_bits",
                                            "gather")),
           f"a kernel was not launched on the gradient -> Morse-Smale path: "
           f"{ms_launches}")
     all_bits("the gradient -> Morse-Smale path", ms_launches)
-    launches = {"VV_bits": cp_launches["VV_bits"],
-                "member_bits": cp_launches["member_bits"]
-                + ms_launches["member_bits"],
-                "VV_sort": big_launches["VV_sort"],
-                "member_sort": big_launches["member_sort"],
-                **{k: ms_launches[k] for k in ("TT", "sub", "gather")}}
+    # the critical-points paths at 96^3 and at capacity 1024, then the
+    # gradient -> Morse-Smale path
+    launches = {k: cp_launches[k] + big_launches[k] for k in
+                ("VV_bits", "VV_sort", "member_bits", "member_sort")}
+    launches["member_bits"] += ms_launches["member_bits"]
+    launches["member_sort"] += ms_launches["member_sort"]
+    launches.update({
+        k: ms_launches[k] for k in ("TT", "sub_bits", "sub_sort", "gather")})
 
     # the FT-gather route: the sub-join kernel over every segment
     t0 = time.perf_counter()
-    sub_before = sr.LAUNCHES["sub"]
+    sub_before = {k: sr.LAUNCHES[k] for k in ("sub", "sub_bits", "sub_sort")}
     ms_ft = morse_smale(eng, ppre, g, adjacency="ft")
     torch.cuda.synchronize()
+    ft_launches = {k: sr.LAUNCHES[k] - v for k, v in sub_before.items()}
     emit({"phase": "ms_ft_route", "wall_s": round(time.perf_counter() - t0,
                                                   3),
-          "sub_launches": sr.LAUNCHES["sub"] - sub_before,
+          "kernel_counters": ft_launches,
           "ms_sha256": digest(ms_ft, MS_FIELDS)})
     check(digest(ms_ft, MS_FIELDS) == out["ms_sha256"],
           "morse_smale(adjacency='ft') differs from the TT route")
+    check(ft_launches["sub_bits"] > 0, f"the FT route launched no sub-join "
+                                       f"kernel: {ft_launches}")
+    all_bits("the FT route", ft_launches)
 
     # the plain torch arm of the same path
     _, _, _, pout = ms_path(ppre, prank, "torch", SMALL_N)
@@ -1720,16 +1814,19 @@ def main() -> int:
         sr.LAUNCHES[k] = 0
     cg.LAUNCHES["gather"] = 0
     eng, g, out = audit_path(pre, rank, "cuda", N)
-    path_launches = {k: sr.LAUNCHES[k] for k in ("member", "member_bits",
-                                                 "member_sort", "TT", "sub",
-                                                 "meet")}
+    path_launches = {k: sr.LAUNCHES[k] for k in ROUTED + ("TT", "meet")
+                     if not k.startswith("VV")}
     path_launches["gather"] = cg.LAUNCHES["gather"]
     emit({**out, "kernel_counters": path_launches})
     check(path_launches["meet"] > 0 and path_launches["gather"] > 0,
           f"a kernel was not launched on the audit + persistence path: "
           f"{path_launches}")
     all_bits("the audit + persistence path", path_launches)
-    for k in ("member_bits", "TT", "sub", "gather"):
+    check(path_launches["sub_bits"] > 0,
+          f"the sub-join kernel was not launched on the audit + persistence "
+          f"path: {path_launches}")
+    for k in ("member_bits", "member_sort", "TT", "sub_bits", "sub_sort",
+              "gather"):
         launches[k] += path_launches[k]
     launches["meet"] = dense_launches["meet"] + path_launches["meet"]
     launches["vv_counts"] = dense_launches["vv_counts"]
@@ -1929,7 +2026,7 @@ def main() -> int:
     lm_phases(torch, dev, max_err, timing, launches)
 
     # -- 12. summary ---------------------------------------------------------
-    check(all(launches[arm] > 0 for arm in KERNELS),
+    check(all(launches[arm] > 0 for arm in KERNELS if arm not in FORCED),
           f"a kernel was launched no time on its path: {launches}")
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
                                             3)})

@@ -9,44 +9,74 @@
 //                                                (+ _emit_entries)
 //   tt_entries_kernel                         <- _tt_entries_kernel
 //                                                (+ _emit_entries)
-//   sub_entries_kernel                        <- _sub_entries_kernel
+//   sub_bits_kernel, sub_entries_kernel       <- _sub_entries_kernel
 //                                                (+ _cummax_lanes,
 //                                                 _emit_entries)
 // all launched there through relation_entries_pallas (pl.pallas_call).
 //
-// VV and VE/VF/VT: row bitmasks (vv_bits_kernel, member_bits_kernel). A VV
-// row is the ascending set of local vertices that share a tet with its
-// vertex; a member row the ascending set of simplices y whose table row
-// holds its vertex. Neither needs a sort: the whole (row, order) relation
-// of one segment fits in shared memory as R = nvl rows of W = ceil(O / 32)
-// words (O = nvl for VV, NY for member; at 96^3 8 KB for VV, 28/40/60 KB
-// for VT/VE/VF). A block zeroes its rows' mask, walks the table once,
-// coalesced, setting bit (row, order) by a shared atomicOr, and emits one
-// row per warp: the lanes count the set bits of the row's words, a warp
+// VV, VE/VF/VT and EF/ET/FT: row bitmasks (vv_bits_kernel,
+// member_bits_kernel, sub_bits_kernel). A VV row is the ascending set of
+// local vertices that share a tet with its vertex; a member row the
+// ascending set of simplices y whose table row holds its vertex; a sub-join
+// row the ascending set of cofaces y that hold every vertex of its subject
+// x. None needs a sort: a block keeps rows [r0, r0 + nr) of one segment's
+// (row, order) relation in shared memory as nr rows of W = ceil(O / 32)
+// words (O = nvl for VV, NY otherwise; at 96^3 a whole VV mask is 8 KB, VT
+// 28 KB, VF 60 KB, FT 215 KB, EF 307 KB). It zeroes its rows' mask, walks
+// the table once, coalesced, setting bit (row, order) by a shared atomicOr,
+// and emits its rows. VV and member rows hold up to deg (64-96) entries:
+// one warp a row, the lanes count the set bits of the row's words, a warp
 // scan gives each word its first rank, and lane d finds the d-th set bit
 // by a search of those ranks and a select in the word, so a row's deg ints
-// go out as contiguous warp stores. Setting a bit is idempotent and
-// commutes, so the blocks do not depend on the order of the atomics and
-// duplicate entries need no pass. What bounds it then: three barrier-
-// separated phases within a block (the sort kernels took some 210 passes
-// for VV at NT = 896), the shared atomics of the walk, and the latency of
-// each warp's row emission. So a segment's rows are split over up to four
-// blocks (the wrapper's bits_row_blocks: two blocks an SM), each walking
-// the whole table, which L2 serves after the first, and keeping only its
-// own rows. The wrapper routes a table here when its mask and the warps'
-// rank rows fit in the per-block opt-in limit (every table the repo's
-// paths build); ids outside [0, nvl) are dropped, and no bit past O is
-// ever set.
+// go out as contiguous warp stores. Setting a bit is
+// idempotent and commutes, so the blocks do not depend on the order of the
+// atomics and duplicate entries need no pass. What bounds it then: three
+// barrier-separated phases within a block (the sort kernels took some 210
+// passes for VV at NT = 896), the shared atomics of the walk, and the
+// latency of each warp's row emission. So a segment's rows are split over
+// several blocks (row shares), each walking the whole table, which L2
+// serves after the first, and keeping only its own rows.
 //
-// The sort route (vv_entries_kernel, member_entries_kernel) serves the
-// tables whose mask does not fit (a mask in device memory would grow as
-// nvl^2): the entry lanes are generated, sorted by a block-wide bitonic
-// network, deduplicated and inverted (emit_entries). VV at NT = 896 sorts
-// E = next_pow2(12 * NT) = 16384 lanes twice, log2(E)*(log2(E)+1)/2 = 105
-// barrier-separated passes a sort; it is bound by those passes and by
-// occupancy (128 KB of lanes a block). The EF/ET/FT arm (sub_entries_kernel)
-// sorts twice as many lanes per segment as it emits rows for (E = 8192 at
-// 96^3), and is bound the same way.
+// The sub-join's walk needs its subjects by key: each block first builds a
+// lookup of the segment's valid x rows in shared memory, sorted vertex key
+// (base nvl, without the sort join's parity bit) -> x, by open addressing
+// over sub_slots(NX) = next_pow2(2 * NX) slots (load at most one half)
+// filled by atomicCAS on the key. The walk then sorts each valid y row's AY
+// ids in registers and probes the key of each of its C(AY, AX) vertex
+// subsets; a hit x among the block's rows sets bit y of row x. A sub-join
+// row holds a few entries (a face lies in at most two tets, an edge in a
+// handful of faces), so one THREAD emits a row (emit_sparse_rows): it
+// walks the row's words in order and writes each set bit's col_global[y],
+// four at a time as int4 stores. On an H100 at 96^3 (B = 64) the
+// warp-per-row emission of the other bitmask kernels took 0.034-0.047 ms
+// (~30 rows a warp, each a chain of scan, search and global load); one
+// thread a row, 1024 threads a block, 0.013-0.017 ms. The rows come out in
+// ascending y, as the sort join's entry key x * NY + y orders them. What
+// bounds it then: each block builds the whole lookup and walks the whole y
+// table, so the wrapper gives a segment as few shares as fill the card in
+// one wave (sub_row_blocks: 2 at B = 64). Tie rule: equal x keys lie
+// outside the arm's precondition (a table lists each simplex once); there
+// the LARGEST x index holds the key (atomicMax on the slot's x), so its
+// row gets every entry and the others none, on every run.
+//
+// Routing (the wrapper's entry_route, decided in Python before the launch):
+// a table takes its bitmask kernel while ONE mask row and the 16 warps'
+// rank rows (VV, member) or the lookup (sub-join) fit the per-block opt-in
+// limit (227 KB); the wrapper then launches max(its share rule, ceil(R /
+// rows that fit)) shares of a segment's R rows. On an H100 that takes
+// every VV table the int32 key guard admits, member tables up to NY =
+// 109,376, and sub-join tables up to NX = 8192 (a 128 KB lookup). Ids
+// outside [0, nvl) are dropped, and no bit past O is ever set.
+//
+// The sort route (vv_entries_kernel, member_entries_kernel,
+// sub_entries_kernel) serves the tables past that, and callers that force
+// it: the entry lanes are generated, sorted by a block-wide bitonic
+// network, deduplicated and inverted (emit_entries); the sub-join first
+// sorts its join lanes and resolves each y lane's x by a running max. VV at
+// NT = 896 sorts E = next_pow2(12 * NT) = 16384 lanes twice,
+// log2(E)*(log2(E)+1)/2 = 105 barrier-separated passes a sort; the
+// sub-join three sorts of E = 8192 lanes at 96^3. Both are bound by those
+// passes and by occupancy (128 KB of lanes a block).
 //
 // TT is designed apart (tt_entries_kernel below). It sorts only its EJ face
 // lanes (4096 at NT = 896) and never inverts a list of entries: under the
@@ -811,6 +841,187 @@ sub_entries_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
                M + (size_t)b * NX * deg, L + (size_t)b * NX);
 }
 
+// EF/ET/FT as a keyed row bitmask (see the header): the block's lookup of
+// the segment's x keys, then one walk of the y table probing each subset
+// key, then one THREAD a row (emit_sparse_rows); kSubThreads threads.
+// tabx is (B, NX, AX), taby (B, NY, AY), colg (B, NY); grid (B, ceil(NX /
+// rows)). Shared memory (sub_bits_smem_ints): the block's mask rows at a
+// stride of Ws = W | 1 words, odd, so that the 32 threads of a warp
+// reading their rows' word w fall in 32 banks; then the lookup's keys and
+// x indices.
+__host__ __device__ __forceinline__ int sub_slots(int NX) {
+  int s = 2;
+  while (s < 2 * NX) s <<= 1;
+  return s;
+}
+
+__host__ __device__ __forceinline__ size_t sub_bits_smem_ints(int rows, int W,
+                                                              int NX) {
+  return (size_t)rows * (W | 1) + 2 * (size_t)sub_slots(NX);
+}
+
+// Fibonacci hashing of a key to one of 2^lg slots.
+__device__ __forceinline__ unsigned sub_hash(int key, int lg) {
+  return ((unsigned)key * 2654435761u) >> (32 - lg);
+}
+
+// f(key) for the sorted vertex key (base nvl) of each AX-id subset of the
+// sorted ids w: pairs (EF, ET) or the triples that omit one id (FT). The
+// loops unroll to register indices; the order does not matter (setting a
+// bit commutes).
+template <int AX, int AY, class F>
+__device__ __forceinline__ void for_subset_keys(const int (&w)[AY], int nvl,
+                                                F f) {
+  static_assert(AX == 2 || (AX == 3 && AY == 4), "EF, ET or FT");
+  if constexpr (AX == 2) {
+#pragma unroll
+    for (int i = 0; i < AY; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < AY; ++j) f(w[i] * nvl + w[j]);
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < AY; ++o) {
+      int k = 0;
+#pragma unroll
+      for (int i = 0; i < AY; ++i) k = i == o ? k : k * nvl + w[i];
+      f(k);
+    }
+  }
+}
+
+// Rows [r0, r0 + nr) of a mask whose rows hold few bits (a subject lies in
+// a handful of cofaces) -> M and L, one thread a row: the thread walks its
+// row's W words in order, writes the value of each set bit while fewer
+// than deg are written, counts the rest by popcount (L is the TRUE count),
+// and pads M with -1. Rows are Ws words apart.
+template <class Value>
+__device__ __forceinline__ void emit_sparse_rows(const unsigned* mask,
+                                                 int r0, int nr, int W,
+                                                 int Ws, int deg,
+                                                 const Value& value, int* M,
+                                                 int* L) {
+  const bool vec = (deg & 3) == 0;     // rows of whole int4 groups
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
+    const unsigned* row = mask + (size_t)r * Ws;
+    int* Mr = M + (size_t)(r0 + r) * deg;
+    int n = 0;
+    int4 q = make_int4(-1, -1, -1, -1);
+    for (int w = 0; w < W; ++w) {
+      unsigned bits = row[w];
+      while (bits != 0u && n < deg) {
+        const int v = value(32 * w + __ffs(bits) - 1);
+        bits &= bits - 1u;
+        if (!vec) {
+          Mr[n++] = v;
+          continue;
+        }
+        const int s = n++ & 3;         // the int4 group fills in registers
+        q.x = s == 0 ? v : q.x;
+        q.y = s == 1 ? v : q.y;
+        q.z = s == 2 ? v : q.z;
+        q.w = s == 3 ? v : q.w;
+        if (s == 3) {
+          reinterpret_cast<int4*>(Mr)[n / 4 - 1] = q;
+          q = make_int4(-1, -1, -1, -1);
+        }
+      }
+      n += __popc(bits);
+    }
+    if (vec) {
+      // the groups past those stored: q (the partial group, whose unset
+      // slots kept their -1), then groups of -1
+      for (int g = min(n, deg) >> 2; g < deg / 4; ++g) {
+        reinterpret_cast<int4*>(Mr)[g] = q;
+        q = make_int4(-1, -1, -1, -1);
+      }
+    } else {
+      for (int d = n; d < deg; ++d) Mr[d] = -1;
+    }
+    L[r0 + r] = n;
+  }
+}
+
+constexpr int kSubThreads = 1024;
+
+template <int AX, int AY>
+__global__ void __launch_bounds__(kSubThreads)
+sub_bits_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
+                const int* __restrict__ colg, int* __restrict__ M,
+                int* __restrict__ L, int NX, int NY, int nvl, int deg,
+                int rows) {
+  extern __shared__ __align__(16) unsigned bits_smem[];
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * rows;
+  const int nr = min(rows, NX - r0);
+  const int W = (NY + 31) >> 5;
+  const int Ws = W | 1;
+  const int S = sub_slots(NX);
+  const int lg = 31 - __clz(S);
+  unsigned* mask = bits_smem;
+  int* hkey = reinterpret_cast<int*>(bits_smem + (size_t)rows * Ws);
+  int* hx = hkey + S;
+  for (int i = threadIdx.x; i < nr * Ws; i += blockDim.x) mask[i] = 0u;
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    hkey[i] = -1;                      // keys are >= 0: -1 is an empty slot
+    hx[i] = -1;
+  }
+  __syncthreads();
+
+  // the lookup: every valid x of the segment, the largest x per key
+  const int* xb = tabx + (size_t)b * NX * AX;
+  for (int x = threadIdx.x; x < NX; x += blockDim.x) {
+    int w[AX];
+#pragma unroll
+    for (int j = 0; j < AX; ++j) w[j] = xb[(size_t)x * AX + j];
+    sort_small<AX>(w);
+    if (w[0] < 0 || w[AX - 1] >= nvl) continue;
+    int key = w[0];
+#pragma unroll
+    for (int j = 1; j < AX; ++j) key = key * nvl + w[j];
+    unsigned h = sub_hash(key, lg);
+    while (true) {
+      const int prev = atomicCAS(&hkey[h], -1, key);
+      if (prev == -1 || prev == key) {
+        atomicMax(&hx[h], x);
+        break;
+      }
+      h = (h + 1) & (S - 1);
+    }
+  }
+  __syncthreads();
+
+  // the walk: each valid y's subsets probed, bit y set in the hit x's row
+  const int* yb = taby + (size_t)b * NY * AY;
+  for (int y = threadIdx.x; y < NY; y += blockDim.x) {
+    int w[AY];
+#pragma unroll
+    for (int j = 0; j < AY; ++j) w[j] = yb[(size_t)y * AY + j];
+    sort_small<AY>(w);
+    if (w[0] < 0 || w[AY - 1] >= nvl) continue;
+    for_subset_keys<AX, AY>(w, nvl, [&](int key) {
+      unsigned h = sub_hash(key, lg);
+      int x = -1;
+      while (true) {
+        const int k = hkey[h];
+        if (k == key) {
+          x = hx[h];
+          break;
+        }
+        if (k == -1) break;
+        h = (h + 1) & (S - 1);
+      }
+      const int r = x - r0;
+      if (x >= 0 && (unsigned)r < (unsigned)nr)
+        atomicOr(&mask[(size_t)r * Ws + (y >> 5)], 1u << (y & 31));
+    });
+  }
+  __syncthreads();
+  emit_sparse_rows(mask, r0, nr, W, Ws, deg,
+                   MemberValue{colg + (size_t)b * NY},
+                   M + (size_t)b * NX * deg, L + (size_t)b * NX);
+}
+
 int threads_for(int E) {
   int t = E / 2;
   if (t < 128) t = 128;
@@ -888,15 +1099,15 @@ extern "C" int sr_member_entries(int device, const void* taby,
 
 namespace {
 
-// Grid and shared memory of a bitmask launch: B segments by ceil(nvl /
-// rows) row shares, mask rows and rank rows of W words.
-cudaError_t bits_launch_shape(const void* fn, int nvl, int W, int rows,
-                              int B, dim3* grid, size_t* bytes) {
-  if (rows < 1 || B < 1 || W < 0) return cudaErrorInvalidValue;
-  const int shares = (nvl + rows - 1) / rows;
+// Grid and shared memory of a bitmask launch: B segments by ceil(R /
+// rows) row shares, ``ints`` of shared memory a block.
+cudaError_t bits_launch_shape(const void* fn, int R, int rows, int B,
+                              size_t ints, dim3* grid, size_t* bytes) {
+  if (rows < 1 || B < 1 || R < 1) return cudaErrorInvalidValue;
+  const int shares = (R + rows - 1) / rows;
   if (shares > 65535) return cudaErrorInvalidValue;
   *grid = dim3(B, shares);
-  *bytes = bits_smem_ints(rows, W) * sizeof(int);
+  *bytes = ints * sizeof(int);
   return allow_smem(fn, *bytes);
 }
 
@@ -909,8 +1120,8 @@ extern "C" int sr_vv_bits(int device, const void* tet, const void* colg,
   if (e != cudaSuccess) return (int)e;
   dim3 grid;
   size_t bytes;
-  e = bits_launch_shape((const void*)vv_bits_kernel, nvl, (nvl + 31) >> 5,
-                        rows, B, &grid, &bytes);
+  e = bits_launch_shape((const void*)vv_bits_kernel, nvl, rows, B,
+                        bits_smem_ints(rows, (nvl + 31) >> 5), &grid, &bytes);
   if (e != cudaSuccess) return (int)e;
   vv_bits_kernel<<<grid, kBitsThreads, bytes, (cudaStream_t)stream>>>(
       (const int*)tet, (const int*)colg, (int*)M, (int*)L, NT, NV, nvl, deg,
@@ -925,8 +1136,8 @@ extern "C" int sr_member_bits(int device, const void* taby, const void* colg,
   if (e != cudaSuccess) return (int)e;
   dim3 grid;
   size_t bytes;
-  e = bits_launch_shape((const void*)member_bits_kernel, nvl, (NY + 31) >> 5,
-                        rows, B, &grid, &bytes);
+  e = bits_launch_shape((const void*)member_bits_kernel, nvl, rows, B,
+                        bits_smem_ints(rows, (NY + 31) >> 5), &grid, &bytes);
   if (e != cudaSuccess) return (int)e;
   member_bits_kernel<<<grid, kBitsThreads, bytes, (cudaStream_t)stream>>>(
       (const int*)taby, (const int*)colg, (int*)M, (int*)L, NY, ay, nvl, deg,
@@ -1000,5 +1211,47 @@ extern "C" int sr_sub_entries(int device, const void* tabx, const void* taby,
   if (ax == 3 && ay == 4)
     return (int)launch_sub<3, 4>(tabx, taby, colg, M, L, work, B, NX, NY,
                                  nvl, deg, E, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <int AX, int AY>
+cudaError_t launch_sub_bits(const void* tabx, const void* taby,
+                            const void* colg, void* M, void* L, int B,
+                            int NX, int NY, int nvl, int deg, int rows,
+                            cudaStream_t s) {
+  const void* fn = (const void*)sub_bits_kernel<AX, AY>;
+  dim3 grid;
+  size_t bytes;
+  cudaError_t e = bits_launch_shape(
+      fn, NX, rows, B, sub_bits_smem_ints(rows, (NY + 31) >> 5, NX), &grid,
+      &bytes);
+  if (e != cudaSuccess) return e;
+  sub_bits_kernel<AX, AY><<<grid, kSubThreads, bytes, s>>>(
+      (const int*)tabx, (const int*)taby, (const int*)colg, (int*)M,
+      (int*)L, NX, NY, nvl, deg, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ax/ay select the arm: (2, 3) EF, (2, 4) ET, (3, 4) FT.
+extern "C" int sr_sub_bits(int device, const void* tabx, const void* taby,
+                           const void* colg, void* M, void* L, int B, int NX,
+                           int ax, int NY, int ay, int nvl, int deg, int rows,
+                           void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ax == 2 && ay == 3)
+    return (int)launch_sub_bits<2, 3>(tabx, taby, colg, M, L, B, NX, NY, nvl,
+                                      deg, rows, s);
+  if (ax == 2 && ay == 4)
+    return (int)launch_sub_bits<2, 4>(tabx, taby, colg, M, L, B, NX, NY, nvl,
+                                      deg, rows, s);
+  if (ax == 3 && ay == 4)
+    return (int)launch_sub_bits<3, 4>(tabx, taby, colg, M, L, B, NX, NY, nvl,
+                                      deg, rows, s);
   return (int)cudaErrorInvalidValue;
 }

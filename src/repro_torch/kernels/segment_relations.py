@@ -11,24 +11,35 @@ batched segments straight from their local tables. Four arms:
                    lane keeps its equal neighbours' tets in two partner
                    slots, and one thread per tet builds its row from its
                    four lanes' slots (no entry inversion);
-  - ``"sub"``    — EF/ET/FT, a sort join of subject keys against the
-                   subset keys of the cofaces.
+  - ``"sub"``    — EF/ET/FT: subject x relates to coface y iff x's sorted
+                   vertex key is the key of one of y's vertex subsets.
 
-VV and member have two routes, chosen in Python before the launch by
+VV, member and sub have two routes, chosen in Python before the launch by
 :func:`entry_route`:
 
-  - ``"bits"``   — ``vv_bits_kernel`` / ``member_bits_kernel``: one
-                   segment's whole ``(row, order)`` relation as a bitmask
-                   in shared memory (``nvl`` rows of ``ceil(O / 32)``
-                   words, O = ``nvl`` for VV and NY for member), set by
-                   atomics in one walk of the table and emitted one warp a
-                   row, with no sort; a segment's rows may be shared by a
-                   few blocks (:func:`bits_row_blocks`). Every table the
-                   repo's paths build takes it;
-  - ``"sort"``   — ``vv_entries_kernel`` / ``member_entries_kernel``: the
-                   entry lanes sorted, deduplicated and inverted in shared
-                   memory (or a device workspace past the limit), for the
-                   tables whose mask does not fit.
+  - ``"bits"``   — ``vv_bits_kernel`` / ``member_bits_kernel`` /
+                   ``sub_bits_kernel``: a share of one segment's ``(row,
+                   order)`` relation as a bitmask in shared memory (rows of
+                   ``ceil(O / 32)`` words, O = ``nvl`` for VV and NY
+                   otherwise), set by atomics in one walk of the table and
+                   emitted one warp a row, with no sort; the sub-join probes
+                   a shared-memory lookup of the segment's subject keys for
+                   each coface subset, and emits its sparse rows one thread
+                   a row. The route holds while one mask row and the
+                   warps' rank rows (VV, member) or the lookup (sub-join)
+                   fit the opt-in limit (:func:`bits_rows_fit`), and a
+                   segment's rows are split over as many blocks as the
+                   share rule (:func:`bits_row_blocks`,
+                   :func:`sub_row_blocks`) or the limit asks
+                   (:func:`bits_shares`). Every table the repo's paths
+                   build takes it;
+  - ``"sort"``   — ``vv_entries_kernel`` / ``member_entries_kernel`` /
+                   ``sub_entries_kernel``: the entry lanes sorted,
+                   deduplicated and inverted in shared memory (or a device
+                   workspace past the limit), for the tables past one row's
+                   limit (member past NY 109,376, the sub-join past NX 8192
+                   on an H100; never VV within its int32 key guard) and for
+                   callers that force it.
 
 They replace the TPU kernels of the reference's
 ``kernels/segment_relations.py`` (``_vv_entries_kernel``,
@@ -38,7 +49,9 @@ arm is :func:`repro_torch.kernels.ops._block_vv` /
 :func:`~repro_torch.kernels.ops._block_member_v` /
 :func:`~repro_torch.kernels.ops._block_tt` /
 :func:`~repro_torch.kernels.ops._block_sub_join`; the kernels, on both
-routes, are bit-identical to it.
+routes, are bit-identical to it within the arms' precondition (for the
+sub-join: each subject key once; past it the bitmask kernel gives every
+entry of a repeated key to its largest subject row).
 
 Two more kernels (``csrc/counts.cu``) compute the count blocks of the dense
 fallback arm, from which ``ops`` builds ``(M, L)`` by predicate and
@@ -54,9 +67,9 @@ allocate the outputs (and, when a sort kernel's lanes exceed the per-block
 shared-memory limit, a lane workspace in device memory), launch on the
 current stream without synchronising, and raise on a refused launch.
 ``LAUNCHES`` counts kernel launches per arm (``"meet"`` and
-``"vv_counts"`` for the two count kernels), and per route for VV and
-member (``"VV_bits"``, ``"VV_sort"``, ``"member_bits"``,
-``"member_sort"``).
+``"vv_counts"`` for the two count kernels), and per route for VV, member
+and sub (``"VV_bits"``, ``"VV_sort"``, ``"member_bits"``,
+``"member_sort"``, ``"sub_bits"``, ``"sub_sort"``).
 """
 
 from __future__ import annotations
@@ -72,7 +85,8 @@ from . import _build
 
 LAUNCHES: Dict[str, int] = {"VV": 0, "VV_bits": 0, "VV_sort": 0,
                              "member": 0, "member_bits": 0, "member_sort": 0,
-                             "TT": 0, "sub": 0, "meet": 0, "vv_counts": 0}
+                             "TT": 0, "sub": 0, "sub_bits": 0, "sub_sort": 0,
+                             "meet": 0, "vv_counts": 0}
 _LAUNCH_LOCK = threading.Lock()
 _SMEM_LIMIT: Dict[int, int] = {}
 _SMS: Dict[int, int] = {}
@@ -107,6 +121,9 @@ def _lib() -> ctypes.CDLL:
         lib.sr_sub_entries.argtypes = [_I, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.sr_sub_entries.restype = _I
+        lib.sr_sub_bits.argtypes = [_I, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        lib.sr_sub_bits.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -170,36 +187,98 @@ _SUB_ARITY = {"EF": (2, 3), "ET": (2, 4), "FT": (3, 4)}
 _BITS_WARPS = 16
 # VE/VF/VT: the member arm
 _MEMBER = ("VE", "VF", "VT")
+# the arms with two routes
+_ROUTED = ("VV", "member", "sub")
 
 
-def bits_smem_bytes(rows: int, O: int) -> int:
-    """Shared memory of one bitmask block, in bytes: ``rows`` mask rows and
-    one rank row per warp, each ``ceil(O / 32)`` words
-    (``bits_smem_ints`` of ``csrc/segment_relations.cu``)."""
-    return 4 * (rows + _BITS_WARPS) * (-(-O // 32))
+def sub_slots(NX: int) -> int:
+    """Slots of the sub-join bitmask block's key lookup: ``next_pow2(2 *
+    NX)``, at least 2, so open addressing runs at a load of at most one
+    half (``sub_slots`` of ``csrc/segment_relations.cu``)."""
+    return max(2, next_pow2(2 * NX))
 
 
-def entry_route(relation: str, nvl: int, NY: int, limit: int) -> str:
-    """The kernel that serves a VV or VE/VF/VT block: ``"bits"`` when one
-    segment's whole bitmask (``nvl`` rows over O = ``nvl`` orders for VV,
-    O = ``NY`` for member; ``NY`` is ignored for VV) and the warps' rank
-    rows fit in ``limit`` bytes of shared memory, ``"sort"`` otherwise."""
+def _row_words(O: int, sub: bool) -> int:
+    """Words a mask row takes: ``ceil(O / 32)``, made odd for the
+    sub-join, whose rows one thread each reads (an odd stride spreads a
+    warp over the 32 banks)."""
+    W = -(-O // 32)
+    return W | 1 if sub else W
+
+
+def bits_smem_bytes(rows: int, O: int, slots: int = 0) -> int:
+    """Shared memory of one bitmask block, in bytes. VV and member
+    (``slots`` 0): ``rows`` mask rows and one rank row per warp, each
+    ``ceil(O / 32)`` words (``bits_smem_ints`` of
+    ``csrc/segment_relations.cu``). The sub-join: ``rows`` mask rows of
+    ``ceil(O / 32) | 1`` words, then ``slots`` lookup slots of a key and an
+    x index (``sub_bits_smem_ints``)."""
+    if slots:
+        return 4 * rows * _row_words(O, True) + 8 * slots
+    return 4 * (rows + _BITS_WARPS) * _row_words(O, False)
+
+
+def _bits_shape(relation: str, nvl: int, NY: int, NX: int
+                ) -> Tuple[int, int, int]:
+    """(rows R, orders O, lookup slots) of one segment's bitmask."""
     if relation == "VV":
-        O = nvl
-    elif relation in _MEMBER:
-        O = NY
-    else:
-        raise KeyError(f"relation {relation!r} has one entry kernel")
-    return "bits" if bits_smem_bytes(nvl, O) <= limit else "sort"
+        return nvl, nvl, 0
+    if relation in _MEMBER:
+        return nvl, NY, 0
+    if relation in _SUB_ARITY:
+        return NX, NY, sub_slots(NX)
+    raise KeyError(f"relation {relation!r} has one entry kernel")
+
+
+def bits_rows_fit(relation: str, nvl: int, NY: int, limit: int,
+                  NX: int = 0) -> int:
+    """Mask rows one bitmask block holds in ``limit`` bytes of shared
+    memory beside its rank rows (VV, VE/VF/VT) or its lookup of the ``NX``
+    subject keys (EF/ET/FT); 0 where not one row fits. ``NY`` is the
+    coface table's rows (ignored for VV), ``NX`` the subject table's
+    (EF/ET/FT only)."""
+    R, O, slots = _bits_shape(relation, nvl, NY, NX)
+    spare = limit - bits_smem_bytes(0, O, slots)
+    if spare < 0:
+        return 0
+    W = _row_words(O, slots > 0)
+    return spare // (4 * W) if W else max(R, 1)
+
+
+def entry_route(relation: str, nvl: int, NY: int, limit: int,
+                NX: int = 0) -> str:
+    """The kernel that serves a VV, VE/VF/VT or EF/ET/FT block:
+    ``"bits"`` while one mask row fits beside the rank rows or the lookup
+    (:func:`bits_rows_fit`), ``"sort"`` otherwise."""
+    return "bits" if bits_rows_fit(relation, nvl, NY, limit, NX) else "sort"
 
 
 def bits_row_blocks(B: int, R: int, sms: int) -> int:
-    """Blocks that share one segment's R rows on the bitmask route: enough
-    for B segments to give each of the card's ``sms`` multiprocessors two
-    blocks, at most four a segment (each block walks the whole table; on
-    an H100 at B = 64, 4 blocks beat 1, 2 and 3, and 6 or 8 gained
-    nothing: ``tools/time_entries.py``)."""
+    """Blocks that share one segment's R rows on the bitmask route, where
+    any count fits: enough for B segments to give each of the card's
+    ``sms`` multiprocessors two blocks, at most four a segment (each block
+    walks the whole table; on an H100 at B = 64, 4 blocks beat 1, 2 and 3,
+    and 6 or 8 gained nothing: ``tools/time_entries.py``)."""
     return max(1, min(4, -(-2 * sms // max(B, 1)), R))
+
+
+def sub_row_blocks(B: int, R: int, sms: int) -> int:
+    """Blocks that share one segment's R subject rows on the sub-join's
+    bitmask route, where any count fits: one 1024-thread block for each of
+    the card's ``sms`` multiprocessors in one wave, ``sms // B`` a segment
+    (each block builds the whole lookup and walks the whole coface table;
+    on an H100 at B = 64, 2 blocks a segment beat 1, 3, 4, 6 and 8 for
+    FT, EF and ET: ``tools/time_entries.py``)."""
+    return max(1, min(sms // max(B, 1), R))
+
+
+def bits_shares(relation: str, B: int, R: int, fit: int, sms: int) -> int:
+    """Blocks a bitmask launch gives each segment's R rows: the share rule
+    (:func:`bits_row_blocks`, :func:`sub_row_blocks` for EF/ET/FT), or
+    more where a block holds only ``fit`` rows (:func:`bits_rows_fit`, at
+    least 1)."""
+    rule = sub_row_blocks if relation in _SUB_ARITY else bits_row_blocks
+    return max(rule(B, R, sms), -(-R // fit))
 
 
 def smem_limit(device: torch.device) -> int:
@@ -261,9 +340,11 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     kernels drop an entry with an id outside it and never write outside
     their mask.
 
-    ``route`` picks the VV or member kernel: ``None`` takes
+    ``route`` picks the VV, member or sub-join kernel: ``None`` takes
     :func:`entry_route`'s choice on this device, ``"bits"`` or ``"sort"``
-    forces one (``"bits"`` raises when the mask does not fit)."""
+    forces one (``"bits"`` raises when not one mask row fits); TT takes
+    ``None``. The bitmask route launches :func:`bits_shares` blocks a
+    segment."""
     for name, t in (("tabX", tabX), ("tabY", tabY)):
         if isinstance(t, torch.Tensor) and t.dim() != 3:
             raise ValueError(f"{name} must be (B, N, arity), got "
@@ -303,10 +384,10 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     if any(t.device != tab.device for t in same):
         raise ValueError("the tables and col_global must share one device")
     if route not in (None, "bits", "sort") or (
-            route is not None and arm not in ("VV", "member")):
+            route is not None and arm not in _ROUTED):
         raise ValueError(f"route={route!r} for relation {relation!r}: "
-                         f"VV and VE/VF/VT take None, 'bits' or 'sort', "
-                         f"the rest None")
+                         f"VV, VE/VF/VT and EF/ET/FT take None, 'bits' or "
+                         f"'sort', TT None")
     per = tt_lane_ints(N, deg) if arm == "TT" else lane_ints(E, R)
     if max(nvl, deg) < 1 or R * deg >= 2 ** 31 or per >= 2 ** 31:
         raise ValueError(f"nvl={nvl}, deg={deg}, {per} lane words out of "
@@ -319,23 +400,31 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     idx = _dev_index(dev)
-    if arm in ("VV", "member"):
-        fits = entry_route(relation, nvl, N, smem_limit(dev))
-        if route == "bits" and fits == "sort":
-            raise ValueError(f"{relation} at nvl={nvl}, N={N}: the bitmask "
-                             f"does not fit in shared memory")
-        route = route or fits
+    if arm in _ROUTED:
+        fit = bits_rows_fit(relation, nvl, NY if arm == "sub" else N,
+                            smem_limit(dev), N if arm == "sub" else 0)
+        if route == "bits" and not fit:
+            raise ValueError(f"{relation} at nvl={nvl}, N={N}: one bitmask "
+                             f"row does not fit in shared memory")
+        route = route or ("bits" if fit else "sort")
     if route == "bits":
-        rows = -(-nvl // bits_row_blocks(B, nvl, _sm_count(idx)))
+        if R == 0:
+            return M, L
+        rows = -(-R // bits_shares(relation, B, R, fit, _sm_count(idx)))
         if arm == "VV":
             rc = lib.sr_vv_bits(idx, tab.data_ptr(), col_global.data_ptr(),
                                 M.data_ptr(), L.data_ptr(), B, N,
                                 col_global.shape[1], nvl, deg, rows, stream)
-        else:
+        elif arm == "member":
             rc = lib.sr_member_bits(idx, tab.data_ptr(),
                                     col_global.data_ptr(), M.data_ptr(),
                                     L.data_ptr(), B, N, a, nvl, deg, rows,
                                     stream)
+        else:
+            rc = lib.sr_sub_bits(idx, tab.data_ptr(), tabY.data_ptr(),
+                                 col_global.data_ptr(), M.data_ptr(),
+                                 L.data_ptr(), B, N, ax, NY, ay, nvl, deg,
+                                 rows, stream)
         _check_rc(lib, rc, f"{arm} bitmask kernel launch")
         _count(arm, f"{arm}_bits")
         return M, L

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
-entry-assembly arm (VV, member, TT, sub-join; VV and member on both the
-bitmask and the sort route, and on each side of the routing limit) at the
+entry-assembly arm (VV, member, TT, sub-join; VV, member and sub-join on
+both the bitmask and the sort route, and on each side of the routing
+limit; the sub-join past its precondition) at the
 main path's shapes and at edge sizes (including lanes too large for shared
 memory), the completion
 gather kernel, the meet and VV count kernels of the dense fallback, the
@@ -95,18 +96,28 @@ def test_kernel_equals_plain_arm(cuda, relation, B, NT, deg, route):
 @pytest.mark.parametrize("relation,nvl,NT", [("VV", 1344, 2000),
                                              ("VV", 1376, 2000),
                                              ("VT", 256, 6816),
-                                             ("VT", 256, 6848)])
+                                             ("VT", 256, 6848),
+                                             ("VT", 8, 110000)])
 def test_entry_route_on_the_card(cuda, relation, nvl, NT):
-    """Tables on each side of the routing limit (on an H100: VV at nvl
-    1344 and VT at NY 6816 fit, nvl 1376 and NY 6848 do not): the
-    wrapper's own choice (``entry_route`` at the card's opt-in limit) runs, equals the plain
-    arm, and moves that route's counter; forcing the bitmask kernel past
-    the limit raises."""
+    """Tables on each side of the old whole-mask limit and past the new
+    one-row limit (on an H100: VV at nvl 1344 and VT at NY 6816 fit whole,
+    nvl 1376 and NY 6848 now take the bitmask route with several shares a
+    segment; VT at NY 110,000 does not fit one row): the wrapper's own
+    choice (``entry_route`` at the card's opt-in limit) runs, equals the
+    plain arm, and moves that route's counter; forcing the bitmask kernel
+    past the limit raises."""
     rng = np.random.default_rng(nvl + NT)
     tab, colg = _entry_inputs(rng, cuda, relation, 2, NT, nvl)
     arm = "VV" if relation == "VV" else "member"
-    route = segment_relations.entry_route(
-        relation, nvl, NT, segment_relations.smem_limit(cuda))
+    limit = segment_relations.smem_limit(cuda)
+    route = segment_relations.entry_route(relation, nvl, NT, limit)
+    assert route == ("sort" if NT == 110000 else "bits")
+    if (nvl, NT) in ((1376, 2000), (256, 6848)):
+        fit = segment_relations.bits_rows_fit(relation, nvl, NT, limit)
+        assert fit < nvl
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert segment_relations.bits_shares(relation, 2, nvl, fit,
+                                             sms) >= 2
     before = dict(segment_relations.LAUNCHES)
     got = ops.relation_block(relation, tab, tab, colg, nvl, deg=32)
     want = ops.relation_block(relation, tab, tab, colg, nvl, deg=32,
@@ -161,10 +172,17 @@ def _sub_tables(rng, tets):
     return out
 
 
-@pytest.mark.parametrize("relation", ["TT", "FT", "EF", "ET"])
+@pytest.mark.parametrize("relation,route", [("TT", None), ("FT", "bits"),
+                                            ("FT", "sort"), ("EF", "bits"),
+                                            ("EF", "sort"), ("ET", "bits"),
+                                            ("ET", "sort")])
 @pytest.mark.parametrize("B,NT,deg", [(1, 1, 8), (2, 127, 2), (64, 896, 16),
                                       (2, 3001, 8)])
-def test_join_kernels_equal_plain_arm(cuda, relation, B, NT, deg):
+def test_join_kernels_equal_plain_arm(cuda, relation, route, B, NT, deg):
+    """TT, and the sub-join on both routes: each launch equals the plain
+    arm and moves its counters, and ``route=None`` takes ``entry_route``'s
+    choice. At NT 3001 the subject tables pass the sub-join's one-row
+    limit (NX > 8192 on an H100), so forcing the bitmask kernel raises."""
     rng = np.random.default_rng(NT)
     nvl = 256
     tabs = _sub_tables(rng, _rand_tets(rng, B, NT, nvl))
@@ -172,15 +190,70 @@ def test_join_kernels_equal_plain_arm(cuda, relation, B, NT, deg):
     ty = torch.from_numpy(tabs[relation[1]]).to(cuda)
     colg = torch.from_numpy(rng.integers(
         0, 10 ** 6, ty.shape[:2]).astype(np.int32)).to(cuda)
-    arm = "TT" if relation == "TT" else "sub"
-    before = segment_relations.LAUNCHES[arm]
-    got = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg)
     want = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
                               backend="torch")
+    if relation == "TT":
+        before = segment_relations.LAUNCHES["TT"]
+        got = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert segment_relations.LAUNCHES["TT"] == before + 1
+        return
+    fits = segment_relations.entry_route(
+        relation, nvl, ty.shape[1], segment_relations.smem_limit(cuda),
+        tx.shape[1])
+    assert fits == ("sort" if NT == 3001 else "bits")
+    if route == "bits" and fits == "sort":
+        with pytest.raises(ValueError, match="does not fit"):
+            segment_relations.relation_entries_cuda(
+                relation, tx, ty, colg, nvl=nvl, deg=deg, route="bits")
+        return
+    for r, call in ((route, lambda: segment_relations.relation_entries_cuda(
+            relation, tx, ty, colg, nvl=nvl, deg=deg, route=route)),
+                    (fits, lambda: ops.relation_block(relation, tx, ty, colg,
+                                                      nvl, deg=deg))):
+        before = dict(segment_relations.LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert segment_relations.LAUNCHES["sub"] == before["sub"] + 1
+        assert segment_relations.LAUNCHES[f"sub_{r}"] == \
+            before[f"sub_{r}"] + 1
+
+
+def test_sub_kernel_is_deterministic_past_its_precondition(cuda):
+    """A subject table that lists one face three times (outside the
+    arm's precondition): the bitmask kernel gives every entry of the key
+    to the largest of the three rows and none to the others, equal blocks
+    on two launches, and the plain arm's rows everywhere else."""
+    rng = np.random.default_rng(41)
+    nvl = 64
+    tabs = _sub_tables(rng, _rand_tets(rng, 2, 300, nvl))
+    tx, ty = tabs["F"].copy(), tabs["T"]
+    tx[:, 40] = tx[:, 3][:, ::-1]
+    tx[:, 90] = tx[:, 3]
+    tx, ty = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+              for a in (tx, ty))
+    colg = torch.from_numpy(rng.integers(
+        0, 10 ** 6, ty.shape[:2]).astype(np.int32)).to(cuda)
+    first = segment_relations.relation_entries_cuda(
+        "FT", tx, ty, colg, nvl=nvl, deg=4, route="bits")
+    again = segment_relations.relation_entries_cuda(
+        "FT", tx, ty, colg, nvl=nvl, deg=4, route="bits")
+    want = ops.relation_block("FT", tx, ty, colg, nvl, deg=4,
+                              backend="torch")
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert segment_relations.LAUNCHES[arm] == before + 1
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    M, L = first
+    assert (L[:, 90] > 0).all() and (L[:, [3, 40]] == 0).all()
+    assert torch.equal(L[:, [3, 40, 90]].sum(1),
+                       want[1][:, [3, 40, 90]].sum(1))
+    rest = [i for i in range(tx.shape[1]) if i not in (3, 40, 90)]
+    for g, w in zip(first, want):
+        assert torch.equal(g[:, rest], w[:, rest])
 
 
 @pytest.mark.parametrize("use_key", [False, True])

@@ -9,6 +9,8 @@ engine's full-block reads, device inverse maps, local-row lookups and
 boundary relations with the reference engine's on one mesh. Inputs are made
 with numpy from a seed and handed to both packages."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -356,17 +358,44 @@ def _popcount(x):
                          axis=-1).sum(-1).astype(np.int64)
 
 
+def _emit_bit_rows(mask, values, deg):
+    """Mask rows -> ``(M, L)`` as ``emit_bit_rows`` emits them: each
+    word's popcount, their exclusive scan along the row (each word's first
+    rank), ``L`` the row's total, and ``M[r, d]`` for ``d < min(L, deg)``
+    the value of rank ``d``'s order: the last word whose first rank is
+    ``<= d``, its ``(d - first)``-th set bit; ``-1`` past. ``values``
+    maps an order array to M's values."""
+    R, W = mask.shape
+    count = _popcount(mask)                                   # (R, W)
+    first = np.cumsum(count, axis=1) - count                  # exclusive
+    L = count.sum(1).astype(np.int32)
+    d = np.arange(deg)
+    live = d[None, :] < np.minimum(L, deg)[:, None]           # (R, deg)
+    word = (first[:, None, :] <= d[None, :, None]).sum(-1) - 1
+    word = word.clip(0, max(W - 1, 0))
+    r = np.arange(R)[:, None]
+    if W:
+        o = word * 32 + _select_bit(mask[r, word], d[None, :]
+                                    - first[r, word])
+    else:
+        o = np.zeros((R, deg), dtype=np.int64)
+    return np.where(live, values(o), -1).astype(np.int32), L
+
+
+def _set_bits(mask, rows, orders):
+    rows, orders = rows.astype(np.int64), orders.astype(np.int64)
+    np.bitwise_or.at(mask, (rows, orders >> 5),
+                     (np.uint32(1) << (orders & 31).astype(np.uint32)))
+
+
 def _bits_rows(relation, tab, col_global, nvl, deg):
     """What ``vv_bits_kernel`` / ``member_bits_kernel`` compute, step for
     step. The mask: ``nvl`` rows of ``W = ceil(O / 32)`` uint32 words (bit
     ``j`` of word ``w`` is order ``32 * w + j``; O = ``nvl`` for VV, NY for
     member), OR-ed from one walk of the table with ids outside ``[0, nvl)``
     dropped: VV a tet's 12 ordered pairs ``(va, vb)``, member each slot
-    ``v`` of row ``y``. Then each word's popcount, their exclusive scan
-    along the row (each word's first rank), ``L`` the row's total, and
-    ``M[r, d]`` for ``d < min(L, deg)`` the value of rank ``d``'s order:
-    the last word whose first rank is ``<= d``, its ``(d - first)``-th set
-    bit; ``-1`` past."""
+    ``v`` of row ``y``. Then the rows as :func:`_emit_bit_rows` emits
+    them."""
     B, N, a = tab.shape
     O = nvl if relation == "VV" else N
     W = -(-O // 32)
@@ -382,28 +411,16 @@ def _bits_rows(relation, tab, col_global, nvl, deg):
             rows = tab[b].reshape(-1)
             orders = np.repeat(np.arange(N), a)
             ok = (rows >= 0) & (rows < nvl)
-        rows, orders = rows[ok].astype(np.int64), orders[ok].astype(np.int64)
-        np.bitwise_or.at(mask, (rows, orders >> 5),
-                         (np.uint32(1) << (orders & 31).astype(np.uint32)))
-        count = _popcount(mask)                               # (nvl, W)
-        first = np.cumsum(count, axis=1) - count              # exclusive
-        L[b] = count.sum(1)
-        d = np.arange(deg)
-        live = d[None, :] < np.minimum(L[b], deg)[:, None]    # (nvl, deg)
-        word = (first[:, None, :] <= d[None, :, None]).sum(-1) - 1
-        word = word.clip(0, max(W - 1, 0))
-        r = np.arange(nvl)[:, None]
-        if W:
-            o = word * 32 + _select_bit(mask[r, word], d[None, :]
-                                        - first[r, word])
-        else:
-            o = np.zeros((nvl, deg), dtype=np.int64)
+        _set_bits(mask, rows[ok], orders[ok])
         colg = col_global[b]
         if relation == "VV":
-            val = np.where(o < len(colg), colg[o.clip(max=len(colg) - 1)], 0)
+            def values(o, colg=colg):
+                return np.where(o < len(colg),
+                                colg[o.clip(max=len(colg) - 1)], 0)
         else:
-            val = colg[o.clip(max=max(N - 1, 0))] if N else o
-        M[b] = np.where(live, val, -1)
+            def values(o, colg=colg):
+                return colg[o.clip(max=max(N - 1, 0))] if N else o
+        M[b], L[b] = _emit_bit_rows(mask, values, deg)
     return M, L
 
 
@@ -466,28 +483,284 @@ def test_bits_rows_on_the_meshgen_datasets(name):
         assert got[1].max() > 0
 
 
+# -- the sub-join's keyed bitmask, in numpy ---------------------------------
+
+_SUB_ARITY = {"EF": (2, 3), "ET": (2, 4), "FT": (3, 4)}
+
+
+def _sub_hash(key, lg):
+    return ((key * 2654435761) & 0xffffffff) >> (32 - lg)
+
+
+def _sorted_key(ids, nvl):
+    key = 0
+    for v in ids:
+        key = key * nvl + int(v)
+    return key
+
+
+def _emit_sparse_rows(mask, values, deg):
+    """Mask rows -> ``(M, L)`` as ``emit_sparse_rows`` emits them, one
+    row at a time: the row's words in order, each set bit's value written
+    while fewer than ``deg`` are, the rest counted by popcount (``L`` the
+    TRUE count), ``-1`` past."""
+    R, W = mask.shape
+    M = np.full((R, deg), -1, dtype=np.int32)
+    L = np.zeros(R, dtype=np.int32)
+    for r in range(R):
+        n = 0
+        for w in range(W):
+            bits = int(mask[r, w])
+            while bits and n < deg:
+                low = bits & -bits
+                M[r, n] = values(np.array(32 * w + low.bit_length() - 1))
+                n += 1
+                bits ^= low
+            n += bin(bits).count("1")
+        L[r] = n
+    return M, L
+
+
+def _sub_bits_rows(relation, tx, ty, col_global, nvl, deg, order=None):
+    """What ``sub_bits_kernel`` computes, step for step. The lookup:
+    ``segment_relations.sub_slots(NX)`` slots of (key, x), filled in
+    ``order`` (default ascending x) by linear probing from the Fibonacci
+    hash of each valid x's sorted vertex key (base ``nvl``); a key already
+    held keeps the larger x. The walk: each valid y row's ids sorted, the
+    key of each of its ``C(ay, ax)`` subsets (``itertools.combinations``
+    order) probed until the key or an empty slot; a hit sets bit y of row
+    x. A row is valid when every id lies in ``[0, nvl)``. Then the rows
+    as :func:`_emit_sparse_rows` emits them, with ``col_global[y]``."""
+    ax, ay = _SUB_ARITY[relation]
+    B, NX, _ = tx.shape
+    NY = ty.shape[1]
+    S = segment_relations.sub_slots(NX)
+    lg = S.bit_length() - 1
+    W = -(-NY // 32)
+    M = np.full((B, NX, deg), -1, dtype=np.int32)
+    L = np.zeros((B, NX), dtype=np.int32)
+    for b in range(B):
+        hkey = np.full(S, -1, dtype=np.int64)
+        hx = np.full(S, -1, dtype=np.int64)
+        for x in (range(NX) if order is None else order):
+            w = np.sort(tx[b, x])
+            if w[0] < 0 or w[-1] >= nvl:
+                continue
+            key = _sorted_key(w, nvl)
+            h = _sub_hash(key, lg)
+            while hkey[h] not in (-1, key):
+                h = (h + 1) & (S - 1)
+            hkey[h], hx[h] = key, max(hx[h], x)
+        mask = np.zeros((NX, W), dtype=np.uint32)
+        rows, orders = [], []
+        for y in range(NY):
+            w = np.sort(ty[b, y])
+            if w[0] < 0 or w[-1] >= nvl:
+                continue
+            for comb in itertools.combinations(range(ay), ax):
+                key = _sorted_key(w[list(comb)], nvl)
+                h = _sub_hash(key, lg)
+                while hkey[h] not in (-1, key):
+                    h = (h + 1) & (S - 1)
+                if hkey[h] == key:
+                    rows.append(hx[h])
+                    orders.append(y)
+        _set_bits(mask, np.array(rows, dtype=np.int64),
+                  np.array(orders, dtype=np.int64))
+        colg = col_global[b]
+        M[b], L[b] = _emit_sparse_rows(mask, lambda o, colg=colg: colg[o],
+                                       deg)
+    return M, L
+
+
+def _holes(rng, tab):
+    tab = tab.copy()
+    tab[rng.random(tab.shape) < 0.1] = -1
+    return tab
+
+
+@pytest.mark.parametrize("seed,nvl,holes", [(0, 31, False), (1, 32, True),
+                                            (2, 33, False)])
+@pytest.mark.parametrize("relation", ["EF", "ET", "FT"])
+def test_sub_bits_rows_equal_the_blocks(relation, seed, nvl, holes):
+    """Random segment tables (the edges and faces of a grid's tets, so a
+    subject has several cofaces; -1 padding rows; NX and NY of 116/78/21,
+    not multiples of 32; with ``holes``, -1 slots inside rows): the keyed
+    bitmask design gives the plain arm's block and the reference's xla
+    block, at the default width and at one below the true counts."""
+    rng = np.random.default_rng(seed)
+    tabs = _segment_tables(rng, 3, 19, nvl, pad=2)
+    tx, ty, colg = _inputs(relation, tabs, rng)
+    if holes:
+        tx, ty = _holes(rng, tx), _holes(rng, ty)
+    for deg in (ops.DEFAULT_DEG[relation], 1):
+        got = _sub_bits_rows(relation, tx, ty, colg, nvl, deg)
+        _assert_blocks_equal(ops.relation_block(
+            relation, _t(tx), _t(ty), _t(colg), nvl, deg=deg), got)
+        for w, g in zip(ref_ops.relation_block(relation, tx, ty, colg, nvl,
+                                               deg=deg, backend="xla"), got):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert (got[1] > 1).any()          # the TRUE counts past deg 1
+
+
+@pytest.mark.parametrize("relation", ["EF", "ET", "FT"])
+def test_sub_bits_rows_equal_the_pallas_kernel(relation):
+    """The shape of ``test_join_blocks_equal_the_pallas_kernels`` (one
+    interpret-mode compile each): the keyed bitmask design gives the
+    reference's Pallas sub-join block."""
+    rng = np.random.default_rng(7)
+    nvl = 27
+    tabs = _segment_tables(rng, 2, 5, nvl, pad=1)
+    tx, ty, colg = _inputs(relation, tabs, rng)
+    deg = ops.DEFAULT_DEG[relation]
+    got = _sub_bits_rows(relation, tx, ty, colg, nvl, deg)
+    for w, g in zip(relation_entries_pallas(relation, tx, ty, colg, nvl=nvl,
+                                            deg=deg, interpret=True), got):
+        np.testing.assert_array_equal(np.asarray(w), g)
+    assert got[1].max() > 0
+
+
+@pytest.mark.parametrize("name", ["engine", "foot", "fish", "bar"])
+def test_sub_bits_rows_on_the_meshgen_datasets(name):
+    """The port's datasets, segmented and preconditioned: every segment's
+    EF/ET/FT block from the keyed bitmask design equals the plain arm's
+    and the reference's xla arm's (NE 1024-1280, NF 1536-1792, NT 768 at
+    capacity 64)."""
+    from repro_torch.core.mesh import segment_mesh
+    from repro_torch.core.segtables import precondition
+    from repro_torch.data.meshgen import load_dataset
+
+    rels = ["EF", "ET", "FT"]
+    pre = precondition(segment_mesh(load_dataset(name), capacity=64), rels)
+    t, nvl = pre.tables, pre.tables.NV
+    tables = {"E": t.E_local, "F": t.F_local, "T": t.T_local}
+    maps = {"F": t.LF_global, "T": t.LT_global}
+    for relation in rels:
+        tx, ty = tables[relation[0]][:4], tables[relation[1]][:4]
+        colg = maps[relation[1]][:4]
+        deg = ops.DEFAULT_DEG[relation]
+        got = _sub_bits_rows(relation, tx, ty, colg, nvl, deg)
+        _assert_blocks_equal(ops.relation_block(
+            relation, _t(tx), _t(ty), _t(colg), nvl, deg=deg), got)
+        for w, g in zip(ref_ops.relation_block(relation, tx, ty, colg, nvl,
+                                               deg=deg, backend="xla"), got):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert got[1].max() > 0
+
+
+def test_sub_bits_tie_rule_on_a_repeated_subject_key():
+    """Equal subject keys lie outside the arm's precondition. There the
+    keyed bitmask gives every entry of the key to its LARGEST subject row
+    and none to the others, whatever the order the lookup is filled in;
+    every other row equals the plain arm's, and the repeated rows hold
+    together what the plain arm's hold."""
+    rng = np.random.default_rng(5)
+    nvl = 31
+    tabs = _segment_tables(rng, 2, 19, nvl, pad=2)
+    tx, ty, colg = _inputs("FT", tabs, rng)
+    tx = tx.copy()
+    tx[:, 40] = tx[:, 3][:, ::-1]            # face 3 again, slots reversed
+    tx[:, 60] = tx[:, 3]
+    deg = ops.DEFAULT_DEG["FT"]
+    got = _sub_bits_rows("FT", tx, ty, colg, nvl, deg)
+    again = _sub_bits_rows("FT", tx, ty, colg, nvl, deg,
+                           order=rng.permutation(tx.shape[1]))
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g, a)
+    assert (got[1][:, 60] > 0).all()
+    assert (got[1][:, [3, 40]] == 0).all()
+    assert (got[0][:, [3, 40]] == -1).all()
+    want = [w.numpy() for w in ops.relation_block(
+        "FT", _t(tx), _t(ty), _t(colg), nvl, deg=deg)]
+    rest = np.setdiff1d(np.arange(tx.shape[1]), [3, 40, 60])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[:, rest], w[:, rest])
+    np.testing.assert_array_equal(got[1][:, [3, 40, 60]].sum(1),
+                                  want[1][:, [3, 40, 60]].sum(1))
+    for b in range(2):
+        held = want[0][b, [3, 40, 60]]
+        np.testing.assert_array_equal(got[0][b, 60], held[held[:, 0] >= 0][0])
+
+
 def test_entry_route_on_both_sides_of_the_limit():
-    """``entry_route`` takes the bitmask kernel exactly while one
-    segment's mask and the 16 warps' rank rows fit the given limit:
-    ``4 * (nvl + 16) * ceil(O / 32)`` bytes, O = nvl for VV and NY for
-    VE/VF/VT."""
+    """``entry_route`` takes the bitmask kernel exactly while ONE mask row
+    fits the given limit: VV and VE/VF/VT beside the 16 warps' rank rows
+    (``4 * (1 + 16) * ceil(O / 32)`` bytes, O = nvl for VV and NY
+    otherwise), EF/ET/FT (rows of ``ceil(NY / 32) | 1`` words) beside the
+    lookup of the NX subject keys (8 bytes a slot, ``next_pow2(2 * NX)``
+    slots); the wrapper then gives each segment ``bits_shares`` blocks,
+    more than the share rule where fewer would not fit."""
     route, size = segment_relations.entry_route, \
         segment_relations.bits_smem_bytes
+    fit, shares = segment_relations.bits_rows_fit, \
+        segment_relations.bits_shares
+    slots = segment_relations.sub_slots
     assert size(256, 256) == 4 * 272 * 8
     assert size(256, 1920) == 4 * 272 * 60 and size(256, 1921) == \
         4 * 272 * 61
-    for relation, nvl, NY in (("VV", 256, 0), ("VV", 33, 5), ("VT", 256, 896),
-                              ("VF", 256, 1920), ("VE", 31, 1281)):
-        need = size(nvl, nvl if relation == "VV" else NY)
-        assert route(relation, nvl, NY, need) == "bits"
-        assert route(relation, nvl, NY, need - 1) == "sort"
+    assert size(1, 896, slots(1920)) == 4 * 29 + 8 * 4096
+    assert size(3, 1920, slots(1280)) == 4 * 3 * 61 + 8 * 4096
+    assert [slots(n) for n in (0, 1, 2, 3, 1280, 1920, 8192, 8193)] == \
+        [2, 2, 4, 8, 4096, 4096, 16384, 32768]
+    for relation, nvl, NY, NX in (("VV", 256, 0, 0), ("VV", 33, 5, 0),
+                                  ("VT", 256, 896, 0), ("VF", 256, 1920, 0),
+                                  ("VE", 31, 1281, 0), ("FT", 31, 896, 1920),
+                                  ("EF", 31, 1921, 1280), ("ET", 7, 5, 3)):
+        O = nvl if relation == "VV" else NY
+        one = size(1, O, slots(NX) if relation in _SUB_ARITY else 0)
+        assert route(relation, nvl, NY, one, NX) == "bits"
+        assert fit(relation, nvl, NY, one, NX) == 1
+        assert route(relation, nvl, NY, one - 1, NX) == "sort"
+        assert fit(relation, nvl, NY, one - 1, NX) == 0
+        # a whole segment's mask: every row in one block
+        R = NX if relation in _SUB_ARITY else nvl
+        whole = size(R, O, slots(NX) if relation in _SUB_ARITY else 0)
+        assert fit(relation, nvl, NY, whole, NX) == R
     h100 = 232448                          # the opt-in limit of an H100
-    for relation, NY in (("VV", 896), ("VE", 1280), ("VF", 1920),
-                         ("VT", 896)):     # the 96^3 tables
-        assert route(relation, 256, NY, h100) == "bits"
-    assert route("VV", 1344, 0, h100) == "bits"
-    assert route("VV", 1376, 0, h100) == "sort"
-    assert route("VT", 1664, 7680, h100) == "sort"
+    for relation, NY, NX in (("VV", 896, 0), ("VE", 1280, 0),
+                             ("VF", 1920, 0), ("VT", 896, 0),
+                             ("EF", 1920, 1280), ("ET", 896, 1280),
+                             ("FT", 896, 1920)):     # the 96^3 tables
+        assert route(relation, 256, NY, h100, NX) == "bits"
+    # masks past the limit now take row shares: VV at nvl 1376 (1335 rows
+    # a block) and VT at NY 7680 (226 rows a block), and the capacity-1024
+    # tables (NV 2048, NT 8576: 892 and 200 rows a block)
+    for relation, nvl, NY, rows in (("VV", 1344, 0, 1367),
+                                    ("VV", 1376, 0, 1335),
+                                    ("VT", 1664, 7680, 226),
+                                    ("VV", 2048, 0, 892),
+                                    ("VT", 2048, 8576, 200)):
+        assert route(relation, nvl, NY, h100) == "bits"
+        assert fit(relation, nvl, NY, h100) == rows
+    assert shares("VV", 64, 1376, 1335, 132) == 4
+    assert shares("VT", 2, 1664, 226, 132) == 8
+    assert shares("VV", 64, 2048, 892, 132) == 4
+    assert shares("VT", 64, 2048, 200, 132) == 11
+    # the single-row limits on an H100: member NY 109,376 (VV never passes
+    # it within the int32 key guard, nvl < 46,341), the sub-join NX 8192
+    # (a 128 KB lookup) at NY 810,976
+    assert route("VT", 256, 109376, h100) == "bits"
+    assert route("VT", 256, 109377, h100) == "sort"
+    assert route("VV", 46340, 0, h100) == "bits"
+    assert shares("VV", 64, 46340, fit("VV", 46340, 0, h100), 132) <= 65535
+    assert route("FT", 256, 896, h100, 8192) == "bits"
+    assert route("FT", 256, 896, h100, 8193) == "sort"
+    assert route("FT", 256, 810976, h100, 8192) == "bits"
+    assert route("FT", 256, 810977, h100, 8192) == "sort"
+    # at 96^3, B = 64: FT and EF need two shares at least, ET one; the
+    # sub-join's rule gives each of 132 SMs one block (132 // B a segment)
+    assert fit("FT", 256, 896, h100, 1920) == 1721
+    assert fit("EF", 256, 1920, h100, 1280) == 818
+    assert fit("ET", 256, 896, h100, 1280) == 1721
+    for relation, R, rows in (("FT", 1920, 1721), ("EF", 1280, 818),
+                              ("ET", 1280, 1721)):
+        assert shares(relation, 64, R, rows, 132) == 2
+    assert shares("EF", 64, 1280, 300, 132) == 5      # fewer would not fit
+    sub_blocks = segment_relations.sub_row_blocks
+    assert [sub_blocks(B, 1920, 132) for B in (1, 2, 32, 64, 66, 67, 133,
+                                               500)] == \
+        [132, 66, 4, 2, 2, 1, 1, 1]
+    assert sub_blocks(1, 5, 132) == 5
     with pytest.raises(KeyError):
         route("TT", 256, 896, h100)
     # row shares: two blocks for each of 132 SMs, at most 4 a segment

@@ -1,7 +1,9 @@
-"""Time the VV and VE/VF/VT entry kernels of one tree of the port on one
-NVIDIA card, three ways, at the shapes of ``PERF.md``'s rows 1 and 2.
+"""Time the VV, VE/VF/VT and EF/ET/FT entry kernels of one tree of the port
+on one NVIDIA card, three ways, at the shapes of ``PERF.md``'s rows 1, 2
+and 4.
 
-    PYTHONPATH=src python tools/time_entries.py [--n 96] [--tag NAME]
+    PYTHONPATH=src python tools/time_entries.py [--n 96] [--big]
+        [--rels VV,VE,VF,VT,EF,ET,FT] [--tag NAME]
 
 The tree is whichever ``repro_torch`` the ``PYTHONPATH`` names, so two
 commits compare in one call: unpack the parent into a directory that
@@ -10,14 +12,21 @@ parent, each with ``PYTHONPATH=<tree>/src``. The timing helpers come from
 this checkout's ``chip_smoke.py``.
 
 Inputs: ``structured_grid(n, n, n)`` with the quickstart's field,
-``segment_mesh(capacity=64)``, ``precondition(["VV", "VE", "VF", "VT"])``;
+``segment_mesh(capacity=64)``, ``precondition`` of the seven relations;
 the first 64 segments' tables (NV 256, NE 1280, NF 1920, NT 896 at n = 48
-and at n = 96), each relation at its default width. A tree whose wrapper
-routes (``entry_route``) is timed on both routes, and the bitmask route
-with its rows shared by 1 to 8 blocks a segment; an older tree on its one
-kernel. Each by ``time_ms`` (the eager CUDA-event loop), ``graph_ms``
-(CUDA-graph replay) and the profiler's kernel time. Prints one JSON line
-with the card's name and power limit.
+and at n = 96), each relation at its default width. With ``--big``, also
+the 48^3 mesh at ``segment_mesh(capacity=1024)`` (NV 2048, NT 8576), VV
+and VT, and that mesh's critical-points path on the kernels (three runs
+after a warm-up: wall, ``t_sync``, ``t_kernel``, launches). Each arm that
+the tree routes (``entry_route``; the sub-join where ``LAUNCHES`` counts
+``"sub_bits"``) is timed on both routes, the bitmask route with each
+segment's rows shared by 1 to 8 blocks (up to 22 on the capacity-1024
+tables), each share count as the wrapper launches it (``bits_shares``:
+never fewer than fit); an arm the tree does not route on its one
+kernel. Each by ``time_ms`` (the eager CUDA-event loop),
+``graph_ms`` (CUDA-graph replay) and the profiler's kernel time, after a
+check that the blocks equal the plain arm's. Prints one JSON line with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -36,10 +45,96 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 from time_tt_gather import three_ways  # noqa: E402
 
+RELS = ["VV", "VE", "VF", "VT", "EF", "ET", "FT"]
+SHARES = (1, 2, 3, 4, 6, 8)
+BIG_SHARES = SHARES + (11, 12, 16, 22)
+
+
+def cases(tables, rels):
+    """relation -> (subject table, coface table, column map): VV the tets
+    twice with the vertex map; member the vertex table and the coface
+    table; the sub-join its two tables."""
+    t = tables
+    tab = {"V": t.table("V")[0], "E": t.E_local, "F": t.F_local,
+           "T": t.T_local}
+    glob = {"V": t.LV_global, "E": t.LE_global, "F": t.LF_global,
+            "T": t.LT_global}
+    out = {}
+    for rel in rels:
+        if rel == "VV":
+            out[rel] = (tab["T"], tab["T"], glob["V"])
+        else:
+            out[rel] = (tab[rel[0]], tab[rel[1]], glob[rel[1]])
+    return out
+
+
+def time_arm(sr, ops, dev, relation, tx, ty, colg, nvl, shares):
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a[:64])).to(dev)
+    tx, ty, colg = cu(tx), cu(ty), cu(colg)
+    deg = ops.DEFAULT_DEG[relation]
+    want = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
+                              backend="torch")
+    sub = relation in ("EF", "ET", "FT")
+    routed = (hasattr(sr, "entry_route") and not sub) or \
+        (sub and "sub_bits" in sr.LAUNCHES)
+    launch = (lambda route=None: sr.relation_entries_cuda(
+        relation, tx, ty, colg, nvl=nvl, deg=deg,
+        **({"route": route} if route else {})))
+
+    def checked(fn, what):
+        got = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"{relation}: {what} disagrees with the plain "
+                             f"arm")
+
+    if not routed:
+        checked(launch, "the kernel")
+        return {"kernel": three_ways(launch, "_entries")}
+    row = {}
+    checked(lambda: launch("sort"), "the sort kernel")
+    row["sort"] = three_ways(lambda: launch("sort"), "_entries")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    limit = sr.smem_limit(dev)
+    if hasattr(sr, "bits_rows_fit"):
+        R = tx.shape[1] if sub else nvl
+        fit = sr.bits_rows_fit(relation, nvl, ty.shape[1], limit,
+                               tx.shape[1] if sub else 0)
+        if not fit:
+            return row
+        plan = lambda k: sr.bits_shares(relation, tx.shape[0], R, fit, sms)
+    else:
+        if sr.entry_route(relation, nvl, ty.shape[1], limit) != "bits":
+            return row
+        plan = lambda k: k or sr.bits_row_blocks(tx.shape[0], nvl, sms)
+    # the tree's share rule, replaced by each forced count in turn
+    rule = "sub_row_blocks" if sub and hasattr(sr, "sub_row_blocks") \
+        else "bits_row_blocks"
+    chosen = getattr(sr, rule)
+    row["bits_shares_chosen"] = plan(None)
+    done = set()
+    try:
+        for blocks in shares:
+            setattr(sr, rule, lambda B, R, sms, k=blocks: k)
+            got = plan(blocks)
+            if got in done:
+                continue
+            done.add(got)
+            checked(lambda: launch("bits"), f"the bitmask kernel at {got} "
+                                            f"blocks a segment")
+            row[f"bits_{got}"] = three_ways(lambda: launch("bits"), "_bits")
+    finally:
+        setattr(sr, rule, chosen)
+    return row
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96)
+    ap.add_argument("--big", action="store_true",
+                    help="also the 48^3 mesh at capacity 1024 (VV, VT)")
+    ap.add_argument("--rels", default=",".join(RELS),
+                    help="the relations timed at capacity 64")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,51 +150,44 @@ def main() -> int:
     dev = torch.device("cuda")
     n = args.n
     t0 = time.perf_counter()
-    sm = segment_mesh(structured_grid(n, n, n, scalar_fn=fields.gaussians(
-        0, k=4, sigma=3.0, scale=n)), capacity=64)
-    pre = precondition(sm, ["VV", "VE", "VF", "VT"])
+    mesh = lambda n: structured_grid(n, n, n, scalar_fn=fields.gaussians(
+        0, k=4, sigma=3.0, scale=n))
+    pre = precondition(segment_mesh(mesh(n), capacity=64), RELS)
     t = pre.tables
     out = {"tag": args.tag, "card": chip_smoke.nvidia_smi(), "n": n,
            "NV": t.NV, "NE": t.NE, "NF": t.NF, "NT": t.NT,
            "setup_s": round(time.perf_counter() - t0, 3)}
-    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a[:64])).to(dev)
-    cases = {"VV": (t.T_local, t.LV_global), "VE": (t.E_local, t.LE_global),
-             "VF": (t.F_local, t.LF_global), "VT": (t.T_local, t.LT_global)}
-    routed = hasattr(sr, "entry_route")
-    for relation, (tab, colg) in cases.items():
-        tab, colg = cu(tab), cu(colg)
-        deg = ops.DEFAULT_DEG[relation]
-        want = ops.relation_block(relation, tab, tab, colg, t.NV, deg=deg,
-                                  backend="torch")
-        row = {}
-        if not routed:
-            row["kernel"] = three_ways(lambda: sr.relation_entries_cuda(
-                relation, tab, tab, colg, nvl=t.NV, deg=deg), "_entries")
-            out[relation] = row
-            continue
-        row["sort"] = three_ways(lambda: sr.relation_entries_cuda(
-            relation, tab, tab, colg, nvl=t.NV, deg=deg, route="sort"),
-            "_entries")
-        chosen = sr.bits_row_blocks
-        try:
-            for blocks in (1, 2, 3, 4, 6, 8):
-                sr.bits_row_blocks = lambda B, R, sms, k=blocks: k
-                fn = (lambda: sr.relation_entries_cuda(
-                    relation, tab, tab, colg, nvl=t.NV, deg=deg,
-                    route="bits"))
-                got = fn()
-                torch.cuda.synchronize()
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    raise SystemExit(f"{relation}: the bitmask kernel at "
-                                     f"{blocks} blocks a segment disagrees "
-                                     f"with the plain arm")
-                row[f"bits_{blocks}"] = three_ways(fn, "_bits")
-        finally:
-            sr.bits_row_blocks = chosen
-        row["bits_blocks_chosen"] = chosen(64, t.NV, torch.cuda
-                                           .get_device_properties(dev)
-                                           .multi_processor_count)
-        out[relation] = row
+    for relation, (tx, ty, colg) in cases(t, args.rels.split(",")).items():
+        out[relation] = time_arm(sr, ops, dev, relation, tx, ty, colg, t.NV,
+                                 SHARES)
+    if args.big:
+        bpre = precondition(segment_mesh(mesh(48), capacity=1024),
+                            ["VV", "VT"])
+        bt = bpre.tables
+        big = {"NV": bt.NV, "NT": bt.NT}
+        for relation, (tx, ty, colg) in cases(bt, ["VV", "VT"]).items():
+            big[relation] = time_arm(sr, ops, dev, relation, tx, ty, colg,
+                                     bt.NV, BIG_SHARES)
+        from repro_torch.algorithms.critical_points import \
+            critical_points, total_order
+        from repro_torch.core.engine import RelationEngine
+
+        rank = total_order(bpre.smesh.scalars)
+        runs = []
+        for i in range(4):                       # the first is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = RelationEngine(bpre, ["VV", "VT"], lookahead=8,
+                                 device="cuda")
+            critical_points(eng, bpre, rank)
+            torch.cuda.synchronize()
+            if i:
+                runs.append({"wall_s": time.perf_counter() - t0,
+                             "t_sync_s": eng.stats.t_sync,
+                             "t_kernel_s": eng.stats.t_kernel,
+                             "launches": eng.stats.kernel_launches})
+        big["critical_points_path"] = runs
+        out["capacity_1024"] = big
     print(json.dumps(out), flush=True)
     return 0
 
