@@ -7,8 +7,8 @@ Phases, one JSON line each:
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
      together, sm_90a) with its ptxas report, and the registers, shared
-     memory and spills of the VV, member, TT, sub-join and gather kernels
-     by entry function.
+     memory and spills of the VV, member, TT, sub-join, gather and mma
+     flash kernels by entry function.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
      VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
@@ -72,21 +72,27 @@ Phases, one JSON line each:
      face sample, equal on the kernels and the plain arm at 96^3; then
      the whole audit + persistence path on both arms at 48^3, corrupted
      audit and FF rows included, against the 48^3 pins.
-  9. flash attention: both kernels held against their plain version
+  9. flash attention: the kernels held against their plain version
      (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
-     routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256,
-     ``flash_fwd_kernel`` for the rest), causal and unmasked, at head dims
-     64/80/128/256 with GQA 8/1 and 28/4 and MHA, ragged S and T in both
-     orders, S=1, strided views, and the qwen2-7b prefill shape (B 4, S
-     4096, H 28, KV 4, hd 128, bf16), where the wgmma kernel is timed
-     beside the SIMT kernel on the same inputs, one
-     ``scaled_dot_product_attention`` call, the plain version and its
-     bound; the SIMT kernel is timed again at its own main path's shape
-     (the float32 S=2048 pin of phase 10).
+     routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256 on
+     layouts TMA reads, ``flash_fwd_mma`` for every float32 input and the
+     other bf16 ones), causal and unmasked, at head dims 16/28/64/80/128/
+     256 with GQA 8/1 and 28/4 and MHA, ragged S and T in both orders,
+     S=1, strided views, heads whose stride is no multiple of 16 bytes
+     (the mma kernel's element loads, bit for bit its 16-byte loads), and
+     the qwen2-7b prefill shape (B 4, S 4096, H 28, KV 4, hd 128, bf16),
+     where the wgmma kernel is timed beside the SIMT kernel on the same
+     inputs, one ``scaled_dot_product_attention`` call, the plain version
+     and its bound; the SIMT kernel, on no route, held by force
+     (``simt=True``); ``flash_fwd_mma`` held against the plain version
+     and timed at its main path's two shapes (the float32 S=2048 pin of
+     phase 10, beside the SIMT kernel, held too, float32 SDPA and the
+     plain version; whisper-base's encoder, beside the SIMT kernel and
+     float32 SDPA).
  10. the JAX reference's full-width LM pins (``LM_PINS``), on both
      attention arms: qwen2-7b at full width cut to two layers and
      whisper-base whole, float32, weights from ``reference_tree``; every
-     cuda-arm flash launch is the SIMT kernel's.
+     cuda-arm flash launch is the mma kernel's.
  11. qwen2-7b served at full width and depth in bf16 (weights from a
      seeded generator on the card): ``serve.main`` (4 prompts of 32
      tokens, 16 generated), then ``make_prefill_step`` at B=4 and S=4096
@@ -216,16 +222,20 @@ BIG_CAPACITY = 1024
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
 # notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
 # entry for the kernels' int32 compare/select work; for attention, the bf16
-# tensor-core rate (bf16 inputs) and the float32 rate (float32 inputs).
+# tensor-core rate (bf16 inputs) and, for float32 inputs, the TF32
+# tensor-core rate over three: a float32-accurate product on the tensor
+# cores takes three TF32 products (3xTF32), which beats the CUDA cores'
+# 67 TFLOP/s, so this is the least time float32 attention can take.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
 
 SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
 CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
 CT_SOURCE = "src/repro_torch/kernels/csrc/counts.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FAW_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
+FAM_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_mma.cu"
 KERNELS = {
     "VV_bits": {"name": "vv_bits_kernel", "source": SR_SOURCE,
                 "replaces": "src/repro/kernels/segment_relations.py:360"},
@@ -251,6 +261,8 @@ KERNELS = {
               "replaces": "src/repro/kernels/flash_attention.py:27"},
     "flash_wgmma": {"name": "flash_fwd_wgmma", "source": FAW_SOURCE,
                     "replaces": "src/repro/kernels/flash_attention.py:27"},
+    "flash_mma": {"name": "flash_fwd_mma", "source": FAM_SOURCE,
+                  "replaces": "src/repro/kernels/flash_attention.py:27"},
 }
 _ARITY = {"E": 2, "F": 3, "T": 4}
 
@@ -508,8 +520,8 @@ def lm_pin_run(torch, dev, backend):
             fa.LAUNCHES[key] = 0
         logits, _ = lm.prefill_fn(model, batch, cfg, backend)
         sync()
-        launches[name] = {key: fa.LAUNCHES[key]
-                          for key in ("flash_simt", "flash_wgmma")}
+        launches[name] = {key: fa.LAUNCHES[key] for key in
+                          ("flash_mma", "flash_simt", "flash_wgmma")}
         nxt = steps.make_prefill_step(cfg, backend)(model, batch)
         vals, ids = torch.topk(logits[:, -1].float(), 5, dim=-1)
         out[name] = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
@@ -564,10 +576,12 @@ def check(cond, msg) -> None:
 ROUTED_ARMS = ("VV", "member", "sub")
 ROUTED = tuple(f"{arm}{r}" for arm in ROUTED_ARMS
                for r in ("", "_bits", "_sort"))
-# kernels that no path reaches at the repo's sizes since the bitmask route
-# holds every table one mask row fits: held and timed by force (route=
-# "sort") in phases 3-4, 0 launches on the paths
-FORCED = ("VV_sort", "member_sort", "sub_sort")
+# kernels that no path reaches: the sort kernels since the bitmask route
+# holds every table one mask row fits, held and timed by force (route=
+# "sort") in phases 3-4; the SIMT flash kernel since the mma kernel takes
+# float32, held and timed by force (simt=True) in phase 9; 0 launches on
+# the paths
+FORCED = ("VV_sort", "member_sort", "sub_sort", "flash")
 
 
 def all_bits(path: str, counts: dict) -> None:
@@ -666,9 +680,10 @@ def nbytes(*ts) -> int:
 
 
 def lm_phases(torch, dev, max_err, timing, launches) -> None:
-    """Phases 9-11: the flash kernel's cases and times, the full-width LM
+    """Phases 9-11: the flash kernels' cases and times, the full-width LM
     pins on both arms, and qwen2-7b served at full width and depth. Fills
-    the ``"flash"`` entries of ``max_err``, ``timing`` and ``launches``."""
+    the three flash kernels' entries (``"flash"``, ``"flash_wgmma"``,
+    ``"flash_mma"``) of ``max_err``, ``timing`` and ``launches``."""
     import contextlib
     import io
 
@@ -685,25 +700,26 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     fa_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-    max_err["flash"] = max_err["flash_wgmma"] = 0.0
-    arm_of = {"simt": "flash", "wgmma": "flash_wgmma"}
+    max_err["flash"] = max_err["flash_wgmma"] = max_err["flash_mma"] = 0.0
+    arm_of = {"simt": "flash", "wgmma": "flash_wgmma", "mma": "flash_mma"}
 
     def attn_inputs(B, S, T, H, KV, hd, dt):
         return [torch.randn(shape, device=dev, generator=gen).to(dt)
                 for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))]
 
-    def flash_check(case, q, k, v, causal):
+    def flash_check(case, q, k, v, causal, simt=False, aligned=True):
         """One routed launch held against the plain version; the kernel
         that ran is read from the counters and must be the routing's:
-        wgmma for bf16 at hd 64/128/256, the SIMT kernel for the rest."""
+        wgmma for bf16 at hd 64/128/256 on a layout TMA reads (``aligned``),
+        the mma kernel for the rest; the SIMT kernel when forced."""
         dt, hd = q.dtype, q.shape[-1]
-        want_variant = "wgmma" if dt == torch.bfloat16 and \
-            hd in fa.WGMMA_HEAD_DIMS else "simt"
+        want_variant = "simt" if simt else "wgmma" if aligned and \
+            dt == torch.bfloat16 and hd in fa.WGMMA_HEAD_DIMS else "mma"
         before = dict(fa.LAUNCHES)
-        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, simt=simt)
         want = fa.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ran = [n for n in ("simt", "wgmma")
+        ran = [n for n in ("simt", "wgmma", "mma")
                if fa.LAUNCHES[f"flash_{n}"] != before[f"flash_{n}"]]
         err = float((got.float() - want.float()).abs().max())
         tol = fa_tol[dt]
@@ -718,19 +734,24 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               "variant": "/".join(ran), "B": B, "S": S, "T": T, "H": H,
               "KV": KV, "hd": hd, "causal": causal,
               "dtype": str(dt).split(".")[-1],
-              "strided": not q.is_contiguous(), "max_abs_err": err,
+              "strided": not q.is_contiguous(),
+              "vec_loads": fa.vec_loads(k, v), "max_abs_err": err,
               "tol": tol, "close": ok})
         check(ran == [want_variant], f"{case}: ran {ran}, not "
                                      f"{want_variant}")
         check(ok, f"the flash kernel ({want_variant}) disagrees with its "
                   f"plain version ({case}, {dt}, causal={causal})")
+        return got
 
-    def flash_compare(case, B, S, T, H, KV, hd, causal, dt):
-        flash_check(case, *attn_inputs(B, S, T, H, KV, hd, dt), causal)
+    def flash_compare(case, B, S, T, H, KV, hd, causal, dt, simt=False):
+        flash_check(case, *attn_inputs(B, S, T, H, KV, hd, dt), causal,
+                    simt)
 
-    # head dims of the reference's docstring, each with a head layout:
-    # GQA 8/1 and 28/4, MHA; ragged S and T in both orders
-    heads = {64: (8, 1), 80: (4, 4), 128: (28, 4), 256: (16, 16)}
+    # head dims of the reference's docstring and the mma kernel's smallest
+    # (16, 28), each with a head layout: GQA 8/1, 28/4 and 4/2, MHA; ragged
+    # S and T in both orders
+    heads = {16: (4, 2), 28: (28, 4), 64: (8, 1), 80: (4, 4), 128: (28, 4),
+             256: (16, 16)}
     for dt in (torch.float32, torch.bfloat16):
         for hd, (H, KV) in heads.items():
             for causal in (True, False):
@@ -753,6 +774,17 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
                       torch.bfloat16)
         flash_compare("ragged S<T hd 256", 1, 300, 1000, 8, 2, 256, causal,
                       torch.bfloat16)
+    for causal in (True, False):
+        flash_compare("ragged S>T", 1, 1500, 1000, 28, 4, 128, causal,
+                      torch.float32)
+        flash_compare("ragged S<T hd 256", 1, 300, 1000, 8, 2, 256, causal,
+                      torch.float32)
+    # head dims short of the mma kernel's bucket (100 -> 128, 200 -> 256)
+    for dt in (torch.float32, torch.bfloat16):
+        flash_compare("hd 100 in bucket 128", 1, 200, 130, 4, 2, 100, True,
+                      dt)
+        flash_compare("hd 200 in bucket 256", 1, 130, 200, 8, 2, 200,
+                      False, dt)
     flash_compare("S=1", 2, 1, 37, 8, 8, 64, True, torch.float32)
     flash_compare("S=1", 2, 1, 37, 28, 4, 128, True, torch.bfloat16)
     flash_compare("S=1 cross", 2, 1, WHISPER_FRAMES, 8, 8, 64, False,
@@ -765,6 +797,32 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
         flash_check(f"strided views hd {hd}", big[:, :, :H],
                     big[:, :, H:H + KV], big[:, :, H + KV:], True)
         del big
+    # the mma kernel's element loads: heads of a fused buffer whose head
+    # stride (hd + 1 elements) is no multiple of 16 bytes, bit for bit the
+    # 16-byte loads' result on contiguous copies where those run the mma
+    # kernel too (bf16 hd 128 copies run the wgmma kernel)
+    for dt, hds in ((torch.float32, (128, 64, 256)),
+                    (torch.bfloat16, (80, 40, 128))):
+        for hd in hds:
+            H, KV = (28, 4) if hd == 128 else (8, 2)
+            big = torch.randn((2, 333, H + 2 * KV, hd + 1), device=dev,
+                              generator=gen).to(dt)[..., :hd]
+            q, k, v = big[:, :, :H], big[:, :, H:H + KV], big[:, :, H + KV:]
+            check(not fa.vec_loads(k, v), "the fused views passed as "
+                                          "16-byte loads")
+            got = flash_check(f"element loads hd {hd}", q, k, v, True,
+                              aligned=False)
+            vec = flash_check(f"16-byte loads hd {hd}", q.contiguous(),
+                              k.contiguous(), v.contiguous(), True)
+            if not (dt == torch.bfloat16 and hd in fa.WGMMA_HEAD_DIMS):
+                check(torch.equal(got, vec), f"element and 16-byte loads "
+                                             f"differ at hd {hd}, {dt}")
+            del big, q, k, v
+    # the SIMT kernel, on no route, by force: float32 and bf16
+    for dt in (torch.float32, torch.bfloat16):
+        for hd, (H, KV) in ((64, (8, 1)), (80, (4, 4)), (128, (28, 4))):
+            flash_compare(f"SIMT by force hd {hd}", 2, 130, 130, H, KV, hd,
+                          True, dt, simt=True)
     flash_compare("qwen2-7b prefill", 4, 4096, 4096, 28, 4, 128, True,
                   torch.bfloat16)
 
@@ -812,13 +870,22 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
                                f"faster than the SIMT kernel ({simt_ms} ms)")
     del q, k, v, qt, kt, vt
 
-    # the SIMT kernel at the shape its main path now gives it: the float32
-    # qwen2-7b pin's prefill (phase 10), B 2, S 2048, H 28, KV 4, hd 128
+    # the mma kernel at the shape its main path gives it: the float32
+    # qwen2-7b pin's prefill (phase 10), B 2, S 2048, H 28, KV 4, hd 128,
+    # held against the plain version on the inputs it is then timed on,
+    # beside the SIMT kernel on the same inputs (held too), one float32
+    # SDPA call (the matmul TF32 switch stated False) and the plain
+    # version; both kernels against the same bound (3xTF32 at 495 TFLOP/s)
+    torch.backends.cuda.matmul.allow_tf32 = False
     B, S = LM_PIN_SHAPES["S2048"][:2]
     q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.float32)
-    s_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+    flash_check("float32 pin prefill", q, k, v, True)
+    flash_check("float32 pin prefill", q, k, v, True, simt=True)
+    m_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
                                                           causal=True),
-                   reps=5)
+                   reps=10)
+    s_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=True, simt=True), reps=3)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = time_ms(torch, lambda: torch.nn.functional
                      .scaled_dot_product_attention(qt, kt, vt,
@@ -829,12 +896,36 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
                                                          causal=True),
                    reps=2, rounds=3)
     flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
-    timing["flash"] = {"ms": s_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+    for arm, ms in (("flash_mma", m_ms), ("flash", s_ms)):
+        timing[arm] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib_ms}
-    emit({"phase": "kernel_time", "arm": "flash", "B": B, "S": S, "H": H,
-          "KV": KV, "hd": hd, "causal": True, "dtype": "float32",
-          "flops": flops, "bytes": moved,
-          "tflops_per_s": flops / s_ms / 1e9, **timing["flash"]})
+        emit({"phase": "kernel_time", "arm": arm, "B": B, "S": S, "H": H,
+              "KV": KV, "hd": hd, "causal": True, "dtype": "float32",
+              "flops": flops, "bytes": moved, "allow_tf32": False,
+              "tflops_per_s": flops / ms / 1e9, **timing[arm]})
+    check(m_ms < s_ms, f"the mma kernel ({m_ms} ms) is not faster than the "
+                       f"SIMT kernel ({s_ms} ms) it took the route from")
+    del q, k, v, qt, kt, vt
+
+    # whisper-base's encoder shape (B 2, S 1500, H 8, hd 64, unmasked),
+    # float32: the mma kernel, held against the plain version on the inputs
+    # it is then timed on, beside the SIMT kernel and float32 SDPA
+    B, S, H, KV, hd = 2, WHISPER_FRAMES, 8, 8, 64
+    q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.float32)
+    flash_check("float32 whisper-base encoder", q, k, v, False)
+    w_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                          causal=False))
+    ws_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=False, simt=True), reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    wl_ms = time_ms(torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qt, kt, vt))
+    flops, moved, b_ms, b_by = flash_bound(q, k, v, False)
+    emit({"phase": "kernel_time", "arm": "flash_mma", "B": B, "S": S,
+          "H": H, "KV": KV, "hd": hd, "causal": False, "dtype": "float32",
+          "flops": flops, "bytes": moved, "allow_tf32": False, "ms": w_ms,
+          "simt_ms": ws_ms, "library_ms": wl_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "tflops_per_s": flops / w_ms / 1e9})
     del q, k, v, qt, kt, vt
 
     # -- 10. the full-width LM pins of the JAX reference, on both arms -----
@@ -846,15 +937,17 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               "flash_launches": pin_launches,
               "wall_s": round(time.perf_counter() - t0, 3)})
         check_lm_pins(got, backend)
-        # float32 pins: every cuda-arm launch is the SIMT kernel's
+        # float32 pins: every cuda-arm launch is the mma kernel's
         per = {"S2048": 2, "S100": 2, "whisper": 18}
-        want = {name: {"flash_simt": n if backend == "cuda" else 0,
-                       "flash_wgmma": 0} for name, n in per.items()}
+        want = {name: {"flash_mma": n if backend == "cuda" else 0,
+                       "flash_simt": 0, "flash_wgmma": 0}
+                for name, n in per.items()}
         check(pin_launches == want, f"{backend}: flash launches per "
               f"prefill {pin_launches} != {want}")
         if backend == "cuda":
-            launches["flash"] = sum(n["flash_simt"]
-                                    for n in pin_launches.values())
+            launches["flash_mma"] = sum(n["flash_mma"]
+                                        for n in pin_launches.values())
+    launches["flash"] = 0           # the SIMT kernel: on no path
     torch.cuda.empty_cache()
 
     # -- 11. qwen2-7b served at full width and depth, bf16 -----------------
@@ -906,7 +999,8 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
             walls[backend].append(time.perf_counter() - t0)
             n = {key: fa.LAUNCHES[key] - before[key] for key in before}
             per = cfg.n_layers if backend == "cuda" else 0
-            check(n == {"flash": per, "flash_wgmma": per, "flash_simt": 0},
+            check(n == {"flash": per, "flash_wgmma": per, "flash_mma": 0,
+                        "flash_simt": 0},
                   f"{backend} prefill at S={S} launched the flash kernels "
                   f"{n} times")
         diff = float((logits["cuda"] - logits["torch"]).abs().max())
@@ -934,7 +1028,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     # of their launches the wgmma kernel's
     want = 6 * cfg.n_layers
     check(fa.LAUNCHES == {"flash": want, "flash_wgmma": want,
-                          "flash_simt": 0},
+                          "flash_mma": 0, "flash_simt": 0},
           f"the LM path launched the flash kernels {fa.LAUNCHES}, not "
           f"{want} times flash_fwd_wgmma")
     del model, logits
@@ -977,7 +1071,8 @@ def main() -> int:
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build(["segment_relations", "completion_gather", "counts",
-                         "flash_attention", "flash_attention_wgmma"])
+                         "flash_attention", "flash_attention_wgmma",
+                         "flash_attention_mma"])
     t_build = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in
                  (p.parent / "build.log").read_text().splitlines()
@@ -1003,7 +1098,8 @@ def main() -> int:
     emit({"phase": "ptxas",
           **{arm: ptxas_of("segment_relations", k["name"])
              for arm, k in KERNELS.items() if k["source"] == SR_SOURCE},
-          "gather": ptxas_of("completion_gather", "resolve_gather_kernel")})
+          "gather": ptxas_of("completion_gather", "resolve_gather_kernel"),
+          "flash_mma": ptxas_of("flash_attention_mma", "flash_fwd_mma")})
 
     # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
     def quickstart_mesh(n):

@@ -1,4 +1,4 @@
-"""Flash attention forward for the LM substrate: the wrappers of the two
+"""Flash attention forward for the LM substrate: the wrappers of the three
 hand-written Hopper kernels and their plain PyTorch version.
 
 Blocked online-softmax attention over q ``(B, S, H, hd)`` and k/v ``(B, T,
@@ -9,13 +9,14 @@ unmasked; scores scaled by ``1/sqrt(hd)``, float32 softmax and
 accumulation, the output in q's type (float32 or bf16). Any ``S`` and
 ``T`` are taken: the kernels mask ragged tiles themselves.
 
-Both kernels replace the reference's TPU kernel ``_flash_fwd_kernel``
+The kernels replace the reference's TPU kernel ``_flash_fwd_kernel``
 (``kernels/flash_attention.py``, launched by ``flash_attention_bh``; GQA
 wrapper ``flash_attention``). The model's ``"cuda"`` arm sends every
 attention without a KV cache here (``models.layers.attention``).
 
-Routing (:func:`_variant`), by dtype and shape, decided before the launch;
-nothing falls back after a failed build or launch:
+Routing (:func:`_variant`), by dtype and shape, decided before the launch
+between the first two kernels; nothing falls back after a failed build or
+launch:
 
 - ``"wgmma"`` -> ``flash_fwd_wgmma`` (``csrc/flash_attention_wgmma.cu``):
   bf16 q, k, v with hd 64, 128 or 256 whose layout TMA can read (every
@@ -23,17 +24,26 @@ nothing falls back after a failed build or launch:
   bytes; :func:`wgmma_problems`). Products on the tensor cores, K/V tiles
   by TMA, P rounded to bf16 for the PV product. Every bf16 attention of
   qwen2-7b (hd 128) and whisper-base (hd 64) takes it.
-- ``"simt"`` -> ``flash_fwd_kernel`` (``csrc/flash_attention.cu``): all
-  float32 inputs (TF32 products would not hold the float32 tolerance),
-  other head dims (hd 80, ...), and bf16 inputs TMA cannot read. float32
-  FMAs on the CUDA cores.
+- ``"mma"`` -> ``flash_fwd_mma`` (``csrc/flash_attention_mma.cu``): every
+  float32 input, at any hd up to 256, and the bf16 inputs the wgmma kernel
+  does not take (hd 80 and other head dims, layouts TMA cannot read).
+  ``mma.sync`` on the tensor cores: float32 products as 3xTF32 (each
+  operand split into two TF32 parts, three products, which holds the
+  float32 tolerance where one TF32 product, 10 mantissa bits, would not);
+  bf16 as one bf16 product with P rounded to bf16. K/V tiles by
+  ``cp.async``, 16 bytes a thread where :func:`vec_loads` allows it.
+- ``"simt"`` -> ``flash_fwd_kernel`` (``csrc/flash_attention.cu``): float32
+  FMAs on the CUDA cores. On no route: only
+  ``flash_attention_cuda(..., simt=True)`` launches it, so that it can be
+  held against the plain version and timed beside the others.
 
 Backends (:func:`~repro_torch.kernels.ops.resolve_backend`): ``"cuda"``
 launches a kernel on CUDA tensors and raises on anything else;
 ``"torch"`` runs :func:`flash_attention_ref`, the plain version the kernels
 are held against. ``backend=None`` picks ``"cuda"`` on a card and
 ``"torch"`` on the CPU. ``LAUNCHES["flash"]`` counts every kernel launch,
-``LAUNCHES["flash_wgmma"]`` and ``LAUNCHES["flash_simt"]`` each kernel's.
+``LAUNCHES["flash_wgmma"]``, ``LAUNCHES["flash_mma"]`` and
+``LAUNCHES["flash_simt"]`` each kernel's.
 """
 
 from __future__ import annotations
@@ -62,7 +72,11 @@ _WGMMA_Q_TILE = 128
 _TMA_ALIGN = 16
 _TMA_MAX_STRIDE = 1 << 40
 
-LAUNCHES: Dict[str, int] = {"flash": 0, "flash_wgmma": 0, "flash_simt": 0}
+# the mma kernel's 16-byte K/V loads
+_VEC_BYTES = 16
+
+LAUNCHES: Dict[str, int] = {"flash": 0, "flash_wgmma": 0, "flash_mma": 0,
+                            "flash_simt": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -79,6 +93,20 @@ def _lib_wgmma() -> ctypes.CDLL:
                                     _I, _I, _I, _I, _I, _I, _I,
                                     ctypes.c_float, _P]
         lib.faw_forward.restype = _I
+        lib._repro_bound = True
+    return lib
+
+
+def _lib_mma() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_mma")
+    if not getattr(lib, "_repro_bound", False):
+        lib.fam_error_string.argtypes = [_I]
+        lib.fam_error_string.restype = ctypes.c_char_p
+        lib.fam_forward.argtypes = [_I, _I, _P, _P, _P, _P,
+                                    ctypes.POINTER(ctypes.c_longlong),
+                                    _I, _I, _I, _I, _I, _I, _I,
+                                    ctypes.c_float, ctypes.c_float, _I, _P]
+        lib.fam_forward.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -171,8 +199,25 @@ def wgmma_problems(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes q, k, v: ``"wgmma"`` for bf16 at hd 64, 128
-    or 256 with a layout TMA reads, else ``"simt"``."""
-    return "simt" if wgmma_problems(q, k, v) else "wgmma"
+    or 256 with a layout TMA reads, else ``"mma"``."""
+    return "mma" if wgmma_problems(q, k, v) else "wgmma"
+
+
+def vec_loads(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the mma kernel may read k and v ``(B, T, KV, hd)`` 16 bytes
+    a thread: both base addresses, the batch, sequence and head strides of
+    each (of dimensions longer than 1) and ``hd`` times the element size
+    all multiples of 16 bytes. Else it loads element by element."""
+    esz = k.element_size()
+    if (k.shape[-1] * esz) % _VEC_BYTES:
+        return False
+    for t in (k, v):
+        if t.data_ptr() % _VEC_BYTES:
+            return False
+        if any(n > 1 and (st * esz) % _VEC_BYTES
+               for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return False
+    return True
 
 
 def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -194,8 +239,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches on the current stream without synchronising.
 
     The kernel is :func:`_variant`'s choice; ``simt=True`` launches
-    ``flash_fwd_kernel`` whatever that choice, so that the two kernels can
-    be timed on the same bf16 inputs."""
+    ``flash_fwd_kernel`` whatever that choice (it is on no route), so that
+    it can be held and timed on the same inputs as the others."""
     _check_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -233,12 +278,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         strides = (ctypes.c_longlong * 12)(*(
             st for t in (q, k, v, o) for st in t.stride()[:3]))
-        lib = _lib()
-        rc = lib.fa_forward(idx, _DTYPES[q.dtype], q.data_ptr(),
-                            k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            strides, B, S, T, H, KV, hd, int(bool(causal)),
-                            1.0 / math.sqrt(hd), stream)
-        err = lib.fa_error_string
+        args = (idx, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), strides, B, S, T, H, KV, hd,
+                int(bool(causal)), 1.0 / math.sqrt(hd))
+        if variant == "mma":
+            lib = _lib_mma()
+            rc = lib.fam_forward(*args, math.log2(math.e) / math.sqrt(hd),
+                                 int(vec_loads(k, v)), stream)
+            err = lib.fam_error_string
+        else:
+            lib = _lib()
+            rc = lib.fa_forward(*args, stream)
+            err = lib.fa_error_string
     if rc != 0:
         msg = err(rc).decode(errors="replace")
         raise RuntimeError(f"flash attention kernel ({variant}) launch "

@@ -5,7 +5,9 @@ limit; the sub-join past its precondition) at the
 main path's shapes and at edge sizes (including lanes too large for shared
 memory), the completion
 gather kernel, the meet and VV count kernels of the dense fallback, the
-flash-attention kernel (float32 2e-5, bf16 2e-2), the critical-points (both
+flash-attention kernels (float32 2e-5, bf16 2e-2; the mma kernel on both
+its load paths, twice for equal outputs; the SIMT kernel by force), the
+critical-points (both
 assemblies), gradient -> Morse-Smale and audit + persistence paths on the
 ``cuda`` backend against the CPU, and the LM smoke configs' prefill and
 decode on both attention arms against the CPU. These tests need an NVIDIA card and
@@ -15,11 +17,12 @@ they run where JAX is not installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 import torch
-
-import dataclasses
 
 from repro_torch import analyze, configs
 from repro_torch.kernels import completion_gather, flash_attention, ops, \
@@ -488,31 +491,54 @@ def test_analyze_audit_persistence_on_the_card_equals_the_cpu(cuda,
 
 
 
-@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,dtype", [
-    (2, 128, 128, 4, 4, 64, True, torch.float32),
-    (1, 100, 150, 28, 4, 128, True, torch.bfloat16),
-    (1, 150, 100, 8, 1, 80, False, torch.float32),
-    (2, 1, 37, 4, 2, 256, True, torch.bfloat16),
-    (1, 1000, 1500, 8, 8, 28, False, torch.float32),
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,dtype,odd", [
+    (2, 128, 128, 4, 4, 64, True, torch.float32, False),
+    (1, 100, 150, 28, 4, 128, True, torch.bfloat16, False),
+    (1, 150, 100, 8, 1, 80, False, torch.float32, False),
+    (2, 1, 37, 4, 2, 256, True, torch.bfloat16, False),
+    (1, 1000, 1500, 8, 8, 28, False, torch.float32, False),
     # the wgmma kernel (bf16, hd 64/128/256): GQA 8/1 and 28/4, MHA,
     # ragged S and T both ways, S != T causal, S=1, partial key tiles
-    (2, 130, 130, 8, 1, 64, True, torch.bfloat16),
-    (2, 130, 130, 8, 1, 64, False, torch.bfloat16),
-    (1, 1000, 1500, 28, 4, 128, True, torch.bfloat16),
-    (1, 1000, 1500, 28, 4, 128, False, torch.bfloat16),
-    (1, 1500, 1000, 28, 4, 128, True, torch.bfloat16),
-    (1, 1500, 1000, 4, 4, 128, False, torch.bfloat16),
-    (2, 200, 200, 16, 16, 256, True, torch.bfloat16),
-    (1, 300, 77, 8, 2, 256, False, torch.bfloat16),
-    (2, 1, 1500, 8, 8, 64, False, torch.bfloat16),
-    (2, 1, 37, 28, 4, 128, True, torch.bfloat16),
+    (2, 130, 130, 8, 1, 64, True, torch.bfloat16, False),
+    (2, 130, 130, 8, 1, 64, False, torch.bfloat16, False),
+    (1, 1000, 1500, 28, 4, 128, True, torch.bfloat16, False),
+    (1, 1000, 1500, 28, 4, 128, False, torch.bfloat16, False),
+    (1, 1500, 1000, 28, 4, 128, True, torch.bfloat16, False),
+    (1, 1500, 1000, 4, 4, 128, False, torch.bfloat16, False),
+    (2, 200, 200, 16, 16, 256, True, torch.bfloat16, False),
+    (1, 300, 77, 8, 2, 256, False, torch.bfloat16, False),
+    (2, 1, 1500, 8, 8, 64, False, torch.bfloat16, False),
+    (2, 1, 37, 28, 4, 128, True, torch.bfloat16, False),
+    # the mma kernel: hd 16, 28, 80 and 256 in both dtypes (bf16 hd 256
+    # from a base one element off, which TMA cannot read), ragged tiles
+    (2, 130, 130, 4, 2, 16, True, torch.float32, False),
+    (1, 100, 150, 4, 2, 16, False, torch.bfloat16, False),
+    (1, 150, 100, 28, 4, 28, True, torch.float32, False),
+    (2, 130, 130, 8, 8, 28, True, torch.bfloat16, False),
+    (1, 333, 200, 28, 4, 80, True, torch.float32, False),
+    (1, 200, 333, 4, 4, 80, False, torch.bfloat16, False),
+    (1, 200, 300, 8, 2, 256, True, torch.float32, False),
+    (1, 300, 200, 8, 2, 256, False, torch.float32, False),
+    (1, 200, 200, 4, 4, 256, True, torch.bfloat16, True),
+    (1, 1500, 1000, 28, 4, 128, True, torch.float32, False),
+    # head dims short of their bucket (40 -> 64, 100 -> 128, 200 -> 256),
+    # the columns past hd zero-filled
+    (1, 130, 200, 4, 2, 40, True, torch.float32, False),
+    (1, 200, 130, 4, 4, 100, False, torch.bfloat16, False),
+    (1, 150, 150, 8, 2, 200, True, torch.float32, False),
 ])
-def test_flash_kernel_equals_plain(cuda, B, S, T, H, KV, hd, causal, dtype):
+def test_flash_kernel_equals_plain(cuda, B, S, T, H, KV, hd, causal, dtype,
+                                   odd):
     g = torch.Generator(device=cuda).manual_seed(S + T)
-    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype)
-               for shape in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    shapes = ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd))
+    if odd:      # each tensor one element past a 16-byte aligned base
+        q, k, v = (torch.randn(math.prod(s) + 1, device=cuda, generator=g)
+                   .to(dtype)[1:].view(s) for s in shapes)
+    else:
+        q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+                   for s in shapes)
     variant = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) \
-        else "simt"
+        and not odd else "mma"
     before = dict(flash_attention.LAUNCHES)
     got = flash_attention.flash_attention(q, k, v, causal=causal)
     want = flash_attention.flash_attention(q, k, v, causal=causal,
@@ -545,10 +571,70 @@ def test_flash_kernel_reads_strided_views(cuda):
         rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_mma_element_loads_equal_16_byte_loads(cuda, hd):
+    """float32 heads of a fused buffer whose head stride (hd + 1 elements)
+    is no multiple of 16 bytes take the mma kernel's element loads: within
+    2e-5 of the plain version and bit for bit the 16-byte loads' result on
+    contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    big = torch.randn((2, 333, 12, hd + 1), device=cuda, generator=g)
+    q, k, v = (big[:, :, :8, :hd], big[:, :300, 8:10, :hd],
+               big[:, :300, 10:12, :hd])
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    assert not flash_attention.vec_loads(k, v)
+    assert flash_attention.vec_loads(kc, vc)
+    before = flash_attention.LAUNCHES["flash_mma"]
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    vec = flash_attention.flash_attention_cuda(qc, kc, vc, causal=True)
+    assert flash_attention.LAUNCHES["flash_mma"] == before + 2
+    torch.testing.assert_close(got, vec, rtol=0, atol=0)
+    torch.testing.assert_close(
+        got, flash_attention.flash_attention_ref(q, k, v), rtol=2e-5,
+        atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
+                                      (torch.float32, 256),
+                                      (torch.bfloat16, 80)])
+def test_flash_mma_is_deterministic(cuda, dtype, hd):
+    """The same inputs launched twice give the same output bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((2, 700, 28, hd), (2, 700, 4, hd),
+                         (2, 700, 4, hd)))
+    before = flash_attention.LAUNCHES["flash_mma"]
+    a = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    b = flash_attention.flash_attention_cuda(q, k, v, causal=True)
+    assert flash_attention.LAUNCHES["flash_mma"] == before + 2
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,hd,causal", [(torch.float32, 64, True),
+                                             (torch.float32, 128, False),
+                                             (torch.bfloat16, 80, True)])
+def test_flash_simt_by_force_equals_plain(cuda, dtype, hd, causal):
+    """The SIMT kernel is on no route; ``simt=True`` still launches it, and
+    it still holds its tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn(s, device=cuda, generator=g).to(dtype)
+               for s in ((1, 150, 8, hd), (1, 100, 2, hd), (1, 100, 2, hd)))
+    before = dict(flash_attention.LAUNCHES)
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               simt=True)
+    assert flash_attention.LAUNCHES["flash_simt"] == \
+        before["flash_simt"] + 1
+    assert flash_attention.LAUNCHES["flash_mma"] == before["flash_mma"]
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_ref(
+            q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
 def test_flash_wgmma_reads_strided_views(cuda):
     """bf16 views whose strides TMA takes run the wgmma kernel in place,
     bit for bit like their contiguous copies; a sequence stride that is no
-    multiple of 16 bytes goes to the SIMT kernel."""
+    multiple of 16 bytes goes to the mma kernel."""
     g = torch.Generator(device=cuda).manual_seed(2)
     big = torch.randn((2, 300, 12, 128), device=cuda,
                       generator=g).to(torch.bfloat16)
@@ -566,9 +652,9 @@ def test_flash_wgmma_reads_strided_views(cuda):
     odd = torch.randn((1, 90, 2 * 128 + 4), device=cuda,
                       generator=g).to(torch.bfloat16)
     t = odd[..., :256].unflatten(-1, (2, 128))     # 520-byte row stride
-    before = flash_attention.LAUNCHES["flash_simt"]
+    before = flash_attention.LAUNCHES["flash_mma"]
     got = flash_attention.flash_attention_cuda(t, t, t, causal=False)
-    assert flash_attention.LAUNCHES["flash_simt"] == before + 1
+    assert flash_attention.LAUNCHES["flash_mma"] == before + 1
     torch.testing.assert_close(
         got.float(), flash_attention.flash_attention_ref(
             t, t, t, causal=False).float(), rtol=2e-2, atol=2e-2)
