@@ -72,6 +72,22 @@ Phases, one JSON line each:
      face sample, equal on the kernels and the plain arm at 96^3; then
      the whole audit + persistence path on both arms at 48^3, corrupted
      audit and FF rows included, against the 48^3 pins.
+ 8b. the compared data structures on phase 2's mesh: ``critical_points``
+     through ``ExplicitTriangulation``, ``TopoClusterDS``, ``ActopoDS``
+     (one segment a launch, each synced at dispatch) and the GALE engine,
+     launch counters zeroed before and read after each run, every
+     ``types`` equal to phase 4's pin, every VV and member launch on the
+     bitmask route, the baselines' launches equal to their segments
+     produced, the explicit structure launching none; ``fused_extrema``
+     (batch 8) equal to the pin's minima and maxima with one VV count
+     launch a batch, its loop run again under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); the
+     explicit structure's gradient -> Morse-Smale at 48^3 against phase
+     5's pins; ``analyze_mesh.run("foot")`` (GALE and Explicit rows)
+     against the reference example's pins (``REF_FOOT``). Phase 3 also
+     holds and times the VV and VT bitmask kernels at B=1 (the baselines'
+     launch) and the VV count kernel at the fused batch (B=8, and a batch
+     ending in -1 padding segments).
   9. flash attention: the kernels held against their plain version
      (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
      routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256 on
@@ -165,6 +181,27 @@ REF_MS = {
          "ms_sha256": ("e1e19bfeb3dcfd92673548454d5a5d44"
                        "67520f0cda52b0458829d87f5bd4753d")},
 }
+# The JAX reference's examples/analyze_mesh.py on "foot" (GALE and Explicit
+# rows, equal), computed on a CPU with:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c '<load_dataset("foot",
+#   scalar_fn=fields.gaussians(2, k=5, sigma=5.0)); segment_mesh(capacity=64);
+#   precondition(sm, RELS); ds = ExplicitTriangulation(pre, RELS);
+#   critical_points(ds, pre, rank, batch_segments=16); g =
+#   discrete_gradient(ds, pre, rank, batch_segments=16, co_prefetch=("TT",));
+#   morse_smale(ds, pre, g); d = persistence_pairs(ds, pre, rank, grad=g);
+#   print the counts and d.digest()>'
+REF_FOOT = {
+    "critical": {"minima": 6, "saddles1": 12, "saddles2": 30, "maxima": 12,
+                 "degenerate": 0, "regular": 5625},
+    "gradient": {"crit_v": 6, "crit_e": 12, "crit_f": 9, "crit_t": 1},
+    "ms": {"saddle1": 12, "saddle2": 9, "basins_min": 6, "basins_max": 1,
+           "arcs": 12},
+    "euler": 2,
+    "persistence": {"pairs0": 5, "pairs2": 1, "essential0": 1,
+                    "essential2": 0, "unpaired1": 7, "unpaired2": 8},
+    "digest": "887f2f616a5c6104b56bdc1530f0d7f9be02ec50",
+}
+FUSED_BATCH = 8              # fused_extrema's segments a loop step
 # The JAX reference's audit + persistence path at N=96 and N=48 (xla arm,
 # tune="off", device consumer arm, one worker), computed on a CPU with:
 #   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c '<build the quickstart
@@ -1047,8 +1084,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.algorithms import fields
     from repro_torch.algorithms.consume import degree_cols
-    from repro_torch.algorithms.critical_points import critical_points, \
-        total_order
+    from repro_torch.algorithms.critical_points import MAXIMUM, MINIMUM, \
+        critical_points, total_order
     from repro_torch.algorithms.discrete_gradient import audit_gradient, \
         discrete_gradient
     from repro_torch.algorithms.morse_smale import morse_smale
@@ -1056,8 +1093,13 @@ def main() -> int:
         simplify_ms
     from repro_torch.core.adjacency import complete_adjacency, \
         plan_completion
+    from repro_torch import analyze_mesh
     from repro_torch.core.engine import RelationEngine
+    from repro_torch.core.explicit import ActopoDS, ExplicitTriangulation, \
+        TopoClusterDS
     from repro_torch.core.mesh import segment_mesh
+    from repro_torch.core.pipeline import fused_extrema, fused_masks, \
+        stage_fused
     from repro_torch.core.segtables import precondition
     from repro_torch.data.meshgen import structured_grid
     from repro_torch.kernels import _build, ops
@@ -1498,6 +1540,12 @@ def main() -> int:
         else:
             row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
             timing[arm] = row
+    # the localized baselines' launch: one segment (B=1), bitmask route
+    for relation in ("VV", "VT"):
+        tx, ty, colg = (t[:1].contiguous() for t in main_inputs[relation])
+        deg = ops.DEFAULT_DEG[relation]
+        time_arm(f"{arm_of[relation]}_bits", relation, tx, ty, colg, deg,
+                 entry_sorts(relation, tx, ty, colg, nvl, deg), route="bits")
 
     # -- 3b. the count kernels of the dense fallback ------------------------
     def counts_compare(case, kind, *args):
@@ -1601,7 +1649,28 @@ def main() -> int:
     emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
           "shape": [list(T.shape)], "nvl": nvl, **timing["vv_counts"],
           "C_bytes": nbytes(C)})
-    del Ax, At, C
+    # the fused loop's batch (FUSED_BATCH segments of the 96^3 tets), and
+    # one whose last segments are -1 padding, as the loop's last batch is
+    # when the segment count is no multiple of it
+    T8 = T[:FUSED_BATCH].contiguous()
+    counts_compare("fused batch", "vv_counts", T8, nvl)
+    Tpad = T8.clone()
+    Tpad[FUSED_BATCH - 3:] = -1
+    counts_compare("fused batch, padding segments", "vv_counts", Tpad, nvl)
+    A8 = onehot(T8, nvl).transpose(1, 2).contiguous()
+    C = ops.counts_vv(T8, nvl)
+    launch = (lambda: sr.relation_counts_vv_cuda(T8, nvl))
+    k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
+    p_ms = time_ms(torch, lambda: ops.counts_vv(T8, nvl, backend="torch"),
+                   reps=5)
+    lib_ms = time_ms(torch, lambda: torch.bmm(A8, A8.transpose(1, 2)))
+    b_ms, b_by = bound_ms(nbytes(T8, C), [],
+                          ops=16 * int((T8 >= 0).all(-1).sum()))
+    emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
+          "case": "fused batch", "shape": [list(T8.shape)], "nvl": nvl,
+          "ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "library_ms": lib_ms, "C_bytes": nbytes(C)})
+    del Ax, At, A8, C, T8, Tpad
 
     # -- 4. the critical-points path -----------------------------------------
     # warm the arms up on a small mesh first (module loading, allocator
@@ -2118,6 +2187,183 @@ def main() -> int:
                   f"{backend} {SMALL_N}^3: {key} {small[key]} != reference "
                   f"{REF_PATH[SMALL_N][key]}")
         del seng
+
+    # -- 8b. the compared data structures, the fused loop, analyze_mesh ----
+    def zero_counts():
+        for k in sr.LAUNCHES:
+            sr.LAUNCHES[k] = 0
+        cg.LAUNCHES["gather"] = 0
+        torch.cuda.synchronize()
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {**sr.LAUNCHES, "gather": cg.LAUNCHES["gather"]}
+
+    # the four structures' critical points at 96^3 against the pin
+    def structure(label):
+        t0 = time.perf_counter()
+        if label == "Explicit":
+            ds = ExplicitTriangulation(pre, ["VV", "VT"])
+        elif label == "TopoCluster":
+            ds = TopoClusterDS(pre, ["VV", "VT"])
+        elif label == "ACTOPO":
+            ds = ActopoDS(pre, ["VV", "VT"])
+        else:
+            ds = RelationEngine(pre, ["VV", "VT"], lookahead=8,
+                                device="cuda")
+        return ds, time.perf_counter() - t0
+
+    cp_walls = {}
+    for label in ("Explicit", "TopoCluster", "ACTOPO", "GALE"):
+        ds, init_s = structure(label)
+        zero_counts()
+        t0 = time.perf_counter()
+        types, counts = critical_points(ds, pre, rank)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters = read_counts()
+        eng_ = getattr(ds, "engine", ds)
+        s = ds.stats
+        digest_t = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
+        row = {"phase": "structure_critical_points", "structure": label,
+               "n": N, "counts": counts, "wall_s": round(wall, 3),
+               "init_s": round(init_s, 3),
+               "requests": s.requests, "kernel_launches": s.kernel_launches,
+               "segments_produced": s.segments_produced,
+               "cache_hits": s.cache_hits, "cache_misses": s.cache_misses,
+               "evictions": s.evictions, "devpool_hits": s.devpool_hits,
+               "devpool_uploads": s.devpool_uploads,
+               "t_sync_s": round(s.t_sync, 3),
+               "t_kernel_s": round(s.t_kernel, 3),
+               "types_sha256": digest_t, "kernel_counters": counters}
+        if label == "Explicit":
+            row.update(init_time_s=round(ds.init_time, 3),
+                       memory_bytes=ds.memory_bytes())
+        else:
+            row["cache_nbytes"] = eng_.cache_nbytes()
+        emit(row)
+        cp_walls[label] = wall
+        check(digest_t == REF_TYPES_SHA256 and counts == REF_COUNTS,
+              f"{label}: types differ from the reference's")
+        all_bits(f"{label}'s critical points", counters)
+        if label == "Explicit":
+            check(not any(counters.values()),
+                  f"the explicit structure launched kernels: {counters}")
+            continue
+        check(counters["VV_bits"] > 0 and counters["member_bits"] > 0,
+              f"{label}: a bitmask kernel was not launched: {counters}")
+        if label != "GALE":
+            # B=1: one launch a segment produced, each synced at dispatch
+            check(not eng_.async_dispatch and eng_.batch_max == 1
+                  and s.kernel_launches == s.segments_produced
+                  == counters["VV_bits"] + counters["member_bits"],
+                  f"{label}: launches {s.kernel_launches} != segments "
+                  f"produced {s.segments_produced} or counters {counters}")
+            for k in ("VV_bits", "member_bits"):
+                launches[k] += counters[k]
+        del ds, eng_
+
+    # the fused loop at 96^3: the pin's minima and maxima, one VV count
+    # launch a batch, and no host sync inside the loop
+    want_min = np.nonzero(cp_types == MINIMUM)[0]
+    want_max = np.nonzero(cp_types == MAXIMUM)[0]
+    zero_counts()
+    t0 = time.perf_counter()
+    fmin, fmax = fused_extrema(pre, rank, batch=FUSED_BATCH)
+    fused_wall = time.perf_counter() - t0
+    fused_counts = read_counts()
+    staged = stage_fused(pre, rank, FUSED_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mins, maxs = fused_masks(*staged)
+        loop_enqueue = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    lv = staged[1].reshape(-1, staged[1].shape[2]).cpu().numpy()
+    loop_min = np.sort(lv[mins.cpu().numpy()])
+    loop_max = np.sort(lv[maxs.cpu().numpy()])
+    n_batches = -(-sm.n_segments // FUSED_BATCH)
+    emit({"phase": "fused_extrema", "n": N, "batch": FUSED_BATCH,
+          "batches": n_batches, "minima": len(fmin), "maxima": len(fmax),
+          "wall_s": round(fused_wall, 3),
+          "loop_wall_s": round(loop_wall, 3),
+          "loop_enqueue_s": round(loop_enqueue, 3),
+          "sync_debug_mode": "error (no sync raised)",
+          "kernel_counters": fused_counts})
+    check(np.array_equal(fmin, want_min) and np.array_equal(fmax, want_max),
+          "the fused extrema differ from the pinned types' minima/maxima")
+    check(np.array_equal(loop_min, want_min)
+          and np.array_equal(loop_max, want_max),
+          "the sync-free loop's extrema differ from fused_extrema's")
+    check(fused_counts["vv_counts"] == n_batches
+          and sum(fused_counts.values()) == n_batches,
+          f"the fused loop launched {fused_counts}, not {n_batches} VV "
+          f"count kernels")
+    launches["vv_counts"] += fused_counts["vv_counts"]
+    del staged, mins, maxs
+
+    # gradient -> Morse-Smale through the explicit structure at 48^3
+    zero_counts()
+    t0 = time.perf_counter()
+    ex = ExplicitTriangulation(ppre, MS_RELS)
+    t1 = time.perf_counter()
+    g = discrete_gradient(ex, ppre, prank, batch_segments=16,
+                          co_prefetch=("TT",))
+    ms = morse_smale(ex, ppre, g)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counters = read_counts()
+    ex_out = {"phase": "explicit_gradient_ms", "n": SMALL_N,
+              "euler": g.euler(), "grad": g.counts(), "ms": ms.counts(),
+              "grad_sha256": digest(g, GRAD_FIELDS),
+              "ms_sha256": digest(ms, MS_FIELDS),
+              "init_time_s": round(ex.init_time, 3),
+              "memory_bytes": ex.memory_bytes(),
+              "build_wall_s": round(t1 - t0, 3),
+              "wall_s": round(t2 - t1, 3),
+              "requests": ex.stats.requests,
+              "devpool_uploads": ex.stats.devpool_uploads,
+              "completion_queries": ex.stats.completion_queries,
+              "kernel_counters": counters}
+    emit(ex_out)
+    ref = REF_MS[SMALL_N]
+    for key in ("grad", "ms", "grad_sha256", "ms_sha256"):
+        check(ex_out[key] == ref[key],
+              f"explicit {SMALL_N}^3: {key} differs from the reference's")
+    check(not any(counters.values()),
+          f"the explicit path launched kernels: {counters}")
+    del ex, g, ms
+
+    # analyze_mesh on "foot": the GALE and Explicit rows against the pins
+    zero_counts()
+    t0 = time.perf_counter()
+    header, rows = analyze_mesh.run("foot")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = read_counts()
+    emit({"phase": "analyze_mesh", "dataset": "foot", **header,
+          "wall_s": round(wall, 3), "kernel_counters": counters,
+          **{label: {k: r[k] for k in ("critical", "gradient", "ms", "euler",
+                                        "persistence", "digest")}
+             | {"wall_s": round(r["wall_s"], 3),
+                "t_sync_s": round(r["ds"].stats.t_sync, 3)}
+             for label, r in rows.items()}})
+    for label, r in rows.items():
+        for key, want in REF_FOOT.items():
+            check(r[key] == want, f"analyze_mesh foot {label}: {key} "
+                                  f"{r[key]} != reference {want}")
+    all_bits("analyze_mesh", counters)
+    check(all(counters[k] > 0 for k in ("VV_bits", "member_bits", "TT",
+                                        "gather")),
+          f"a kernel was not launched on analyze_mesh's GALE row: "
+          f"{counters}")
+    for k in ("VV_bits", "member_bits", "TT", "sub_bits", "gather"):
+        launches[k] += counters[k]
+    del rows
 
     lm_phases(torch, dev, max_err, timing, launches)
 

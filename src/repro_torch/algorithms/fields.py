@@ -1,9 +1,33 @@
-"""Synthetic scalar fields: random Gaussian bumps, and the slab profiles
-with closed-form persistence diagrams that the persistence tests use."""
+"""Synthetic scalar fields with analytically known critical structure:
+lattice sinusoids, a radial bowl, random Gaussian bumps, and the slab
+profiles with closed-form persistence diagrams that the persistence tests
+use."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def sinusoid(freq: float = 0.5):
+    """f = sin(fx)·sin(fy)·sin(fz): a periodic Morse function whose minima /
+    maxima / saddles are known lattice points — used to sanity-check the
+    critical point counts."""
+    def fn(p):
+        q = np.asarray(p, dtype=np.float64) * freq
+        return (np.sin(q[:, 0]) * np.sin(q[:, 1]) * np.sin(q[:, 2])
+                ).astype(np.float32)
+    return fn
+
+
+def radial(center=(0.0, 0.0, 0.0)):
+    """f = |p - c|²: exactly one minimum (vertex nearest c), maxima on the
+    domain boundary."""
+    c = np.asarray(center, dtype=np.float64)
+
+    def fn(p):
+        d = np.asarray(p, dtype=np.float64) - c[None, :]
+        return (d * d).sum(axis=1).astype(np.float32)
+    return fn
 
 
 def gaussians(seed: int = 0, k: int = 6, sigma: float = 6.0, scale=32.0):

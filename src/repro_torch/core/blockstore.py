@@ -72,12 +72,19 @@ class SegmentCache:
     """Host LRU over per-segment blocks ``(relation, segment) -> (M, L, n)``.
 
     External code must not touch the backing ``_store`` directly (the
-    ``store-encapsulation`` contractcheck rule enforces this).
+    ``store-encapsulation`` contractcheck rule enforces this): memory
+    accounting goes through :meth:`nbytes` and cold-cache modelling through
+    :meth:`clear`, which the engine re-exports under its lock as
+    ``RelationEngine.cache_nbytes()`` / ``clear_cache()``.
     """
 
     def __init__(self, capacity: int):
         self._core = _LRUCore(capacity)
         self._store = self._core._store
+
+    @property
+    def capacity(self) -> int:
+        return self._core.capacity
 
     @property
     def evictions(self) -> int:
@@ -90,6 +97,22 @@ class SegmentCache:
     def put(self, key, value) -> None:
         # contract: holds-lock
         self._core.put(key, value)
+
+    def clear(self) -> int:
+        # contract: holds-lock
+        """Drop every cached block. Returns the number of entries dropped."""
+        n = len(self._store)
+        self._store.clear()
+        return n
+
+    def nbytes(self) -> int:
+        """Total bytes held by cached ``(M, L, n)`` blocks (numpy views of
+        the launches' host copies, each counted at its own size)."""
+        total = 0
+        for (M, L, _) in self._store.values():
+            total += int(M.size) * M.dtype.itemsize
+            total += int(L.size) * L.dtype.itemsize
+        return total
 
     def __contains__(self, key) -> bool:
         return key in self._core
@@ -142,6 +165,21 @@ class DevBlockPool:
         self._arrays[aid][2].add(key)
         self._entries[key] = (aid, idx)
 
+    def clear(self) -> int:
+        # contract: holds-lock
+        """Drop every backing tensor and entry in place. Returns the number
+        of entries dropped."""
+        n = len(self._entries)
+        self._arrays.clear()
+        self._entries.clear()
+        return n
+
+    def nbytes(self) -> int:
+        """Bytes of the retained backing tensors: each launch tensor once,
+        however many of its segments are pooled."""
+        return sum(M.numel() * M.element_size() + L.numel() * L.element_size()
+                   for (M, L, _) in self._arrays.values())
+
 
 class BlockStore:
     """The engine's storage layer: one host cache + one device pool.
@@ -161,3 +199,13 @@ class BlockStore:
     def put(self, key, M, L, idx) -> None:
         # contract: holds-lock
         self.pool.put(key, M, L, idx)
+
+    def clear_cache(self) -> int:
+        # contract: holds-lock
+        """Drop the host cache and the device pool in place. Returns the
+        total number of entries dropped (cache + pool)."""
+        return self.cache.clear() + self.pool.clear()
+
+    def cache_nbytes(self) -> int:
+        """Bytes retained across the host cache and the device pool."""
+        return self.cache.nbytes() + self.pool.nbytes()

@@ -15,11 +15,12 @@ Roles, mapped from the paper:
 Asynchronous consumer contract
 ------------------------------
 
-The producer NEVER blocks: a kernel launch returns as soon as it is queued
-on the device's current stream, and its not-yet-ready output tensors are
-recorded in an **in-flight futures table** keyed by ``(relation, segment)``.
-Right after the launch the engine queues the outputs' copy to pinned host
-memory and records a CUDA event; the event says when both are done.
+With ``async_dispatch=True`` (the default) the producer NEVER blocks: a
+kernel launch returns as soon as it is queued on the device's current
+stream, and its not-yet-ready output tensors are recorded in an
+**in-flight futures table** keyed by ``(relation, segment)``. Right after
+the launch the engine queues the outputs' copy to pinned host memory and
+records a CUDA event; the event says when both are done.
 
   - :meth:`prefetch` / :meth:`prefetch_many` enqueue traversal-order hints
     and dispatch launches round-robin across relations, returning
@@ -30,6 +31,11 @@ memory and records a CUDA event; the event says when both are done.
     host-side dispatch cost.
   - A segment is never produced twice: requests are de-duplicated against
     the cache, the in-flight table, and the pending queues.
+
+With ``async_dispatch=False`` every launch is synced right after dispatch
+(the blocking producer of the ACTOPO/TopoCluster baselines,
+``core/explicit.py``); the wait still lands in ``t_sync``, so the two modes
+are directly comparable.
 
 Multi-consumer thread safety (docs/DESIGN.md §8)
 ------------------------------------------------
@@ -127,6 +133,11 @@ class EngineStats:
             return 0.0
         return self.completion_raw_neighbors / self.completion_neighbors
 
+    def as_dict(self) -> Dict[str, float]:
+        d = dataclasses.asdict(self)
+        d["completion_dedup_ratio"] = self.completion_dedup_ratio
+        return d
+
     def bump(self, **deltas) -> None:
         """Add counter deltas in place. The engine routes every stat update
         through this (under its lock), so concurrent consumers never lose
@@ -185,6 +196,15 @@ class StatsHost:
         completion pipeline in ``core/adjacency.py``)."""
         with self._cond:
             self._bump(**deltas)
+
+    def reset_stats(self) -> None:
+        """Zero every counter (global and per-worker) under the lock — the
+        way to separate a warm-up from a timed run. Rebinding ``.stats``
+        directly would bypass the lock and orphan the per-worker breakdown
+        (the ``merged_worker_stats() == stats`` invariant)."""
+        with self._cond:
+            self.stats = EngineStats()
+            self.worker_stats = {}
 
     def merged_worker_stats(self) -> EngineStats:
         """Deterministic merge of the per-worker breakdown (sorted worker
@@ -265,7 +285,9 @@ class RelationEngine(StatsHost):
     plain arm on the card too. ``assembly="dense"`` sends every relation
     through the dense counts fallback (the reference's A/B arm); the
     default assembles sparsely wherever ``ops.sparse_arm_ok`` allows, and
-    EE/FF always take the dense arm. Safe for concurrent use by multiple
+    EE/FF always take the dense arm. ``async_dispatch=False`` syncs every
+    launch right after dispatch (the localized baselines'
+    blocking producer). Safe for concurrent use by multiple
     consumer threads: every public consumer method acquires the engine
     lock exactly once; internal ``_``-prefixed steps assume it is held."""
 
@@ -284,6 +306,7 @@ class RelationEngine(StatsHost):
         shards: int = 1,
         fault_policy=None,
         assembly: str = "sparse",
+        async_dispatch: bool = True,
     ):
         if pre.tables is None:
             raise ValueError("precondition(..., build_tables=True) required")
@@ -304,6 +327,7 @@ class RelationEngine(StatsHost):
         self.tables = pre.tables
         self.lookahead = lookahead
         self.batch_max = int(batch_max)
+        self.async_dispatch = async_dispatch
         self.inflight_max = max(1, inflight_max)
         self.relations = tuple(r for r in relations
                                if r in OFFLOADED_RELATIONS)
@@ -387,6 +411,14 @@ class RelationEngine(StatsHost):
         finally:
             self._tl.engine_method = None
 
+    def request(self, relation: str, segments: Sequence[int]) -> None:
+        """Non-blocking enqueue (consumer -> leader queue): appends traversal
+        hints to the relation's pending queue, never launches and never
+        waits. A segment already cached, in flight or pending is not
+        enqueued again."""
+        with self._consumer_entry("request"):
+            self._request(relation, segments)
+
     def _request(self, relation: str, segments: Sequence[int]) -> None:
         # contract: holds-lock
         t0 = time.perf_counter()
@@ -400,6 +432,24 @@ class RelationEngine(StatsHost):
                 q.append(s)
                 qs.add(s)
         self._bump(t_enqueue=time.perf_counter() - t0)
+
+    def clear_cache(self) -> int:
+        """Drop every retained block — the host segment cache and the device
+        pool — under the engine lock, to model a cold cache. In-flight
+        launches are retired (synced and integrated) first, so a launch
+        dispatched before the clear cannot bring dropped blocks back; the
+        wait lands in ``stats.t_sync``. Returns the number of entries
+        dropped."""
+        with self._consumer_entry("clear_cache"):
+            while self._flights:
+                self._sync(self._flights.popleft())
+            return self.store.clear_cache()
+
+    def cache_nbytes(self) -> int:
+        """Bytes retained across the host segment cache and the device pool,
+        under the engine lock."""
+        with self._consumer_entry("cache_nbytes"):
+            return self.store.cache_nbytes()
 
     def get(self, relation: str, segment: int) -> Tuple[np.ndarray, np.ndarray]:
         """Fetch the (M, L) relation block for one segment as host arrays.
@@ -635,19 +685,37 @@ class RelationEngine(StatsHost):
 
         All misses are enqueued first and produced in one batched launch
         (plus lookahead), then each block is read as in :meth:`get`.
-        Duplicate segment ids are served from the same produced block."""
+        Duplicate segment ids are served from the same produced block.
+
+        A call naming more distinct segments than the host cache holds
+        reads the cached ones first and produces the misses a share of the
+        cache at a time, reading each share before the next is launched,
+        so the call's own launches never evict a block it has yet to read
+        (an 8-segment cache serving a 16-segment batch produces each block
+        once, not twice)."""
         with self._consumer_entry("get_batch"):
             segments = [int(s) for s in segments]
             self._bump(requests=len(segments))
             for s in segments:
                 self._count(relation, s)
-            missing = [s for s in segments
+            missing = [s for s in dict.fromkeys(segments)
                        if (relation, s) not in self.cache
                        and (relation, s) not in self._inflight]
-            if missing:
-                self._request(relation, missing)
+            cap = self.cache.capacity
+            if len(set(segments)) <= cap:
+                if missing:
+                    self._request(relation, missing)
+                    self._drain([relation])
+                return [self._fetch(relation, s) for s in segments]
+            got = {s: self._fetch(relation, s)
+                   for s in dict.fromkeys(segments) if s not in missing}
+            share = max(1, cap // (1 + max(0, self.lookahead)))
+            for i in range(0, len(missing), share):
+                part = missing[i:i + share]
+                self._request(relation, part)
                 self._drain([relation])
-            return [self._fetch(relation, s) for s in segments]
+                got.update((s, self._fetch(relation, s)) for s in part)
+            return [got[s] for s in segments]
 
     def prefetch(self, relation: str, segments: Sequence[int]) -> None:
         """Traversal-order hint: enqueue + dispatch without blocking.
@@ -923,6 +991,9 @@ class RelationEngine(StatsHost):
         for s in batch:
             self._inflight[(relation, s)] = launch
         self._flights.append(launch)
+        if not self.async_dispatch:
+            self._sync(launch)
+            return launch
         # backpressure on genuinely unfinished launches only (reads retire
         # launches via _sync without removing them from here)
         if any(l.done for l in self._flights):

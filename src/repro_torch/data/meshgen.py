@@ -210,12 +210,27 @@ def multi_component(
 
 # Named datasets, the same constructors as the reference's pool.
 DATASETS = {
+    "toy":      lambda: two_tets(),
     "engine":   lambda: structured_grid(14, 14, 14),
     "foot":     lambda: structured_grid(
         18, 18, 18, cell_mask_fn=sphere_hole_mask((5, 5, 5), 4.0)),
     "fish":     lambda: structured_grid(16, 16, 16, jitter=0.25, seed=1),
+    "asteroid": lambda: structured_grid(
+        24, 24, 14, cell_mask_fn=sphere_hole_mask((12, 12, 7), 5.0)),
+    "hole":     lambda: structured_grid(
+        22, 22, 22, cell_mask_fn=sphere_hole_mask((11, 11, 11), 6.0)),
+    "stent":    lambda: structured_grid(28, 28, 20),
     # long thin bar: Morton-ordered segments stack along x
     "bar":      lambda: structured_grid(48, 4, 4),
+    # adversarial families with analytically known topology (Betti
+    # numbers, Euler characteristic, profile-field diagrams)
+    "graded":      lambda: graded_grid(24, 8, 8, ratio=8.0),
+    "slivers":     lambda: anisotropic_grid(14, 12, 10,
+                                            aspect=(1.0, 1.0, 0.08),
+                                            shear=0.35),
+    "tunnel":      lambda: multi_component(1, 10, 10, 8, hole="tunnel"),
+    "pockets":     lambda: multi_component(2, 8, 8, 8, hole="cavity"),
+    "archipelago": lambda: multi_component(3, 7, 6, 6),
 }
 
 

@@ -24,7 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import analyze, configs
+from repro_torch import analyze, analyze_mesh, configs
+from repro_torch.algorithms import fields
+from repro_torch.algorithms.critical_points import critical_points, \
+    total_order
+from repro_torch.core import explicit, pipeline
+from repro_torch.core.mesh import segment_mesh
+from repro_torch.core.segtables import precondition
+from repro_torch.data.meshgen import structured_grid
 from repro_torch.kernels import completion_gather, flash_attention, ops, \
     segment_relations
 from repro_torch.launch import serve
@@ -403,6 +410,121 @@ def test_analyze_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_array_equal(getattr(ms, name),
                                       getattr(want_ms, name))
     assert eng.backend == "cuda"
+
+
+def _grid_pre(n, relations=("VV", "VT")):
+    sm = segment_mesh(structured_grid(n, n, n, scalar_fn=fields.gaussians(
+        0, k=4, sigma=3.0, scale=n)), capacity=64)
+    return precondition(sm, list(relations))
+
+
+@pytest.mark.parametrize("relation", ["VV", "VE", "VF", "VT"])
+def test_bits_kernels_at_b1_equal_plain_arm(cuda, relation):
+    """The localized baselines' launch: one real segment a launch, on the
+    bitmask route, bit for bit the plain arm."""
+    pre = _grid_pre(12, ("VV", "VE", "VF", "VT"))
+    t = pre.tables
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    arm = "VV" if relation == "VV" else "member"
+    for s in range(0, pre.smesh.n_segments, 7):
+        T = cu(t.T_local[s:s + 1])
+        if relation == "VV":
+            tx, ty, colg = T, T, cu(t.LV_global[s:s + 1])
+        else:
+            ky = relation[1]
+            tx = cu(t.table("V")[0][s:s + 1])
+            ty = T if ky == "T" else cu(t.table(ky)[0][s:s + 1])
+            colg = cu(getattr(t, f"L{ky}_global")[s:s + 1])
+        deg = ops.DEFAULT_DEG[relation]
+        before = segment_relations.LAUNCHES[f"{arm}_bits"]
+        got = segment_relations.relation_entries_cuda(relation, tx, ty, colg,
+                                                      nvl=t.NV, deg=deg)
+        want = ops.relation_block(relation, tx, ty, colg, t.NV, deg=deg,
+                                  backend="torch")
+        torch.cuda.synchronize()
+        assert segment_relations.LAUNCHES[f"{arm}_bits"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cls", ["TopoClusterDS", "ActopoDS"])
+def test_localized_baselines_on_the_card_equal_the_cpu(cuda, cls):
+    pre = _grid_pre(16)
+    rank = total_order(pre.smesh.scalars)
+    ds = getattr(explicit, cls)(pre, ["VV", "VT"])
+    assert ds.device.type == "cuda" and ds.engine.backend == "cuda"
+    before = dict(segment_relations.LAUNCHES)
+    types, counts = critical_points(ds, pre, rank)
+    moved = {k: segment_relations.LAUNCHES[k] - before[k] for k in before}
+    want, want_counts = critical_points(
+        getattr(explicit, cls)(pre, ["VV", "VT"], device="cpu"), pre, rank)
+    np.testing.assert_array_equal(types, want)
+    assert counts == want_counts
+    # one B=1 launch a segment produced, every one on the bitmask route
+    st = ds.stats
+    assert st.kernel_launches == st.segments_produced
+    assert moved["VV_bits"] + moved["member_bits"] == st.kernel_launches
+    assert moved["VV_sort"] == moved["member_sort"] == 0
+
+
+def test_explicit_on_the_card_equals_the_cpu(cuda):
+    pre = _grid_pre(16, ("VV", "VE", "VF", "VT", "FT", "TT"))
+    rank = total_order(pre.smesh.scalars)
+    ex = explicit.ExplicitTriangulation(pre, ["VV", "VT"])
+    assert ex.device.type == "cuda"
+    cb = ex.get_full_dev_many(("VV", "VT"), [0, 3])
+    assert cb.M["VV"].device.type == "cuda" and cb.gid_dev.dtype == \
+        torch.int32
+    types, counts = critical_points(ex, pre, rank)
+    want, want_counts = critical_points(
+        explicit.ExplicitTriangulation(pre, ["VV", "VT"], device="cpu"),
+        pre, rank)
+    np.testing.assert_array_equal(types, want)
+    assert counts == want_counts
+
+
+@pytest.mark.parametrize("batch", [3, 8])
+def test_fused_batch_with_padding_segments_equals_plain_arm(cuda, batch):
+    """vv_counts on the fused loop's batches, the last padded with -1
+    segments, bit for bit the plain arm; the extrema equal the CPU's."""
+    pre = _grid_pre(13)
+    ns = pre.smesh.n_segments
+    assert ns % batch, (ns, batch)
+    rank = total_order(pre.smesh.scalars)
+    T = pipeline.stage_fused(pre, rank, batch)[0]
+    last = T[-1]
+    assert (last[ns % batch:] == -1).all()
+    got = ops.counts_vv(last, pre.tables.NV)
+    want = ops.counts_vv(last, pre.tables.NV, backend="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    before = segment_relations.LAUNCHES["vv_counts"]
+    mins, maxs = pipeline.fused_extrema(pre, rank, batch=batch)
+    assert segment_relations.LAUNCHES["vv_counts"] == before + T.shape[0]
+    wmin, wmax = pipeline.fused_extrema(pre, rank, batch=batch, device="cpu")
+    np.testing.assert_array_equal(mins, wmin)
+    np.testing.assert_array_equal(maxs, wmax)
+
+
+def test_fused_loop_makes_no_host_sync(cuda):
+    pre = _grid_pre(12)
+    staged = pipeline.stage_fused(pre, total_order(pre.smesh.scalars), 8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mins, maxs = pipeline.fused_masks(*staged)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mins.shape == maxs.shape
+
+
+def test_analyze_mesh_on_the_card_equals_the_cpu(cuda):
+    _, rows = analyze_mesh.run("toy", device="cuda")
+    _, want = analyze_mesh.run("toy", device="cpu")
+    for label in ("GALE", "Explicit"):
+        for key in ("critical", "gradient", "ms", "persistence", "digest"):
+            assert rows[label][key] == want[label][key], (label, key)
+    assert rows["GALE"]["ds"].backend == "cuda"
 
 
 def _rand_simplices(rng, B, N, arity, nvl, fill=0.8):
