@@ -88,6 +88,20 @@ Phases, one JSON line each:
      holds and times the VV and VT bitmask kernels at B=1 (the baselines'
      launch) and the VV count kernel at the fused batch (B=8, and a batch
      ending in -1 padding segments).
+ 8c. segment shards on the one card: ``critical_points`` at 96^3 through
+     ``RelationEngine(shards=4)`` (four logical shards on ``cuda:0``),
+     ``types`` equal to the pin, every launch inside one shard,
+     ``merged_shard_stats()`` equal to ``stats``, each shard producing
+     its own VV and VT blocks once, beside phase 8b's one-shard wall; a
+     VV sweep producing each shard's segments once; the completion
+     exchange (``execute_completion_sharded``) for TT and FF on a real
+     96^3 chunk across the cut of the 2- and 4-shard plans, equal to one
+     shard's rows on both arms; the gather kernel's mask mode (one
+     shard's half, ``gather_candidates``) held bit for bit against its
+     plain version for a shard owning every pair, none, and the real
+     halves, which sum to the single-pool gather, and timed like phase
+     7; the whole audit -> persistence -> ``simplify_ms`` path at 48^3 on
+     four shards and four workers against phase 8's 48^3 pins.
   9. flash attention: the kernels held against their plain version
      (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
      routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256 on
@@ -1100,6 +1114,7 @@ def main() -> int:
     from repro_torch.core.mesh import segment_mesh
     from repro_torch.core.pipeline import fused_extrema, fused_masks, \
         stage_fused
+    from repro_torch.core.scheduler import segment_batches
     from repro_torch.core.segtables import precondition
     from repro_torch.data.meshgen import structured_grid
     from repro_torch.kernels import _build, ops
@@ -1917,28 +1932,30 @@ def main() -> int:
     del eng, g
 
     # -- 6. the audit + persistence path at 96^3 (its engine serves phase 7)
-    def audit_path(p, r, backend, n):
+    def audit_path(p, r, backend, n, shards=1, workers=1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng = RelationEngine(p, PATH_RELS, lookahead=8,
                              dev_pool_segments=4096, device="cuda",
-                             backend=backend)
+                             backend=backend, shards=shards)
         # raises ValueError unless every audit count is zero
         g = discrete_gradient(eng, p, r, batch_segments=16,
-                              co_prefetch=("TT",), audit=True)
+                              co_prefetch=("TT",), audit=True,
+                              workers=workers)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ms = morse_smale(eng, p, g)
+        ms = morse_smale(eng, p, g, workers=workers)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        d = persistence_pairs(eng, p, r, grad=g)
+        d = persistence_pairs(eng, p, r, grad=g, workers=workers)
         simp, rep = simplify_ms(ms, d, THRESHOLD)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         s = eng.stats
         rep = {k: v for k, v in rep.items() if k != "threshold"}
         out = {"phase": "audit_persistence_path", "backend": backend,
-               "n": n, "clean_audit": "zero (audit=True raised nothing)",
+               "n": n, "shards": shards, "workers": workers,
+               "clean_audit": "zero (audit=True raised nothing)",
                "grad_sha256": digest(g, GRAD_FIELDS),
                "ms_sha256": digest(ms, MS_FIELDS),
                "persistence": d.counts(), "pd_digest": d.digest(),
@@ -2000,6 +2017,12 @@ def main() -> int:
     # real 96^3 completion chunk of phase 6's engine
     paired = np.nonzero(g.pair_t2f >= 0)[0]
     ids = paired[len(paired) // 2:len(paired) // 2 + CHUNK]
+    # phase 8c's chunk: as many paired tets around the segment where the 2-
+    # and 4-shard plans both cut, so its pairs fall on several shards
+    # (tets are numbered by owner segment)
+    cut = int(np.searchsorted(pre.owner_segment("T", paired),
+                              sm.n_segments // 2))
+    tt_cross = paired[max(0, cut - CHUNK // 2):cut + CHUNK // 2]
     plan = plan_completion(eng, "TT", ids, prefetch=False)
     S = ops.bucket_rows(len(plan.segments))
     pool_M, pool_L = eng.get_full_dev_batch("TT", plan.segments, pad_to=S)
@@ -2364,6 +2387,248 @@ def main() -> int:
     for k in ("VV_bits", "member_bits", "TT", "sub_bits", "gather"):
         launches[k] += counters[k]
     del rows
+
+    # -- 8c. segment shards on the one card ----------------------------------
+    # a. critical points at 96^3 through four logical shards on cuda:0,
+    # against the pin, beside phase 8b's one-shard GALE wall (same call)
+    SHARDS = 4
+    t8c = time.perf_counter()
+    zero_counts()
+    t0 = time.perf_counter()
+    seng = RelationEngine(pre, ["VV", "VT"], lookahead=8, device="cuda",
+                          shards=SHARDS)
+    init_s = time.perf_counter() - t0
+    splan = seng.shard_plan
+    impure = []
+    launch_device = seng._launch_device
+
+    def shard_pure(relation, batch, shard):
+        # every launch reads one shard's tables: its segments are all that
+        # shard's
+        if {int(x) for x in seng._seg_shard[batch]} != {shard}:
+            impure.append((relation, shard, batch[0], batch[-1]))
+        return launch_device(relation, batch, shard)
+
+    seng._launch_device = shard_pure
+    t0 = time.perf_counter()
+    types, counts = critical_points(seng, pre, rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = read_counts()
+    st, mst = seng.stats, seng.merged_shard_stats()
+    digest_t = hashlib.sha256(types.astype(np.int32).tobytes()).hexdigest()
+    sizes = [hi - lo for lo, hi in zip(splan.bounds[:-1], splan.bounds[1:])]
+    per_shard = {k: {"segments_produced": v.segments_produced,
+                     "kernel_launches": v.kernel_launches,
+                     "devpool_hits": v.devpool_hits}
+                 for k, v in sorted(seng.shard_stats.items())}
+    emit({"phase": "sharded_critical_points", "n": N, "shards": SHARDS,
+          "devices": [str(d) for d in splan.devices],
+          "bounds": list(splan.bounds), "counts": counts,
+          "wall_s": round(wall, 3), "init_s": round(init_s, 3),
+          "one_shard_wall_s": round(cp_walls["GALE"], 3),
+          "kernel_launches": st.kernel_launches,
+          "segments_produced": st.segments_produced,
+          "t_sync_s": round(st.t_sync, 3),
+          "t_kernel_s": round(st.t_kernel, 3), "per_shard": per_shard,
+          "impure_launches": len(impure), "types_sha256": digest_t,
+          "kernel_counters": counters})
+    check(digest_t == REF_TYPES_SHA256 and counts == REF_COUNTS,
+          "the 4-shard critical points differ from the reference's")
+    for f in ("kernel_launches", "segments_produced", "devpool_hits",
+              "devpool_uploads"):
+        check(getattr(mst, f) == getattr(st, f),
+              f"merged_shard_stats().{f} {getattr(mst, f)} != stats "
+              f"{getattr(st, f)}")
+    check(not impure, f"launches spanned shards: {impure[:4]}")
+    check([per_shard[k]["segments_produced"] for k in range(SHARDS)]
+          == [2 * n for n in sizes],
+          f"a shard produced other than its own VV and VT blocks once: "
+          f"{per_shard}")
+    check(counters["VV_bits"] > 0 and counters["member_bits"] > 0,
+          f"the 4-shard critical points launched no bitmask kernel: "
+          f"{counters}")
+    all_bits("the 4-shard critical points", counters)
+    for k in ("VV_bits", "member_bits"):
+        launches[k] += counters[k]
+    del seng
+
+    # a full VV sweep, one consumer batch of 64 at a time: each shard
+    # produces its own segments exactly once
+    veng = RelationEngine(pre, ["VV"], lookahead=8, device="cuda",
+                          shards=SHARDS)
+    t0 = time.perf_counter()
+    for b in segment_batches(sm.n_segments, BATCH, veng.shard_plan):
+        veng.get_batch("VV", b)
+    torch.cuda.synchronize()
+    sweep = {k: v.segments_produced
+             for k, v in sorted(veng.shard_stats.items())}
+    emit({"phase": "sharded_vv_sweep", "n": N, "shards": SHARDS,
+          "wall_s": round(time.perf_counter() - t0, 3),
+          "segments_produced": sweep, "shard_sizes": sizes,
+          "kernel_launches": veng.stats.kernel_launches})
+    check([sweep.get(k, 0) for k in range(SHARDS)] == sizes,
+          f"the VV sweep produced {sweep}, not each shard's {sizes} once")
+    del veng
+
+    # b. the sharded completion exchange on a real 96^3 chunk of phase 6's
+    # paired tets, and on as many faces, both across the cut of the 2- and
+    # 4-shard plans: TT and FF rows at 2 and 4 shards equal one shard's, on
+    # both arms
+    zero_counts()
+    f0 = int(pre.I_F[sm.n_segments // 2])
+    faces = np.arange(f0 - CHUNK // 2, f0 + CHUNK // 2)
+    exchange = {}
+    for backend in ("cuda", "torch"):
+        for relation, q in (("TT", tt_cross), ("FF", faces)):
+            rows = {}
+            for k in (1, 2, SHARDS):
+                xeng = RelationEngine(pre, [relation], lookahead=8,
+                                      device="cuda", backend=backend,
+                                      shards=k)
+                t0 = time.perf_counter()
+                M, L = complete_adjacency(xeng, relation, q, path="device",
+                                          shards=k)
+                torch.cuda.synchronize()
+                rows[k] = (M, L, time.perf_counter() - t0)
+                del xeng
+            exchange[f"{backend}_{relation}"] = {
+                "rows_sha256": rows_digest(*rows[1][:2]),
+                "wall_s": {k: round(v[2], 3) for k, v in rows.items()}}
+            for k in (2, SHARDS):
+                check(np.array_equal(rows[k][0], rows[1][0])
+                      and np.array_equal(rows[k][1], rows[1][1]),
+                      f"{backend} {relation}: the {k}-shard exchange differs "
+                      f"from one shard's rows")
+    x_counters = read_counts()
+    emit({"phase": "sharded_exchange", "n": N, "queries":
+          {"TT": len(tt_cross), "FF": len(faces)}, **exchange,
+          "kernel_counters": x_counters})
+    check(exchange["cuda_TT"]["rows_sha256"]
+          == exchange["torch_TT"]["rows_sha256"]
+          and exchange["cuda_FF"]["rows_sha256"]
+          == exchange["torch_FF"]["rows_sha256"],
+          "the sharded exchange differs between the arms")
+    check(x_counters["gather"] > 0 and x_counters["TT"] > 0
+          and x_counters["meet"] > 0,
+          f"a kernel was not launched on the sharded exchange: {x_counters}")
+    for k in ("TT", "meet", "gather", "sub_bits", "member_bits"):
+        launches[k] += x_counters[k]
+
+    # the gather kernel's mask mode (one shard's half) against the plain
+    # arm on the same inputs: phase 7's chunk as a shard owning every pair
+    # and as one owning none, then the real halves of a 4-shard engine
+    def masked_compare(case, *args, pool=None, start=None):
+        a = (*(pool or (pool_M, pool_L)), inv_seg, inv_gid, inv_row, *args)
+        got = cg.gather_candidates(*a, backend="cuda",
+                                   inv_start=start if start is not None
+                                   else inv_start)
+        want = cg.gather_candidates(*a, backend="torch")
+        torch.cuda.synchronize()
+        ok = all(torch.equal(x, y) for x, y in zip(got, want))
+        err = max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+                  for x, y in zip(got, want))
+        max_err["gather"] = max(max_err["gather"], err)
+        emit({"phase": "kernel_case", "case": case, "relation": "gather",
+              "mask": True, "pairs": int(args[0].shape[0]), "equal": ok,
+              "owned_resolved": int((want[1] > 0).sum()),
+              "zero_rows": int((want[0] == 0).all(1).sum())})
+        check(ok, f"the masked gather kernel disagrees with the plain arm "
+                  f"({case})")
+        return want
+
+    every = masked_compare("a shard owning every pair", *pairs)
+    plain_rows = cg.resolve_gather_torch(pool_M, pool_L, inv_seg, inv_gid,
+                                         inv_row, *pairs)
+    check(torch.equal(every[1], plain_rows[1]),
+          "the masked lengths differ from the unmasked gather's")
+    none = masked_compare("a shard owning no pair",
+                          torch.full_like(pairs[0], -1), *pairs[1:])
+    check(not none[0].any() and not none[1].any(),
+          "a shard owning no pair gave a nonzero row")
+    meng = RelationEngine(pre, ["TT"], device="cuda", shards=SHARDS)
+    mplan = plan_completion(meng, "TT", tt_cross, prefetch=False)
+    mshard = meng.shard_plan.shard_of_array(mplan.pair_seg)
+    MP = len(mplan.pair_seg)
+    MP_pad = ops.bucket_rows(MP)
+    mcols = np.zeros((2, MP_pad), np.int32)
+    mcols[1] = -1
+    mcols[0, :MP] = mplan.pair_seg
+    mcols[1, :MP] = mplan.ids[mplan.pair_query]
+    mpairs = (cu(mcols[0]), cu(mcols[1]))
+    mstart = meng.dev_inverse_starts("T")
+    # the single-pool gather of the same pairs, unmasked
+    sM, sL = meng.get_full_dev_batch(
+        "TT", mplan.segments, pad_to=ops.bucket_rows(len(mplan.segments)))
+    sslot = np.full(MP_pad, -1, np.int32)
+    sslot[:MP] = np.searchsorted(mplan.segments, mplan.pair_seg)
+    single = cg.resolve_gather_torch(sM, sL, inv_seg, inv_gid, inv_row,
+                                     cu(sslot), *mpairs)
+    halves, owned = [], []
+    for k in range(SHARDS):
+        lo, hi = meng.shard_plan.shard_bounds(k)
+        segs_k = mplan.segments[(mplan.segments >= lo)
+                                & (mplan.segments < hi)]
+        if len(segs_k) == 0:
+            continue
+        kM, kL = meng.get_full_dev_batch(
+            "TT", segs_k, pad_to=ops.bucket_rows(len(segs_k)))
+        kslot = np.full(MP_pad, -1, np.int32)
+        kslot[:MP] = np.where(mshard == k,
+                              np.searchsorted(segs_k, mplan.pair_seg), -1)
+        halves.append(masked_compare(
+            f"shard {k} of {SHARDS} ({int((mshard == k).sum())} pairs)",
+            cu(kslot), *mpairs, pool=(kM, kL), start=mstart))
+        owned.append(int((mshard == k).sum()))
+    check(len(halves) >= 2, f"the chunk lies on {len(halves)} shard(s)")
+    summed = [sum(h[i] for h in halves) for i in range(2)]
+    check(torch.equal(summed[1], single[1])
+          and torch.equal(summed[0][single[1] > 0],
+                          single[0][single[1] > 0]),
+          "the shards' masked halves do not sum to the single-pool gather")
+    # timed like phase 7: the whole chunk as one shard's half (the same
+    # work as row 5's unmasked launch, plus the zeroed rows' stores)
+    launch = (lambda: cg.resolve_gather_cuda(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs, mask=True,
+        inv_start=inv_start))
+    k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
+    p_ms = time_ms(torch, lambda: cg.gather_candidates(
+        pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
+    need = (nbytes(*pairs) + P_pad * (steps * 8 + 4)
+            + P_pad * (degp + 1) * 4 + nbytes(*every))
+    b_ms, b_by = bound_ms(need, [])
+    masked_timing = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "unmasked_ms": timing["gather"]["ms"]}
+    emit({"phase": "kernel_time", "arm": "gather_masked", "pairs": P_pad,
+          "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
+          "shard_pairs": owned, **masked_timing})
+    del meng, halves, every, none
+
+    # c. the whole sharded path at 48^3: audit -> Morse-Smale ->
+    # persistence -> simplify_ms on four shards and four workers, against
+    # phase 8's 48^3 pins
+    zero_counts()
+    sheng, _, sout = audit_path(ppre, prank, "cuda", SMALL_N, shards=SHARDS,
+                                workers=4)
+    s_counters = read_counts()
+    mst = sheng.merged_shard_stats()
+    emit({**sout, "phase": "sharded_audit_persistence_path",
+          "per_shard_segments": {k: v.segments_produced for k, v in
+                                 sorted(sheng.shard_stats.items())},
+          "kernel_counters": s_counters})
+    check(mst.segments_produced == sheng.stats.segments_produced
+          and mst.kernel_launches == sheng.stats.kernel_launches,
+          "the 48^3 sharded path's shard stats do not merge to its stats")
+    check(all(s_counters[k] > 0 for k in ("member_bits", "TT", "sub_bits",
+                                          "meet", "gather")),
+          f"a kernel was not launched on the sharded path: {s_counters}")
+    all_bits("the sharded audit + persistence path", s_counters)
+    for k in ("member_bits", "TT", "sub_bits", "meet", "gather"):
+        launches[k] += s_counters[k]
+    del sheng
+    emit({"phase": "sharded_total",
+          "wall_s": round(time.perf_counter() - t8c, 3)})
 
     lm_phases(torch, dev, max_err, timing, launches)
 

@@ -35,13 +35,22 @@ def consumer_mode(ds, consumer: str = "auto") -> str:
 
 def shard_plan(ds, shards=None):
     """Resolve a driver's ``shards=`` argument against the data structure.
-    The port's engine has one shard, so this returns None; a count other
-    than 1 raises, because segment sharding is not ported yet."""
-    if shards is not None and int(shards) != 1:
-        raise NotImplementedError(
-            f"shards={shards}: segment sharding is not ported yet (ROADMAP "
-            f"queue 1 item 9)")
-    return None
+
+    Sharding is a property of the engine (its
+    :class:`~repro_torch.distributed.sharding.ShardPlan`, fixed at
+    construction); the drivers only *follow* it — shard-aligned segment
+    batches and a shard-affine worker partition (docs/DESIGN.md §9).
+    Returns the plan when the structure is sharded (``n_shards > 1``),
+    else None. An explicit ``shards`` count that disagrees with the
+    structure raises ``ValueError`` instead of silently running a
+    different topology."""
+    plan = getattr(ds, "shard_plan", None)
+    n = getattr(plan, "n_shards", 1)
+    if shards is not None and int(shards) != n:
+        raise ValueError(
+            f"shards={shards} requested but {type(ds).__name__} has {n} "
+            f"shard(s); construct the RelationEngine with shards={shards}")
+    return plan if n > 1 else None
 
 
 def degree_bound(pre, relation: str) -> int:

@@ -97,7 +97,7 @@ def boundary_vertices(ds, pre, batch: int = 4096,
     completed rows on the device and derives the mask there; the host arm
     is the numpy reference. Both arms are bit-identical."""
     sm = pre.smesh
-    consume.shard_plan(ds, shards)
+    consume.shard_plan(ds, shards)   # validate; completion follows the plan
     mask = np.zeros(sm.n_vertices, dtype=bool)
     if sm.n_tets == 0:
         return mask
@@ -246,8 +246,13 @@ def critical_points(
     set, see :func:`boundary_vertices`) the counts gain a
     ``boundary_critical`` entry: non-regular vertices lying on the domain
     boundary, where the interior link classification is only approximate.
-    ``shards`` other than None or 1 raises."""
-    consume.shard_plan(ds, shards)
+
+    ``shards`` validates against the data structure's
+    :class:`~repro_torch.distributed.sharding.ShardPlan` (sharding is fixed
+    at engine construction); on a sharded engine the batch stream aligns
+    to shard boundaries and workers partition shard-affinely, both of which
+    keep the result bit for bit (docs/DESIGN.md §9)."""
+    plan = consume.shard_plan(ds, shards)
     sm = pre.smesh
     mode = consume.consumer_mode(ds, consumer)
     dev = ds.device
@@ -255,7 +260,9 @@ def critical_points(
     rank_dev = torch.from_numpy(np.asarray(rank)).to(dev)
     types = np.empty(sm.n_vertices, dtype=np.int32)
     cols = consume.degree_cols(pre, ("VV", "VT")) if mode == "device" else None
-    batches = segment_batches(sm.n_segments, batch_segments)
+    batches = segment_batches(sm.n_segments, batch_segments, plan)
+    shard_of = ((lambda i: plan.shard_of(batches[i][0]))
+                if plan is not None else None)
 
     prefetch = None
     if lookahead_hint and hasattr(ds, "prefetch"):
@@ -308,7 +315,7 @@ def critical_points(
 
     run_partitioned(batches, consume_batch, reduce_batch, workers=workers,
                     finalize=finalize, prefetch=prefetch, scope=ds,
-                    name="critical_points")
+                    name="critical_points", shard_of=shard_of)
 
     counts = {
         "minima": int((types == MINIMUM).sum()),
@@ -320,6 +327,6 @@ def critical_points(
     }
     if flag_boundary:
         on_bd = boundary_vertices(ds, pre, consumer=consumer,
-                                  workers=workers)
+                                  workers=workers, shards=shards)
         counts["boundary_critical"] = int((on_bd & (types != REGULAR)).sum())
     return types, counts

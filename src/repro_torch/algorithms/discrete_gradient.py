@@ -226,9 +226,9 @@ def audit_gradient(ds, pre, grad: GradientField,
 
     Requires a data structure with engine-native completion for TT and FF
     (FF blocks come from the dense counts fallback: the meet kernel on a
-    card). All counts are zero for a valid field. ``shards`` other than
-    None or 1 raises."""
-    consume.shard_plan(ds, shards)
+    card). All counts are zero for a valid field. ``shards`` validates
+    against the data structure's plan; the completion follows it."""
+    consume.shard_plan(ds, shards)   # validate; completion follows ds's plan
     out = {"tt_conflicts": 0, "ff_conflicts": 0, "reverse_mismatch": 0}
     f_paired = np.nonzero(grad.pair_f2t >= 0)[0]
     out["reverse_mismatch"] += int(
@@ -349,9 +349,13 @@ def discrete_gradient(
     data structure does not serve are ignored.
 
     ``audit=True`` runs :func:`audit_gradient` on the finished field and
-    raises ``ValueError`` on any conflict; ``shards`` other than None or 1
-    raises."""
-    consume.shard_plan(ds, shards)
+    raises ``ValueError`` on any conflict.
+
+    ``shards`` follows the engine's :class:`ShardPlan` (docs/DESIGN.md
+    §9): segment batches restart at shard boundaries and workers are
+    assigned shard-affinely, so each worker drives one shard's pipeline.
+    The field stays bit-identical for any shard count."""
+    plan = consume.shard_plan(ds, shards)
     sm = pre.smesh
     nv, nt = sm.n_vertices, sm.n_tets
     ne, nf = pre.n_edges, pre.n_faces
@@ -377,7 +381,9 @@ def discrete_gradient(
 
     extra = tuple(r for r in co_prefetch
                   if r in getattr(ds, "relations", co_prefetch))
-    batches = segment_batches(sm.n_segments, batch_segments)
+    batches = segment_batches(sm.n_segments, batch_segments, plan)
+    shard_of = ((lambda i: plan.shard_of(batches[i][0]))
+                if plan is not None else None)
 
     prefetch = None
     if hasattr(ds, "prefetch"):
@@ -440,7 +446,7 @@ def discrete_gradient(
 
     run_partitioned(batches, consume_batch, reduce_batch, workers=workers,
                     finalize=finalize, prefetch=prefetch, scope=ds,
-                    name="discrete_gradient")
+                    name="discrete_gradient", shard_of=shard_of)
     if audit:
         report = audit_gradient(ds, pre, g, workers=workers, shards=shards)
         if any(report.values()):

@@ -91,15 +91,19 @@ def _jump_host(succ: np.ndarray, device) -> np.ndarray:
 
 
 def _gather_ft(ds, pre, batch_segments: int = 16,
-               workers: int = 1) -> np.ndarray:
+               workers: int = 1, plan=None) -> np.ndarray:
     """Assemble the global FT table (nf, 2) through the data structure —
     every segment's FT block is produced/consumed (GALE's FT queue). The
     batch stream goes through the consumer scheduler: each worker
     dispatches its next batch before integrating the current one, and rows
-    land in disjoint per-segment slices reduced in segment order."""
+    land in disjoint per-segment slices reduced in segment order. With a
+    shard ``plan`` the batches restart at shard boundaries and the workers
+    are shard-affine."""
     nf = pre.n_faces
     ft = np.full((nf, 2), -1, dtype=np.int64)
-    batches = segment_batches(pre.smesh.n_segments, batch_segments)
+    batches = segment_batches(pre.smesh.n_segments, batch_segments, plan)
+    shard_of = ((lambda i: plan.shard_of(batches[i][0]))
+                if plan is not None else None)
     prefetch = ((lambda segs: ds.prefetch("FT", segs))
                 if hasattr(ds, "prefetch") else None)
 
@@ -115,27 +119,40 @@ def _gather_ft(ds, pre, batch_segments: int = 16,
             ft[lo:lo + n, :w] = M[:, :w]
 
     run_partitioned(batches, consume_batch, reduce_batch, workers=workers,
-                    prefetch=prefetch, scope=ds, name="gather_ft")
+                    prefetch=prefetch, scope=ds, name="gather_ft",
+                    shard_of=shard_of)
     return ft
 
 
 def _cofacet_rows(ds, pre, face_ids, batch_segments: int = 16,
-                  mode: str = "host", workers: int = 1) -> np.ndarray:
+                  mode: str = "host", workers: int = 1,
+                  plan=None) -> np.ndarray:
     """FT rows (m, 2) for specific faces only: the owner segments are
     streamed in pipelined batches through the consumer scheduler
     (:func:`run_collect`) — each worker prefetches its next owner batch
-    before consuming the current one. The device arm reads the owner blocks
-    through :meth:`get_full_dev_many` and downloads only the selected
-    ``(m, 2)`` rows; results are bit-identical for any batch size or worker
-    count (rows are keyed by face gid, not by batch)."""
+    before consuming the current one, and batches restart at shard
+    boundaries with shard-affine workers. The device arm reads the owner
+    blocks through :meth:`get_full_dev_many` and downloads only the
+    selected ``(m, 2)`` rows; results are bit-identical for any batch
+    size, worker count or shard plan (rows are keyed by face gid, not by
+    batch)."""
     face_ids = np.asarray(face_ids, dtype=np.int64)
     out = np.full((len(face_ids), 2), -1, dtype=np.int64)
     if len(face_ids) == 0:
         return out
     segs = pre.owner_segment("F", face_ids)
     uniq = np.unique(segs)
-    batches = [[int(s) for s in uniq[i:i + batch_segments]]
-               for i in range(0, len(uniq), batch_segments)]
+    sh = (plan.shard_of_array(uniq) if plan is not None
+          else np.zeros(len(uniq), np.int64))
+    batches, cur = [], [int(uniq[0])]
+    for a in range(1, len(uniq)):
+        if len(cur) >= batch_segments or sh[a] != sh[a - 1]:
+            batches.append(cur)
+            cur = []
+        cur.append(int(uniq[a]))
+    batches.append(cur)
+    shard_of = ((lambda i: plan.shard_of(batches[i][0]))
+                if plan is not None else None)
     prefetch = ((lambda sl: ds.prefetch("FT", sl))
                 if hasattr(ds, "prefetch") else None)
 
@@ -168,7 +185,8 @@ def _cofacet_rows(ds, pre, face_ids, batch_segments: int = 16,
 
     for sel, rows in run_collect(batches, consume_batch, workers=workers,
                                  finalize=finalize, prefetch=prefetch,
-                                 scope=ds, name="cofacet_rows"):
+                                 scope=ds, name="cofacet_rows",
+                                 shard_of=shard_of):
         w = min(2, rows.shape[1])
         out[sel, :w] = rows[:, :w]
     return out
@@ -248,13 +266,16 @@ def morse_smale(ds, pre, grad: GradientField,
     targeted FT reads on the device. ``workers`` threads the
     successor-assembly streams (the FT gather's batch stream, or the TT
     completion's chunk stream) through the consumer scheduler
-    (docs/DESIGN.md §8). Results are bit-identical across all combinations
-    and any worker count. ``shards`` other than None or 1 raises."""
+    (docs/DESIGN.md §8). ``shards`` follows the engine's
+    :class:`ShardPlan` (docs/DESIGN.md §9): segment batches restart at
+    shard boundaries with shard-affine workers, and the TT completion
+    exchanges per-shard gathers. Results are bit-identical across all
+    combinations and any worker or shard count."""
     sm = pre.smesh
     nv, nt = sm.n_vertices, sm.n_tets
     E = pre.E
     mode = consume.consumer_mode(ds, consumer)
-    consume.shard_plan(ds, shards)
+    plan = consume.shard_plan(ds, shards)
     dev = ds.device
     use_tt = adjacency == "tt" or (
         adjacency == "auto" and _supports_completion(ds, "TT", "FT"))
@@ -277,9 +298,9 @@ def morse_smale(ds, pre, grad: GradientField,
                                           batch=64 * batch_segments,
                                           mode=mode, workers=workers)
         cof_s2 = _cofacet_rows(ds, pre, s2, batch_segments, mode=mode,
-                               workers=workers)
+                               workers=workers, plan=plan)
     else:
-        ft = _gather_ft(ds, pre, batch_segments, workers=workers)
+        ft = _gather_ft(ds, pre, batch_segments, workers=workers, plan=plan)
         f = grad.pair_t2f                  # (nt,) face this tet is paired to
         cof0 = ft[np.maximum(f, 0), 0]
         cof1 = ft[np.maximum(f, 0), 1]

@@ -210,7 +210,7 @@ _ARMS = {"pairing": _merge_forest, "reduction": _reduce_pairs}
 # ---------------------------------------------------------------------------
 
 def _connectivity(ds, pre, grad: GradientField, batch_segments: int,
-                  adjacency: str, mode: str, workers: int):
+                  adjacency: str, mode: str, workers: int, plan):
     """V-path destinations + critical-face cofacets, scheduled exactly like
     ``morse_smale``: completed-TT successors / targeted FT rows on engines,
     the whole-mesh FT gather on the baselines — bit-identical arms."""
@@ -234,9 +234,9 @@ def _connectivity(ds, pre, grad: GradientField, batch_segments: int,
                                           batch=64 * batch_segments,
                                           mode=mode, workers=workers)
         cof_s2 = _cofacet_rows(ds, pre, s2, batch_segments, mode=mode,
-                               workers=workers)
+                               workers=workers, plan=plan)
     else:
-        ft = _gather_ft(ds, pre, batch_segments, workers=workers)
+        ft = _gather_ft(ds, pre, batch_segments, workers=workers, plan=plan)
         f = grad.pair_t2f
         cof0 = ft[np.maximum(f, 0), 0]
         cof1 = ft[np.maximum(f, 0), 1]
@@ -283,12 +283,11 @@ def persistence_pairs(
     the boundary-matrix oracle. ``consumer`` / ``workers`` / ``shards``
     follow the shared driver contract (docs/DESIGN.md §6/§8/§9): the
     diagram is bit-identical (equal :meth:`~PersistenceDiagram.digest`)
-    for every method, consumer arm and worker count. ``shards`` other than
-    None or 1 raises."""
+    for every method, consumer arm, worker count and shard plan."""
     if method not in _ARMS:
         raise ValueError(f"method must be pairing/reduction, got {method!r}")
     mode = consume.consumer_mode(ds, consumer)
-    consume.shard_plan(ds, shards)
+    plan = consume.shard_plan(ds, shards)
     sm = pre.smesh
     scal = np.asarray(sm.scalars if scalars is None else scalars, np.float64)
     rank = np.asarray(rank, np.int64)
@@ -299,7 +298,7 @@ def persistence_pairs(
                                  consumer=consumer, co_prefetch=co,
                                  workers=workers, shards=shards)
     dest_min, dest_max, cof_s2, s1, s2 = _connectivity(
-        ds, pre, grad, batch_segments, adjacency, mode, workers)
+        ds, pre, grad, batch_segments, adjacency, mode, workers, plan)
     arm = _ARMS[method]
     E, F, T = pre.E, pre.F, sm.tets
 

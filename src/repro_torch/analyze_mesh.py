@@ -3,18 +3,20 @@ with a GALE vs Explicit-Triangulation comparison — the results must be
 identical.
 
   PYTHONPATH=src python -m repro_torch.analyze_mesh [dataset] [--workers N]
-      [--simplify T] [--device cuda|cpu]
+      [--shards K] [--simplify T] [--device cuda|cpu]
 
 Both structures run the device-resident consumer arm: the drivers read
 relation blocks as ConsumerBatch tensors (``get_full_dev_many``); the GALE
 engine serves every read from its device block pool, the explicit
 structure uploads its precomputed rows. ``--workers N`` runs the drivers'
-consumer arms on N threads; results are bit-identical for any N.
+consumer arms on N threads, and ``--shards K`` splits the GALE engine's
+segments into K shards (docs/DESIGN.md §9: shard-pure launches, per-shard
+pools, the sharded completion exchange; on one card or the CPU, as K
+logical shards); results are bit-identical for any N and K.
 ``--simplify T`` also cancels every persistence pair below threshold T and
 reports the simplified Morse–Smale complex. On a card GALE's relation
 blocks and completion gathers come from the CUDA kernels; ``--device cpu``
-runs the plain torch arm. ``--shards`` other than 1 raises: segment
-sharding is not ported yet.
+runs the plain torch arm.
 """
 
 from __future__ import annotations
@@ -40,11 +42,8 @@ def run(name: str = "foot", workers: int = 1, simplify=None, device="cuda",
         shards: int = 1):
     """Both rows on dataset ``name``. Returns ``(header, rows)``: the mesh's
     sizes and Euler characteristic, and per structure (``"GALE"``,
-    ``"Explicit"``) a dict of its results, wall and stats."""
-    if shards != 1:
-        raise NotImplementedError(
-            f"shards={shards}: segment sharding is not ported yet (ROADMAP "
-            f"queue 1 item 3)")
+    ``"Explicit"``) a dict of its results, wall and stats. ``shards``
+    applies to the GALE engine."""
     mesh = load_dataset(name, scalar_fn=fields.gaussians(2, k=5, sigma=5.0))
     sm = segment_mesh(mesh, capacity=64)
     pre = precondition(sm, relations=RELS)
@@ -56,7 +55,7 @@ def run(name: str = "foot", workers: int = 1, simplify=None, device="cuda",
     for label, make in (
             ("GALE", lambda: RelationEngine(pre, RELS, lookahead=8,
                                             dev_pool_segments=4096,
-                                            device=device)),
+                                            device=device, shards=shards)),
             ("Explicit", lambda: ExplicitTriangulation(pre, RELS,
                                                        device=device))):
         ds = make()
@@ -88,7 +87,7 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=1,
                     help="consumer threads per driver (DESIGN.md §8)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="segment shards (only 1: sharding is not ported)")
+                    help="segment shards on the GALE engine (DESIGN.md §9)")
     ap.add_argument("--simplify", type=float, default=None, metavar="T",
                     help="cancel persistence pairs below threshold T and "
                          "report the simplified MS complex (DESIGN.md §10)")

@@ -22,6 +22,10 @@ with a plan/execute split:
     binary search over the DEVICE inverse maps, and unions/dedups/compacts
     on the device (``kernels/completion_gather.py``) — ONE host round trip
     per batch, or none with ``out="dev"``.
+  - :func:`execute_completion_sharded` is the device path of a sharded
+    engine (docs/DESIGN.md §9): each shard resolves and gathers the pairs
+    of its own segments from its own pool, the other pairs as exact
+    zeros, and the shards' halves are summed before the one union.
   - :func:`execute_completion` is the host reference: one
     :meth:`RelationEngine.get_full` per distinct segment, union as
     vectorized numpy ops.
@@ -35,9 +39,6 @@ Completion work is accounted in ``EngineStats`` (``completion_queries``,
 
 :func:`complete_adjacency_scalar` is the one-simplex-at-a-time reference
 kept for the bit-identical regression tests.
-
-This is the reference's single-shard completion: the sharded exchange
-(``execute_completion_sharded``) comes with segment sharding.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import all_sum_shards
 from ..errors import RelationWidthError
 from ..kernels import completion_gather, ops
 from .engine import RelationEngine
@@ -208,6 +210,57 @@ def _width_error(relation: str, worst: int, deg: int) -> RelationWidthError:
         relation=relation)
 
 
+def _pair_meta(plan: CompletionPlan, w: int):
+    """The pair columns shared by every execute arm of the device path:
+    the ``(pow2(n), w)`` per-query pair map and the pairs' segment and
+    query gid, padded to a power-of-two pair count with inert entries."""
+    n, P = len(plan.ids), len(plan.pair_seg)
+    # per-query pair positions (pairs come sorted by query from the plan's
+    # unique pass) -> the (n, w) pair_at gather map
+    counts_p = np.bincount(plan.pair_query, minlength=n)
+    off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts_p, out=off[1:])
+    pos = np.arange(P, dtype=np.int64) - off[plan.pair_query]
+    pair_at = np.full((_pow2(n), w), -1, dtype=np.int32)
+    pair_at[plan.pair_query, pos] = np.arange(P, dtype=np.int32)
+    pad = _pow2(P) - P
+    pair_seg = np.concatenate(
+        [plan.pair_seg.astype(np.int32), np.zeros(pad, np.int32)])
+    pair_gid = np.concatenate(
+        [plan.ids[plan.pair_query].astype(np.int32),
+         np.full(pad, -1, np.int32)])
+    return pair_at, pair_seg, pair_gid, pad
+
+
+def _finish(relation: str, M_dev, L_dev, n: int, deg: int, out: str):
+    """The device path's overflow check and output: the padded ``(n,
+    deg)`` device rows for ``out="dev"`` (one scalar reduce), else the
+    batch's ONE host round trip, trimmed to the realized width."""
+    if out == "dev":
+        worst = int(L_dev[:n].max()) if n else 0
+        if worst > deg:
+            raise _width_error(relation, worst, deg)
+        return M_dev[:n], L_dev[:n]
+    Mh = M_dev[:n].cpu().numpy()          # contract: host-roundtrip
+    Lh = L_dev[:n].cpu().numpy()          # contract: host-roundtrip
+    worst = int(Lh.max()) if n else 0
+    if worst > deg:
+        raise _width_error(relation, worst, deg)
+    width = max(worst, 1)
+    return Mh[:, :width].astype(np.int64), Lh.astype(np.int32)
+
+
+def _empty(eng, plan: CompletionPlan, out: str):
+    """All-empty rows for a batch with no resolved pair."""
+    n = len(plan.ids)
+    if out == "dev":   # width stays deg so chunked device concat lines up
+        return (torch.full((n, eng.deg[plan.relation]), -1,
+                           dtype=torch.int32, device=eng.device),
+                torch.zeros(n, dtype=torch.int32, device=eng.device))
+    return (np.full((n, 1), -1, dtype=np.int64),
+            np.zeros(n, dtype=np.int32))
+
+
 # contract: device-resident
 def execute_completion_device(eng: RelationEngine, plan: CompletionPlan,
                               out: str = "host"):
@@ -235,43 +288,21 @@ def execute_completion_device(eng: RelationEngine, plan: CompletionPlan,
             f"{type(eng).__name__}")
     n = len(plan.ids)
     P = len(plan.pair_seg)
-    dev = eng.device
     if P == 0:
-        if out == "dev":   # width stays deg so chunked device concat lines up
-            return (torch.full((n, eng.deg[plan.relation]), -1,
-                               dtype=torch.int32, device=dev),
-                    torch.zeros(n, dtype=torch.int32, device=dev))
-        return (np.full((n, 1), -1, dtype=np.int64),
-                np.zeros(n, dtype=np.int32))
+        return _empty(eng, plan, out)
     relation = plan.relation
     kind = relation[0]
     deg = eng.deg[relation]
-    w = _PAIR_WIDTH[kind]
+    dev = eng.device
 
     # device block pool, padded to a power-of-two slot count (padding
     # repeats slot 0; no pair references it), as the reference
     pool_M, pool_L = eng.get_full_dev_batch(
         relation, plan.segments, pad_to=_pow2(len(plan.segments)))
-
+    pair_at, pair_seg, pair_gid, pad = _pair_meta(plan, _PAIR_WIDTH[kind])
+    # padding pairs are inert (slot == -1)
     slot = np.searchsorted(plan.segments, plan.pair_seg).astype(np.int32)
-    # per-query pair positions (pairs come sorted by query from the plan's
-    # unique pass) -> the (n, w) pair_at gather map
-    counts_p = np.bincount(plan.pair_query, minlength=n)
-    off = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(counts_p, out=off[1:])
-    pos = np.arange(P, dtype=np.int64) - off[plan.pair_query]
-    pair_at = np.full((_pow2(n), w), -1, dtype=np.int32)
-    pair_at[plan.pair_query, pos] = np.arange(P, dtype=np.int32)
-
-    # pad pairs to a power-of-two bucket with inert entries (slot == -1)
-    P_pad = _pow2(P)
-    pad = P_pad - P
     pair_slot = np.concatenate([slot, np.full(pad, -1, np.int32)])
-    pair_seg = np.concatenate(
-        [plan.pair_seg.astype(np.int32), np.zeros(pad, np.int32)])
-    pair_gid = np.concatenate(
-        [plan.ids[plan.pair_query].astype(np.int32),
-         np.full(pad, -1, np.int32)])
 
     inv_seg, inv_gid, inv_row, inv_key, n_glob = eng.dev_inverse(kind)
     M_dev, L_dev, raw, kept = completion_gather.gather_union(
@@ -283,21 +314,73 @@ def execute_completion_device(eng: RelationEngine, plan: CompletionPlan,
 
     eng.stat_bump(completion_raw_neighbors=int(raw),
                   completion_neighbors=int(kept))
-    if out == "dev":
-        # device-resident consumers take the padded (n, deg) rows as-is;
-        # the overflow check costs one scalar reduce, not a block download
-        worst = int(L_dev[:n].max()) if n else 0
-        if worst > deg:
-            raise _width_error(relation, worst, deg)
-        return M_dev[:n], L_dev[:n]
-    # the batch's documented ONE host round trip (DESIGN.md §6):
-    Mh = M_dev[:n].cpu().numpy()          # contract: host-roundtrip
-    Lh = L_dev[:n].cpu().numpy()          # contract: host-roundtrip
-    worst = int(Lh.max()) if n else 0
-    if worst > deg:
-        raise _width_error(relation, worst, deg)
-    width = max(worst, 1)
-    return Mh[:, :width].astype(np.int64), Lh.astype(np.int32)
+    return _finish(relation, M_dev, L_dev, n, deg, out)
+
+
+# contract: device-resident
+def execute_completion_sharded(eng: RelationEngine, plan: CompletionPlan,
+                               out: str = "host"):
+    """The completion exchange of a sharded engine (docs/DESIGN.md §9).
+
+    Each (query, segment) pair is owned by exactly one shard: the one that
+    produced and retains the consulted segment's block. Per shard, the
+    ``(segment, gid)`` resolve + pool gather of the device path runs over
+    the shard's OWN blocks only
+    (:func:`~repro_torch.kernels.completion_gather.gather_candidates`,
+    backend per ``eng.backend``), with non-owned pairs as exact zeros; an
+    elementwise integer sum over the shards
+    (:func:`~repro_torch.distributed.sharding.all_sum_shards`) rebuilds
+    the single-pool candidate matrix bit for bit, and the shared union
+    epilogue runs once. Bit-identical to
+    :func:`execute_completion_device`, with one host round trip per batch
+    (none with ``out="dev"``)."""
+    splan = eng.shard_plan
+    n = len(plan.ids)
+    P = len(plan.pair_seg)
+    if P == 0:
+        return _empty(eng, plan, out)
+    relation = plan.relation
+    kind = relation[0]
+    deg = eng.deg[relation]
+    dev = eng.device
+    pair_at, pair_seg, pair_gid, pad = _pair_meta(plan, _PAIR_WIDTH[kind])
+    pair_shard = splan.shard_of_array(plan.pair_seg)
+    pair_seg_dev = torch.from_numpy(pair_seg).to(dev)
+    pair_gid_dev = torch.from_numpy(pair_gid).to(dev)
+
+    # per-shard halves: each shard consults only its own contiguous slice
+    # of the planned segments, served from ITS device pool
+    parts, part_devs = [], []
+    seg_lo = np.searchsorted(plan.segments, splan.bounds[:-1], side="left")
+    seg_hi = np.searchsorted(plan.segments, splan.bounds[1:], side="left")
+    for k in range(splan.n_shards):
+        segs_k = plan.segments[seg_lo[k]:seg_hi[k]]
+        sel = pair_shard == k
+        if len(segs_k) == 0 or not sel.any():
+            continue
+        pool_M, pool_L = eng.get_full_dev_batch(
+            relation, segs_k, pad_to=_pow2(len(segs_k)))
+        slot_k = np.where(
+            sel, np.searchsorted(segs_k, plan.pair_seg).astype(np.int32),
+            np.int32(-1))
+        pair_slot = np.concatenate([slot_k, np.full(pad, -1, np.int32)])
+        inv_seg, inv_gid, inv_row, inv_key, n_glob = eng.dev_inverse(
+            kind, shard=k)
+        parts.append(completion_gather.gather_candidates(
+            pool_M, pool_L, inv_seg, inv_gid, inv_row,
+            torch.from_numpy(pair_slot).to(dev), pair_seg_dev,
+            pair_gid_dev, inv_key=inv_key, n_global=n_glob,
+            backend=eng.backend, inv_start=eng.dev_inverse_starts(kind)))
+        part_devs.append(splan.devices[k])
+    if not parts:      # no pair resolved anywhere: all-empty rows
+        return _empty(eng, plan, out)
+
+    cand, clen = all_sum_shards(parts, part_devs)
+    M_dev, L_dev, raw, kept = completion_gather.union_pairs(
+        cand, clen, pair_gid_dev, torch.from_numpy(pair_at).to(dev), deg)
+    eng.stat_bump(completion_raw_neighbors=int(raw),
+                  completion_neighbors=int(kept))
+    return _finish(relation, M_dev, L_dev, n, deg, out)
 
 
 def complete_adjacency(
@@ -325,11 +408,18 @@ def complete_adjacency(
     results are assembled in chunk order. The result is bit-identical for
     any ``batch`` and any ``workers``.
 
-    ``shards`` other than None or 1 raises: sharding is not ported."""
-    if shards is not None and int(shards) != 1:
-        raise NotImplementedError(
-            "sharded completion comes with segment sharding (ROADMAP queue "
-            "1 item 9)")
+    Sharding follows the *engine's*
+    :class:`~repro_torch.distributed.sharding.ShardPlan`: on an engine of
+    more than one shard the device arm is the exchange of
+    :func:`execute_completion_sharded`. ``shards=`` only validates: a
+    count that does not match the engine's plan raises ``ValueError``.
+    The result is bit-identical for any shard count."""
+    n_shards = getattr(getattr(eng, "shard_plan", None), "n_shards", 1)
+    if shards is not None and int(shards) != n_shards:
+        raise ValueError(
+            f"shards={shards} requested but the engine's shard plan has "
+            f"{n_shards} shard(s); construct the RelationEngine with "
+            f"shards={shards}")
     if path is None:
         on_card = getattr(getattr(eng, "device", None), "type", "") == "cuda"
         path = ("device" if hasattr(eng, "get_full_dev")
@@ -340,8 +430,11 @@ def complete_adjacency(
         raise ValueError("out='dev' needs the device execute arm "
                          f"(got path={path!r})")
     if path == "device":
+        arm = (execute_completion_sharded if n_shards > 1
+               else execute_completion_device)
+
         def execute(e, p):
-            return execute_completion_device(e, p, out=out)
+            return arm(e, p, out=out)
     else:
         execute = execute_completion
     ids = np.asarray(ids, dtype=np.int64).reshape(-1)

@@ -13,9 +13,11 @@ granularities:
     which is what bounds device memory by *tensors*, not segments
     (DESIGN.md §6).
 
-:class:`BlockStore` composes the two. This engine has one shard, so the
-store holds one pool; the reference's per-shard routing comes with the
-port of segment sharding.
+:class:`BlockStore` composes the two, and routes device-pool operations to
+per-shard pools when the engine runs over a segment
+:class:`~repro_torch.distributed.sharding.ShardPlan` (DESIGN.md §9): each
+shard's pool retains only its own segments' blocks, so the
+``dev_pool_segments`` bound holds per shard.
 
 Thread-safety: none of these classes lock; the engine serialises access
 under its single condition lock (DESIGN.md §8). Every mutating surface
@@ -26,7 +28,7 @@ so contractcheck's lock-discipline rule verifies the callers.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 class _LRUCore:
@@ -137,6 +139,14 @@ class DevBlockPool:
         self._arrays = self._core._store  # id(M) -> (M, L, set of keys)
         self._entries: Dict[Tuple[str, int], Tuple[int, Optional[int]]] = {}
 
+    @property
+    def max_arrays(self) -> int:
+        return self._core.capacity
+
+    @property
+    def evictions(self) -> int:
+        return self._core.evictions
+
     def get(self, key):
         # contract: holds-lock
         ent = self._entries.get(key)
@@ -180,32 +190,80 @@ class DevBlockPool:
         return sum(M.numel() * M.element_size() + L.numel() * L.element_size()
                    for (M, L, _) in self._arrays.values())
 
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
 
 class BlockStore:
-    """The engine's storage layer: one host cache + one device pool.
+    """The engine's storage layer: one host cache + per-shard device pools.
 
     Presents the :class:`DevBlockPool` ``get``/``put`` surface (the
-    engine's ``_dev_pool`` *is* the store) next to the host ``cache``.
+    engine's ``_dev_pool`` *is* the store) next to the host ``cache``,
+    routing each ``(relation, segment)`` key to the pool of the segment's
+    owning shard via ``shard_of``. With one shard this is a single pool.
     """
 
-    def __init__(self, cache_segments: int, pool_arrays: int):
+    def __init__(self, cache_segments: int, pool_arrays: int,
+                 n_shards: int = 1,
+                 shard_of: Optional[Callable[[int], int]] = None):
         self.cache = SegmentCache(cache_segments)
-        self.pool = DevBlockPool(pool_arrays)
+        self.pools = [DevBlockPool(pool_arrays)
+                      for _ in range(max(1, int(n_shards)))]
+        self._shard_of = shard_of
 
+    def shard_of(self, segment: int) -> int:
+        if self._shard_of is None or len(self.pools) == 1:
+            return 0
+        return int(self._shard_of(segment))
+
+    def pool(self, shard: int) -> DevBlockPool:
+        return self.pools[shard]
+
+    def clear_shard(self, shard: int) -> int:
+        # contract: holds-lock
+        """Free one shard's device pool in place. Returns entries
+        dropped."""
+        return self.pools[shard].clear()
+
+    # -- DevBlockPool surface, shard-routed --------------------------------
     def get(self, key):
         # contract: holds-lock
-        return self.pool.get(key)
+        return self.pool(self.shard_of(key[1])).get(key)
 
     def put(self, key, M, L, idx) -> None:
         # contract: holds-lock
-        self.pool.put(key, M, L, idx)
+        self.pool(self.shard_of(key[1])).put(key, M, L, idx)
+
+    def __contains__(self, key) -> bool:
+        return key in self.pool(self.shard_of(key[1]))
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.pools)
+
+    @property
+    def evictions(self) -> int:
+        return sum(p.evictions for p in self.pools)
 
     def clear_cache(self) -> int:
         # contract: holds-lock
-        """Drop the host cache and the device pool in place. Returns the
-        total number of entries dropped (cache + pool)."""
-        return self.cache.clear() + self.pool.clear()
+        """Drop the host cache and every shard's device pool in place.
+        Returns the total number of entries dropped (cache + pools)."""
+        dropped = self.cache.clear()
+        for p in self.pools:
+            dropped += p.clear()
+        return dropped
 
     def cache_nbytes(self) -> int:
-        """Bytes retained across the host cache and the device pool."""
-        return self.cache.nbytes() + self.pool.nbytes()
+        """Bytes retained across the host cache and all device pools."""
+        return self.cache.nbytes() + sum(
+            occ["bytes"] for occ in self.shard_occupancy())
+
+    def shard_occupancy(self) -> List[Dict[str, int]]:
+        """Per-shard device-pool occupancy: backing tensors, entries, bytes
+        (the ``dev_pool_segments`` bound applies to each shard's pool
+        separately)."""
+        return [{"arrays": len(p._arrays), "entries": len(p),
+                 "bytes": p.nbytes()} for p in self.pools]

@@ -52,15 +52,28 @@ never produced twice for any thread interleaving, stat updates are never
 lost (``merged_worker_stats() == stats``), and results are bit-identical
 for any number of consumer threads.
 
-This is the reference engine's single-shard path, with the completion
-API (full-block reads, device inverse maps, boundary relations), and with
-no fault policy and no kernel-parameter tuning (the kernels pick their
-own tiles, so the reference's ``block_x``/``block_y``/``vv_block`` have
-no counterpart): its built-in defaults
-(``batch_max=64``, ``lookahead=8``, ``cache_segments=512``,
-``dev_pool_segments=256``, ``inflight_max=8``) give the reference's
-``tune="off"`` launch sequence.
-Sharding and the fault-recovery ladder come with later ports.
+Segment shards (docs/DESIGN.md §9)
+----------------------------------
+
+``shards=K`` (or ``shard_plan=``) splits the segments into K contiguous
+shards (:class:`~repro_torch.distributed.sharding.ShardPlan`). Shard k
+holds its own slice of the stacked tables and its own device pool, and
+produces exactly its own segments: a launch never mixes shards, lookahead
+stops at the shard's end, and the kernels read the shard's tables at
+shard-local segment indices. ``shard_stats`` attributes the producer
+counters to shards, and ``merged_shard_stats()`` equals ``stats`` on
+them. The engine's own plan puts every shard on the engine's device, so
+one card runs K logical shards; a plan whose shards sit on distinct cards
+raises, because the cross-card exchange needs a second card to verify.
+
+This is the reference engine with the completion API (full-block reads,
+device inverse maps, boundary relations), and with no fault policy and no
+kernel-parameter tuning (the kernels pick their own tiles, so the
+reference's ``block_x``/``block_y``/``vv_block`` have no counterpart): its
+built-in defaults (``batch_max=64``, ``lookahead=8``,
+``cache_segments=512``, ``dev_pool_segments=256``, ``inflight_max=8``)
+give the reference's ``tune="off"`` launch sequence. The fault-recovery
+ladder comes with a later port.
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import ShardPlan
 from ..errors import RelationWidthError
 from ..kernels import ops
 from .blockstore import BlockStore
@@ -161,11 +175,16 @@ class StatsHost:
     calling *worker thread* (:meth:`worker_scope`), so ``worker_stats``
     carries the per-consumer breakdown of docs/DESIGN.md §8 and
     ``merged_worker_stats() == stats`` holds at all times (exactly for int
-    counters, up to float-summation order for the ``t_*`` phases)."""
+    counters, up to float-summation order for the ``t_*`` phases).
+    The producer-side counters (``kernel_launches``,
+    ``segments_produced``, ``devpool_hits``, ``devpool_uploads``,
+    ``t_kernel``) are also attributed to segment shards (``shard_stats``,
+    docs/DESIGN.md §9)."""
 
     def _init_stats(self) -> None:
         self.stats = EngineStats()
         self.worker_stats: Dict[str, EngineStats] = {}
+        self.shard_stats: Dict[int, EngineStats] = {}
         self._cond = threading.Condition()
         self._tl = threading.local()
 
@@ -197,14 +216,25 @@ class StatsHost:
         with self._cond:
             self._bump(**deltas)
 
+    def _bump_shard(self, shard: int, **deltas) -> None:
+        # contract: holds-lock
+        """Producer-side stat update attributed to segment shard ``shard``
+        (besides the global/worker landing the caller does via
+        :meth:`_bump`); the caller must hold ``self._cond``."""
+        ss = self.shard_stats.get(shard)
+        if ss is None:
+            ss = self.shard_stats[shard] = EngineStats()
+        ss.bump(**deltas)
+
     def reset_stats(self) -> None:
-        """Zero every counter (global and per-worker) under the lock — the
-        way to separate a warm-up from a timed run. Rebinding ``.stats``
-        directly would bypass the lock and orphan the per-worker breakdown
-        (the ``merged_worker_stats() == stats`` invariant)."""
+        """Zero every counter (global, per-worker and per-shard) under the
+        lock — the way to separate a warm-up from a timed run. Rebinding
+        ``.stats`` directly would bypass the lock and orphan the per-worker
+        breakdown (the ``merged_worker_stats() == stats`` invariant)."""
         with self._cond:
             self.stats = EngineStats()
             self.worker_stats = {}
+            self.shard_stats = {}
 
     def merged_worker_stats(self) -> EngineStats:
         """Deterministic merge of the per-worker breakdown (sorted worker
@@ -212,6 +242,15 @@ class StatsHost:
         with self._cond:
             return EngineStats.merged(
                 self.worker_stats[k] for k in sorted(self.worker_stats))
+
+    def merged_shard_stats(self) -> EngineStats:
+        """Deterministic merge of the per-shard producer breakdown (sorted
+        shard order); equals ``stats`` on the producer counters: ints
+        exactly, ``t_kernel`` up to float summation order. Per-shard ``segments_produced`` shows that no
+        segment was produced on more than one shard."""
+        with self._cond:
+            return EngineStats.merged(
+                self.shard_stats[k] for k in sorted(self.shard_stats))
 
 
 @dataclasses.dataclass
@@ -287,7 +326,8 @@ class RelationEngine(StatsHost):
     default assembles sparsely wherever ``ops.sparse_arm_ok`` allows, and
     EE/FF always take the dense arm. ``async_dispatch=False`` syncs every
     launch right after dispatch (the localized baselines'
-    blocking producer). Safe for concurrent use by multiple
+    blocking producer). ``shards=K`` (or ``shard_plan=``) runs K segment
+    shards (module docstring). Safe for concurrent use by multiple
     consumer threads: every public consumer method acquires the engine
     lock exactly once; internal ``_``-prefixed steps assume it is held."""
 
@@ -304,18 +344,16 @@ class RelationEngine(StatsHost):
         inflight_max: int = 8,
         dev_pool_segments: int = 256,
         shards: int = 1,
+        shard_plan: Optional[ShardPlan] = None,
         fault_policy=None,
         assembly: str = "sparse",
         async_dispatch: bool = True,
     ):
         if pre.tables is None:
             raise ValueError("precondition(..., build_tables=True) required")
-        if shards != 1:
-            raise NotImplementedError(
-                "segment sharding is not ported yet (ROADMAP queue 1 item 9)")
         if fault_policy is not None:
             raise NotImplementedError(
-                "fault recovery is not ported yet (ROADMAP queue 1 item 10)")
+                "fault recovery is not ported yet (ROADMAP queue 1 item 4)")
         self.device = ops.resolve_device(device)
         self.backend = ops.resolve_backend(backend, self.device)
         if assembly not in ops.ASSEMBLIES:
@@ -335,16 +373,41 @@ class RelationEngine(StatsHost):
         if deg:
             self.deg.update(deg)
 
+        # Segment shards (docs/DESIGN.md §9): shard k owns the contiguous
+        # segment range plan.shard_bounds(k), produces exactly those blocks
+        # and retains them in its own device pool. shards=1 (the default)
+        # is the unsharded engine.
+        ns = self.smesh.n_segments
+        if shard_plan is None:
+            shard_plan = ShardPlan.make(
+                ns, shards, devices=None if int(shards) <= 1
+                else (self.device,) * int(shards))
+        elif shard_plan.n_segments != ns:
+            raise ValueError(
+                f"shard_plan covers {shard_plan.n_segments} segments but the "
+                f"mesh has {ns}")
+        if shard_plan.multi_device:
+            raise NotImplementedError(
+                "a shard plan on distinct cards: the cross-card completion "
+                "exchange is not verified, it needs a second card (ROADMAP "
+                "queue 3); run the shards on one card")
+        self.shard_plan = shard_plan
+        self.n_shards = shard_plan.n_shards
+        self._seg_shard = shard_plan.shard_of_array(np.arange(ns))
+
         # Multi-queue: one pending-request queue per offloaded relation
         # (paper §4.5 'Justification of design choices').
         self.queues: Dict[str, List[int]] = {r: [] for r in self.relations}
-        # Block storage: one host segment cache + one device block pool.
-        # Pool entries reference retained launch tensors (idx row) or
-        # one-block uploads (idx None); ``dev_pool_segments`` is a segment
-        # budget converted at launch granularity. Evictions only drop
-        # device references; the host cache keeps the data.
+        # Block storage: one host segment cache + one device block pool per
+        # shard. Pool entries reference retained launch tensors (idx row)
+        # or one-block uploads (idx None); ``dev_pool_segments`` is a
+        # per-shard segment budget converted at launch granularity.
+        # Evictions only drop device references; the host cache keeps the
+        # data.
         self.store = BlockStore(
-            cache_segments, max(1, dev_pool_segments // max(1, batch_max)))
+            cache_segments, max(1, dev_pool_segments // max(1, batch_max)),
+            n_shards=self.n_shards,
+            shard_of=lambda s: int(self._seg_shard[s]))
         self.cache = self.store.cache
         self._dev_pool = self.store
         # In-flight futures: (relation, segment) -> _Launch whose device
@@ -354,16 +417,16 @@ class RelationEngine(StatsHost):
         self._init_stats()   # stats + per-worker breakdown + lock
 
         # Device-resident stacked tables (copied once, like the paper
-        # copying initialized arrays to GPU global memory).
+        # copying initialized arrays to GPU global memory), sliced per
+        # shard: each shard holds only its own segments' rows, indexed by
+        # shard-local segment id.
         t = self.tables
         put = (lambda a: torch.from_numpy(np.ascontiguousarray(a))
                .to(self.device))
-        self._dev: Dict[str, torch.Tensor] = {
-            "T_local": put(t.T_local), "LT_global": put(t.LT_global),
-            "LV_global": put(t.LV_global)}
-        for name in ("E_local", "LE_global", "F_local", "LF_global"):
-            if getattr(t, name) is not None:
-                self._dev[name] = put(getattr(t, name))
+        self._shard_tables: List[Dict[str, torch.Tensor]] = [
+            self._stage_shard_tables(*shard_plan.shard_bounds(k))
+            for k in range(self.n_shards)]
+        self._dev: Dict[str, torch.Tensor] = {}
         # Device-resident inverse maps (docs/DESIGN.md §5): per-kind sorted
         # (segment, gid) appearance lists mirroring tables.inverse, as int32
         # (seg, gid, row) columns, for the device completion gather
@@ -387,6 +450,19 @@ class RelationEngine(StatsHost):
             self._inv_nglob[kind] = int(n_glob)
             if len(keys) == 0 or int(keys[-1]) < 2 ** 31:
                 self._dev[f"inv_key_{kind}"] = put(keys.astype(np.int32))
+
+    def _stage_shard_tables(self, lo: int, hi: int) -> Dict[str, torch.Tensor]:
+        """One shard's slice ``[lo, hi)`` of the stacked segment tables on
+        the engine's device (all of them when the engine has one shard)."""
+        t = self.tables
+        tabs: Dict[str, torch.Tensor] = {}
+        for name in ("T_local", "LT_global", "LV_global", "E_local",
+                     "LE_global", "F_local", "LF_global"):
+            a = getattr(t, name)
+            if a is not None:
+                tabs[name] = torch.from_numpy(
+                    np.ascontiguousarray(a[lo:hi])).to(self.device)
+        return tabs
 
     # -- consumer-side API --------------------------------------------------
 
@@ -508,11 +584,13 @@ class RelationEngine(StatsHost):
         ``(inv_seg, inv_gid, inv_row, inv_key_or_None, n_global)``.
         ``inv_key`` is staged only when the combined ``seg * n_global +
         gid`` key fits int32; the split columns always support the
-        lexicographic search. One shard only: ``shard`` must be None or 0."""
-        if shard not in (None, 0):
-            raise NotImplementedError(
-                "per-shard inverse maps come with segment sharding "
-                "(ROADMAP queue 1 item 9)")
+        lexicographic search. The maps are global — resolving a row in any
+        segment is what a shard's half of the completion exchange needs —
+        and every shard lies on the engine's device, so ``shard=k`` (a
+        shard of the plan) reads the same tensors."""
+        if shard is not None and not 0 <= int(shard) < self.n_shards:
+            raise ValueError(f"shard {shard} is not in the engine's "
+                             f"{self.n_shards}-shard plan")
         if kind not in self._inv_nglob:
             raise KeyError(f"no device inverse map for kind {kind!r}")
         return (self._dev[f"inv_seg_{kind}"], self._dev[f"inv_gid_{kind}"],
@@ -543,6 +621,7 @@ class RelationEngine(StatsHost):
         self._bump(requests=1)
         self._count(relation, segment)
         key = (relation, segment)
+        shard = int(self._seg_shard[segment])
         ent = self._dev_pool.get(key)
         if ent is None:
             launch = self._inflight.get(key)
@@ -560,8 +639,10 @@ class RelationEngine(StatsHost):
                        torch.from_numpy(Lh).to(self.device), None)
                 self._dev_pool.put(key, *ent)
                 self._bump(devpool_uploads=1)
+                self._bump_shard(shard, devpool_uploads=1)
                 return ent
         self._bump(devpool_hits=1)
+        self._bump_shard(shard, devpool_hits=1)
         return ent
 
     def _stack_entries(self, ents, pad_to: Optional[int] = None
@@ -683,39 +764,27 @@ class RelationEngine(StatsHost):
     def get_batch(self, relation: str, segments: Sequence[int]):
         """Fetch several segments' (M, L) host blocks as a list.
 
-        All misses are enqueued first and produced in one batched launch
-        (plus lookahead), then each block is read as in :meth:`get`.
+        All misses are enqueued first and dispatched in one drain (one
+        batched launch per shard and ``batch_max`` segments, plus
+        lookahead), then each block is read in order as in :meth:`get`.
         Duplicate segment ids are served from the same produced block.
 
-        A call naming more distinct segments than the host cache holds
-        reads the cached ones first and produces the misses a share of the
-        cache at a time, reading each share before the next is launched,
-        so the call's own launches never evict a block it has yet to read
-        (an 8-segment cache serving a 16-segment batch produces each block
-        once, not twice)."""
+        A call naming more segments than the host cache holds reads blocks
+        that its own later launches evicted, so those are produced again
+        at their read, as in the reference: an 8-segment cache serving a
+        16-segment batch produces every block twice."""
         with self._consumer_entry("get_batch"):
             segments = [int(s) for s in segments]
             self._bump(requests=len(segments))
             for s in segments:
                 self._count(relation, s)
-            missing = [s for s in dict.fromkeys(segments)
+            missing = [s for s in segments
                        if (relation, s) not in self.cache
                        and (relation, s) not in self._inflight]
-            cap = self.cache.capacity
-            if len(set(segments)) <= cap:
-                if missing:
-                    self._request(relation, missing)
-                    self._drain([relation])
-                return [self._fetch(relation, s) for s in segments]
-            got = {s: self._fetch(relation, s)
-                   for s in dict.fromkeys(segments) if s not in missing}
-            share = max(1, cap // (1 + max(0, self.lookahead)))
-            for i in range(0, len(missing), share):
-                part = missing[i:i + share]
-                self._request(relation, part)
+            if missing:
+                self._request(relation, missing)
                 self._drain([relation])
-                got.update((s, self._fetch(relation, s)) for s in part)
-            return [got[s] for s in segments]
+            return [self._fetch(relation, s) for s in segments]
 
     def prefetch(self, relation: str, segments: Sequence[int]) -> None:
         """Traversal-order hint: enqueue + dispatch without blocking.
@@ -896,8 +965,10 @@ class RelationEngine(StatsHost):
         # contract: holds-lock
         """Extend a drained batch with subsequent segments (paper §4.5
         proactive precomputation), de-duplicated against the cache, the
-        in-flight table AND the relation's pending queue."""
-        hi = self.smesh.n_segments
+        in-flight table AND the relation's pending queue. Lookahead never
+        crosses the owning shard's end: a shard only produces its own
+        segments."""
+        hi = self.shard_plan.bounds[int(self._seg_shard[batch[0]]) + 1]
         out: List[int] = []
         seen = set(batch)
         queued = set(self.queues[relation])
@@ -916,16 +987,30 @@ class RelationEngine(StatsHost):
         """Drain the queue for ``relation`` (up to ``batch_max``), add
         lookahead, and dispatch one batched kernel. Never blocks: the
         returned launch holds device-tensor futures registered in the
-        in-flight table."""
+        in-flight table.
+
+        Launches are shard-pure: the first popped segment fixes the shard,
+        queued segments of other shards stay queued (front, original
+        order) for a later dispatch, and the kernel reads the shard's own
+        sliced tables at shard-local indices."""
         t0 = time.perf_counter()
         q = self.queues[relation]
         batch: List[int] = []
+        shard = -1
+        deferred: List[int] = []
         while q and len(batch) < self.batch_max:
             s = q.pop(0)
             # stale entry: produced since it was queued
             if (relation, s) in self.cache or (relation, s) in self._inflight:
                 continue
+            if shard < 0:
+                shard = int(self._seg_shard[s])
+            elif int(self._seg_shard[s]) != shard:
+                deferred.append(s)
+                continue
             batch.append(s)
+        if deferred:
+            q[0:0] = deferred
         if not batch:
             self._bump(t_prepare=time.perf_counter() - t0)
             return None
@@ -938,31 +1023,36 @@ class RelationEngine(StatsHost):
             qs = set(q)
             q.extend(s for s in look[room:] if s not in qs)
         self._bump(t_prepare=time.perf_counter() - t0)
-        return self._launch_device(relation, batch)
+        return self._launch_device(relation, batch, shard)
 
-    def _launch_device(self, relation: str, batch: List[int]) -> _Launch:
+    def _launch_device(self, relation: str, batch: List[int],
+                       shard: int) -> _Launch:
         # contract: holds-lock
         """One kernel launch: pad to the power-of-two bucket, gather the
-        batch's tables on the device, launch, queue the host copies, record
-        the readiness event, and register the in-flight launch."""
+        batch's rows of the shard's tables on the device (shard-local
+        indices), launch, queue the host copies, record the readiness
+        event, and register the in-flight launch."""
         t0 = time.perf_counter()
         # pad the launch to a power-of-two bucket (duplicating the last
         # segment): O(log batch_max) launch shapes, as the reference
         b_pad = ops.bucket_rows(len(batch))
         padded = batch + [batch[-1]] * (b_pad - len(batch))
-        segs = torch.tensor(padded, dtype=torch.int64, device=self.device)
+        lo = self.shard_plan.bounds[shard]
+        segs = torch.tensor([s - lo for s in padded], dtype=torch.int64,
+                            device=self.device)
 
         kx, ky = RELATION_TABLES[relation]
         deg = self.deg[relation]
         nvl = self.tables.NV
+        tabs = self._shard_tables[shard]
         if relation == "VV":
-            tabX = self._dev["T_local"].index_select(0, segs)
+            tabX = tabs["T_local"].index_select(0, segs)
             tabY = tabX
-            colg = self._dev["LV_global"].index_select(0, segs)
+            colg = tabs["LV_global"].index_select(0, segs)
         else:
-            tabX = self._table_dev(kx, segs)
-            tabY = self._table_dev(ky, segs)
-            colg = self._dev[_GLOBAL_NAME[ky]].index_select(0, segs)
+            tabX = self._table_dev(kx, segs, tabs)
+            tabY = self._table_dev(ky, segs, tabs)
+            colg = tabs[_GLOBAL_NAME[ky]].index_select(0, segs)
         self._bump(t_prepare=time.perf_counter() - t0)
 
         t1 = time.perf_counter()
@@ -984,6 +1074,8 @@ class RelationEngine(StatsHost):
         dt = time.perf_counter() - t1
         self._bump(t_kernel=dt, kernel_launches=1,
                    segments_produced=len(batch))
+        self._bump_shard(shard, t_kernel=dt, kernel_launches=1,
+                         segments_produced=len(batch))
 
         n_int, _ = self.tables.counts(kx if relation != "VV" else "V")
         launch = _Launch(relation, batch, M, L, M_host, L_host, event,
@@ -1003,17 +1095,19 @@ class RelationEngine(StatsHost):
             self._sync(self._flights.popleft())
         return launch
 
-    def _table_dev(self, kind: str, segs: torch.Tensor) -> torch.Tensor:
+    def _table_dev(self, kind: str, segs: torch.Tensor,
+                   tabs: Dict[str, torch.Tensor]) -> torch.Tensor:
         # contract: holds-lock
-        """Stacked per-segment table for ``kind`` on the device."""
+        """Stacked per-segment table for ``kind`` from one shard's sliced
+        tables (``segs`` are shard-local indices)."""
         if kind == "V":
             # virtual vertex table: tab[v] = (v,) with -1 past n_loc
-            lv = self._dev["LV_global"].index_select(0, segs)   # (B, NV)
+            lv = tabs["LV_global"].index_select(0, segs)   # (B, NV)
             iota = torch.arange(self.tables.NV, dtype=torch.int32,
                                 device=self.device)
             return torch.where(lv >= 0, iota[None, :], -1)[..., None]
         name = {"E": "E_local", "F": "F_local", "T": "T_local"}[kind]
-        return self._dev[name].index_select(0, segs)
+        return tabs[name].index_select(0, segs)
 
     # -- boundary relations (consumer-side, no device — paper §4.4) --------
 

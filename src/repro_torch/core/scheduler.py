@@ -29,8 +29,10 @@ batch index) propagates to the caller instead of hanging the pool.
 ``workers <= 1`` runs the identical pipeline inline on the calling thread
 (no threads are spawned).
 
-The shard-affine partition of the reference scheduler comes with the port
-of segment sharding; this engine has one shard.
+On a sharded engine (docs/DESIGN.md §9) the batch stream restarts at every
+shard boundary (:func:`segment_batches` with a plan) and the workers take
+shard-affine shares (:func:`partition` with ``shard_of``), so a worker
+drives one shard's pipeline; the in-order reduce is unchanged.
 """
 
 from __future__ import annotations
@@ -42,21 +44,62 @@ from typing import Callable, List, Optional, Sequence
 _PENDING = object()   # slot sentinel: batch not finished yet
 
 
-def partition(n_items: int, workers: int) -> List[List[int]]:
+def partition(n_items: int, workers: int,
+              shard_of: Optional[Callable[[int], int]] = None
+              ) -> List[List[int]]:
     """Strided assignment of ``n_items`` batch indices to at most
     ``workers`` workers (never more workers than items; each share is in
-    ascending order)."""
+    ascending order).
+
+    ``shard_of`` (item index -> segment shard) composes workers with
+    segment shards: each worker's share stays *within* shards as much as
+    possible. With W workers and K shards, W <= K assigns shards
+    round-robin to workers (worker w owns shards w, w+W, ...); W > K
+    spreads the workers over the shards (worker w serves shard w mod K)
+    and strides within each shard. Either way the shares are disjoint,
+    cover every index and are ascending."""
     if n_items <= 0:
         return []
     w = max(1, min(int(workers), n_items))
-    return [list(range(k, n_items, w)) for k in range(w)]
+    if shard_of is None or w == 1:
+        return [list(range(k, n_items, w)) for k in range(w)]
+    shards = [int(shard_of(i)) for i in range(n_items)]
+    uniq = sorted(set(shards))
+    K = len(uniq)
+    rank = {s: j for j, s in enumerate(uniq)}
+    if w <= K:
+        shares = [[i for i in range(n_items) if rank[shards[i]] % w == j]
+                  for j in range(w)]
+    else:
+        per = [0] * K                 # workers serving each shard
+        for j in range(w):
+            per[j % K] += 1
+        shares = []
+        for j in range(w):
+            s, r = j % K, j // K
+            own = [i for i in range(n_items) if rank[shards[i]] == s]
+            shares.append(own[r::per[s]])
+    return [sh for sh in shares if sh]
 
 
-def segment_batches(n_segments: int, batch_segments: int) -> List[List[int]]:
+def segment_batches(n_segments: int, batch_segments: int,
+                    plan=None) -> List[List[int]]:
     """The drivers' contiguous segment-batch stream: the plain
-    ``[b0, b0+batch_segments)`` chop."""
-    return [list(range(b0, min(b0 + batch_segments, n_segments)))
-            for b0 in range(0, n_segments, batch_segments)]
+    ``[b0, b0+batch_segments)`` chop, restarted at every shard boundary
+    when a :class:`~repro_torch.distributed.sharding.ShardPlan` of more
+    than one shard is given, so each batch (and the shard-pure launches
+    its prefetch triggers) stays on one shard. Per-row driver results do
+    not depend on batch boundaries, so the re-chunking keeps them bit
+    for bit."""
+    if plan is None or plan.n_shards <= 1:
+        bounds = ((0, n_segments),)
+    else:
+        bounds = tuple(zip(plan.bounds[:-1], plan.bounds[1:]))
+    batches = []
+    for lo, hi in bounds:
+        for b0 in range(lo, hi, batch_segments):
+            batches.append(list(range(b0, min(b0 + batch_segments, hi))))
+    return batches
 
 
 def run_collect(
@@ -68,6 +111,7 @@ def run_collect(
     prefetch: Optional[Callable] = None,
     scope=None,
     name: str = "collect",
+    shard_of: Optional[Callable[[int], int]] = None,
 ) -> List:
     """:func:`run_partitioned` with the common list-building reduce: returns
     ``[result(items[0]), result(items[1]), ...]`` in item order, independent
@@ -79,7 +123,7 @@ def run_collect(
 
     run_partitioned(items, consume, reduce, workers=workers,
                     finalize=finalize, prefetch=prefetch, scope=scope,
-                    name=name)
+                    name=name, shard_of=shard_of)
     return out
 
 
@@ -100,6 +144,7 @@ def run_partitioned(
     prefetch: Optional[Callable] = None,
     scope=None,
     name: str = "consumer",
+    shard_of: Optional[Callable[[int], int]] = None,
 ) -> None:
     """Run ``consume(i, items[i])`` over every item with ``workers`` CPU
     threads and reduce the results deterministically.
@@ -119,6 +164,9 @@ def run_partitioned(
     Finalized results are handed to ``reduce(i, result)`` on the CALLING
     thread in ascending item order. ``scope`` is the data structure whose
     ``worker_scope`` attributes stats to workers (``w0``, ``w1``, ...).
+    ``shard_of`` (item index -> segment shard) makes the partition
+    shard-affine (see :func:`partition`); it never changes the reduce
+    order, only which worker serves which item.
 
     Error contract: the first worker exception (lowest item index) is
     re-raised here after all workers stopped, with the failing worker id
@@ -128,7 +176,7 @@ def run_partitioned(
     n = len(items)
     if n == 0:
         return
-    shares = partition(n, workers)
+    shares = partition(n, workers, shard_of)
 
     if len(shares) == 1 and workers <= 1:
         # inline serial pipeline (no threads): identical order of

@@ -26,7 +26,14 @@ Backends (the engine's ``backend``):
                   ``_resolve_gather_pallas``); CUDA tensors only
 
 The union epilogue (:func:`union_pairs`) is plain PyTorch on both, as it is
-plain ``jnp`` in the reference. All ids are int32; ``BIG`` (int32 max) is
+plain ``jnp`` in the reference.
+
+A sharded engine (docs/DESIGN.md §9) splits steps 1-2 over its shards:
+:func:`gather_candidates` is one shard's half, the same resolve + gather
+with the rows of pairs the shard does not own set to exact zeros (the
+kernel's ``mask`` mode on the card), and
+``distributed.sharding.all_sum_shards`` sums the halves before the one
+union. All ids are int32; ``BIG`` (int32 max) is
 the sentinel for removed entries and sorts last, so two ascending sorts with
 a duplicate mask in between give "all unique neighbours, ascending".
 
@@ -108,12 +115,13 @@ def resolve_rows(inv_seg, inv_gid, inv_row, seg, gid,
 
 def resolve_gather_torch(pool_M, pool_L, inv_seg, inv_gid, inv_row,
                          pair_slot, pair_seg, pair_gid, inv_key=None,
-                         n_global: int = 0
+                         n_global: int = 0, mask: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the resolve + gather kernel: ``(cand (P, degp),
     clen (P,))``. ``cand`` is the pool row at the clamped flat index for
     every pair; ``clen`` is its length where the pair resolved and has a
-    slot, else 0."""
+    slot, else 0. ``mask`` sets ``cand`` to 0 on the rows of the other
+    pairs (the reference's ``_gather_candidates_xla``)."""
     S, R, degp = pool_M.shape
     rows = resolve_rows(inv_seg, inv_gid, inv_row, pair_seg, pair_gid,
                         inv_key=inv_key, n_global=n_global)
@@ -121,6 +129,8 @@ def resolve_gather_torch(pool_M, pool_L, inv_seg, inv_gid, inv_row,
     flat = (pair_slot.clamp(min=0).long() * R
             + rows.clamp(0, R - 1).long())
     cand = pool_M.reshape(S * R, degp)[flat]
+    if mask:
+        cand = torch.where(ok[:, None], cand, 0)
     clen = torch.where(ok, pool_L.reshape(S * R)[flat], 0)
     return cand, clen.to(torch.int32)
 
@@ -130,7 +140,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         lib.cg_error_string.argtypes = [_I]
         lib.cg_error_string.restype = ctypes.c_char_p
-        lib.cg_resolve_gather.argtypes = [_I] + [_P] * 12 + [_I] * 6 + [_P]
+        lib.cg_resolve_gather.argtypes = [_I] + [_P] * 12 + [_I] * 7 + [_P]
         lib.cg_resolve_gather.restype = _I
         lib._repro_bound = True
     return lib
@@ -138,10 +148,11 @@ def _lib() -> ctypes.CDLL:
 
 def resolve_gather_cuda(pool_M, pool_L, inv_seg, inv_gid, inv_row,
                         pair_slot, pair_seg, pair_gid, inv_key=None,
-                        n_global: int = 0, *, inv_start
+                        n_global: int = 0, mask: bool = False, *, inv_start
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The resolve + gather on the card (``csrc/completion_gather.cu``):
-    the same ``(cand, clen)`` as :func:`resolve_gather_torch`. ``inv_start``
+    the same ``(cand, clen)`` as :func:`resolve_gather_torch`, ``mask``
+    included (the kernel zeroes the rows itself). ``inv_start``
     (``(S + 1,)`` int32, the engine's ``dev_inverse_starts``) holds where
     each segment's run of the maps starts, so a pair searches only its own
     segment's run. Takes CUDA int32 contiguous tensors on one device and
@@ -187,7 +198,7 @@ def resolve_gather_cuda(pool_M, pool_L, inv_seg, inv_gid, inv_row,
         inv_key.data_ptr() if inv_key is not None else None,
         inv_start.data_ptr(), pair_slot.data_ptr(), pair_seg.data_ptr(),
         pair_gid.data_ptr(), cand.data_ptr(), clen.data_ptr(), P, K, R, degp,
-        int(n_global), len(inv_start) - 1, stream)
+        int(n_global), len(inv_start) - 1, int(bool(mask)), stream)
     if rc != 0:
         msg = lib.cg_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"completion gather kernel launch failed: "
@@ -267,8 +278,31 @@ def gather_union(
     return union_pairs(cand, clen, pair_gid, pair_at, deg_out)
 
 
-def gather_candidates(*args, **kwargs):
-    """One shard's half of the sharded completion exchange: not ported."""
-    raise NotImplementedError(
-        "the sharded completion gather comes with segment sharding "
-        "(ROADMAP queue 1 item 9)")
+# contract: device-resident
+def gather_candidates(pool_M, pool_L, inv_seg, inv_gid, inv_row,
+                      pair_slot, pair_seg, pair_gid, inv_key=None,
+                      n_global: int = 0, backend: str = "torch",
+                      inv_start: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One shard's half of the sharded completion exchange (docs/DESIGN.md
+    §9): resolve the ``(segment, gid)`` pairs against the global inverse
+    maps and gather candidate rows from THIS shard's block pool, with the
+    pairs the shard does not own (``pair_slot == -1``) and the unresolved
+    ones given exact zeros in both ``cand`` and ``cand_len``.
+
+    The returned ``(cand (P, degp), cand_len (P,))`` int32 are summed
+    over the shards (``distributed.sharding.all_sum_shards``) and fed to
+    :func:`union_pairs`: together bit-identical to :func:`gather_union`
+    over one combined pool. ``backend="cuda"`` launches the resolve +
+    gather kernel in its mask mode (CUDA tensors only, needs
+    ``inv_start``); ``"torch"`` runs its plain version."""
+    if backend == "cuda":
+        return resolve_gather_cuda(
+            pool_M, pool_L, inv_seg, inv_gid, inv_row, pair_slot, pair_seg,
+            pair_gid, inv_key=inv_key, n_global=n_global, mask=True,
+            inv_start=inv_start)
+    if backend == "torch":
+        return resolve_gather_torch(
+            pool_M, pool_L, inv_seg, inv_gid, inv_row, pair_slot, pair_seg,
+            pair_gid, inv_key=inv_key, n_global=n_global, mask=True)
+    raise ValueError(f"unknown backend {backend!r}")

@@ -33,7 +33,11 @@
 // fits) the search is a lower bound on that key; otherwise a lexicographic
 // lower bound on (seg, gid). Not found gives row -1. A pair is ok when its
 // slot >= 0 and its row >= 0; flat = max(slot, 0) * R + clamp(row, 0, R-1);
-// cand = pool_M[flat] for every pair, clen = ok ? pool_L[flat] : 0. Inside
+// cand = pool_M[flat] for every pair, clen = ok ? pool_L[flat] : 0. With
+// mask set (one shard's half of the sharded completion exchange,
+// gather_candidates) cand is 0 on the rows of pairs that are not ok, so an
+// integer sum over the shards' halves gives the single-pool cand; clen == 0
+// cannot stand in for that, since a resolved row may have no entries. Inside
 // a segment's run the gids ascend, and in the domain both searches find
 // the first entry of the run at or past qg, so the run's search gives the
 // same row. The run's bounds are clamped to [0, K], so maps cut short keep
@@ -118,8 +122,10 @@ resolve_gather_kernel(const int* __restrict__ pool_M,
                       const int* __restrict__ pair_seg,
                       const int* __restrict__ pair_gid,
                       int* __restrict__ cand, int* __restrict__ clen, int P,
-                      int K, int R, int degp, int n_global, int n_seg) {
+                      int K, int R, int degp, int n_global, int n_seg,
+                      int mask) {
   __shared__ long long flat_s[kWarpsPerBlock];
+  __shared__ bool ok_s[kWarpsPerBlock];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int base = blockIdx.x * kWarpsPerBlock;
@@ -153,6 +159,7 @@ resolve_gather_kernel(const int* __restrict__ pool_M,
       const long long flat =
           (long long)max(slot, 0) * R + min(max(row, 0), R - 1);
       flat_s[warp] = flat;
+      ok_s[warp] = ok;
       clen[p] = ok ? pool_L[flat] : 0;
     }
   }
@@ -163,7 +170,7 @@ resolve_gather_kernel(const int* __restrict__ pool_M,
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int q = i / degp;
     const int d = i - q * degp;
-    out[i] = pool_M[flat_s[q] * degp + d];
+    out[i] = (mask && !ok_s[q]) ? 0 : pool_M[flat_s[q] * degp + d];
   }
 }
 
@@ -175,7 +182,7 @@ extern "C" const char* cg_error_string(int err) {
 
 // Plain C interface, bound with ctypes; returns cudaGetLastError() after
 // the launch. inv_key is null for the lexicographic search; inv_start holds
-// n_seg + 1 run starts.
+// n_seg + 1 run starts; mask != 0 zeroes the cand rows of pairs not ok.
 extern "C" int cg_resolve_gather(int device, const void* pool_M,
                                  const void* pool_L, const void* inv_seg,
                                  const void* inv_gid, const void* inv_row,
@@ -183,7 +190,7 @@ extern "C" int cg_resolve_gather(int device, const void* pool_M,
                                  const void* pair_slot, const void* pair_seg,
                                  const void* pair_gid, void* cand, void* clen,
                                  int P, int K, int R, int degp, int n_global,
-                                 int n_seg, void* stream) {
+                                 int n_seg, int mask, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (P == 0) return (int)cudaSuccess;
@@ -194,6 +201,6 @@ extern "C" int cg_resolve_gather(int device, const void* pool_M,
       (const int*)inv_gid, (const int*)inv_row, (const int*)inv_key,
       (const int*)inv_start, (const int*)pair_slot, (const int*)pair_seg,
       (const int*)pair_gid, (int*)cand, (int*)clen, P, K, R, degp, n_global,
-      n_seg);
+      n_seg, mask);
   return (int)cudaGetLastError();
 }

@@ -145,8 +145,11 @@ def test_cuda_backend_needs_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cg.gather_union(**{k: _t(v) for k, v in args.items()}, deg_out=8,
                         backend="cuda")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cg.gather_candidates()
+    # one shard's half of the sharded exchange: the masked kernel, the
+    # same CUDA-only contract
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cg.gather_candidates(**{k: _t(v) for k, v in args.items()
+                                if k != "pair_at"}, backend="cuda")
 
 
 # -- complete_adjacency("TT") --------------------------------------------------
@@ -212,7 +215,7 @@ def test_completion_checks(meshes):
         complete_adjacency(eng, "FF", [0])
     with pytest.raises(ValueError, match="device execute arm"):
         complete_adjacency(eng, "TT", [0], path="host", out="dev")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shards=2"):
         complete_adjacency(eng, "TT", [0], shards=2)
     # no query: empty rows of the right width on either arm
     M, L = complete_adjacency(eng, "TT", [], path="device", out="dev")

@@ -4,12 +4,13 @@ both the bitmask and the sort route, and on each side of the routing
 limit; the sub-join past its precondition) at the
 main path's shapes and at edge sizes (including lanes too large for shared
 memory), the completion
-gather kernel, the meet and VV count kernels of the dense fallback, the
+gather kernel (and its mask mode, one shard's half of the sharded
+exchange), the meet and VV count kernels of the dense fallback, the
 flash-attention kernels (float32 2e-5, bf16 2e-2; the mma kernel on both
 its load paths, twice for equal outputs; the SIMT kernel by force), the
 critical-points (both
 assemblies), gradient -> Morse-Smale and audit + persistence paths on the
-``cuda`` backend against the CPU, and the LM smoke configs' prefill and
+``cuda`` backend against the CPU (also at 2 and 4 segment shards), and the LM smoke configs' prefill and
 decode on both attention arms against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
@@ -28,7 +29,11 @@ from repro_torch import analyze, analyze_mesh, configs
 from repro_torch.algorithms import fields
 from repro_torch.algorithms.critical_points import critical_points, \
     total_order
+from repro_torch.algorithms.discrete_gradient import discrete_gradient
+from repro_torch.algorithms.morse_smale import morse_smale
 from repro_torch.core import explicit, pipeline
+from repro_torch.core.adjacency import complete_adjacency
+from repro_torch.core.engine import RelationEngine
 from repro_torch.core.mesh import segment_mesh
 from repro_torch.core.segtables import precondition
 from repro_torch.data.meshgen import structured_grid
@@ -372,6 +377,98 @@ def test_gather_kernel_follows_a_key_that_wraps_int32(cuda):
     want = _gather_both_arms(cuda, maps, start, np.zeros(7, np.int32), seg,
                              gid, L_fill=4, inv_key=key, n_global=2 ** 20)
     assert want[1].tolist() == [4, 4, 0, 0, 4, 4, 0]
+
+
+@pytest.mark.parametrize("use_key", [False, True])
+@pytest.mark.parametrize("owned", ["none", "half", "all"])
+def test_masked_gather_kernel_equals_plain_arm(cuda, use_key, owned):
+    """One shard's half of the sharded completion exchange: the gather
+    kernel's mask mode (rows of pairs not owned or not resolved set to 0)
+    bit for bit the plain arm, for a shard owning no pair, half of them
+    and every pair; two halves sum to the unmasked gather's ok rows."""
+    rng = np.random.default_rng(40 + use_key)
+    ns, n_global, S, R, degp, P = 31, 700, 6, 90, 8, 700
+    key = np.unique(rng.integers(0, ns * n_global, 5000))
+    inv = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in
+           (key // n_global, key % n_global, rng.integers(0, R, len(key)))]
+    pick = rng.integers(0, len(key), P)
+    seg = (key[pick] // n_global).astype(np.int32)
+    gid = (key[pick] % n_global).astype(np.int32)
+    gid[::5] = rng.integers(0, n_global, len(gid[::5]))  # mostly absent
+    slot = rng.integers(0, S, P).astype(np.int32)
+    slot[-9:] = -1                                       # padding pairs
+    own = {"none": np.zeros(P, bool), "all": slot >= 0,
+           "half": (slot % 2 == 0) & (slot >= 0)}[owned]
+    pool = [torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
+            .to(cuda) for lo, hi, shape in ((-1, 10 ** 5, (S, R, degp)),
+                                             (0, degp + 1, (S, R)))]
+    start = torch.from_numpy(np.searchsorted(
+        key // n_global, np.arange(ns + 1)).astype(np.int32)).to(cuda)
+    kw = {}
+    if use_key:
+        kw = dict(inv_key=torch.from_numpy(key.astype(np.int32)).to(cuda),
+                  n_global=n_global)
+    halves = []
+    for mine in (own, ~own & (slot >= 0)):
+        pairs = [torch.from_numpy(a).to(cuda) for a in
+                 (np.where(mine, slot, -1).astype(np.int32), seg, gid)]
+        before = completion_gather.LAUNCHES["gather"]
+        got = completion_gather.gather_candidates(
+            *pool, *inv, *pairs, backend="cuda", inv_start=start, **kw)
+        want = completion_gather.gather_candidates(*pool, *inv, *pairs,
+                                                   **kw)
+        direct = completion_gather.resolve_gather_cuda(
+            *pool, *inv, *pairs, inv_start=start, mask=True, **kw)
+        torch.cuda.synchronize()
+        assert completion_gather.LAUNCHES["gather"] == before + 2
+        for g, d, w in zip(got, direct, want):
+            assert torch.equal(g, w) and torch.equal(d, w)
+        if not mine.any():
+            assert not got[0].any() and not got[1].any()
+        halves.append(got)
+    full = completion_gather.resolve_gather_cuda(
+        *pool, *inv, *(torch.from_numpy(a).to(cuda) for a in
+                       (slot, seg, gid)), inv_start=start, **kw)
+    ok = (full[1] > 0)
+    summed = [a + b for a, b in zip(*halves)]
+    assert torch.equal(summed[1], full[1])
+    assert torch.equal(summed[0][ok], full[0][ok])
+
+
+@pytest.mark.parametrize("shards,workers", [(4, 1), (4, 4), (2, 2)])
+def test_sharded_engine_on_the_card_equals_the_cpu(cuda, shards, workers):
+    """The sharded engine's drivers and completion exchange on the card,
+    bit for bit the unsharded CPU run, with shard-pure launches."""
+    pre = _grid_pre(12, ("VV", "VE", "VF", "VT", "FT", "TT", "FF"))
+    rank = total_order(pre.smesh.scalars)
+    rels = ["VV", "VE", "VF", "VT", "FT", "TT", "FF"]
+    outs = []
+    for device, k in (("cpu", 1), ("cuda", shards)):
+        eng = RelationEngine(pre, rels, device=device, shards=k)
+        before = completion_gather.LAUNCHES["gather"]
+        types, _ = critical_points(eng, pre, rank, workers=workers)
+        g = discrete_gradient(eng, pre, rank, co_prefetch=("TT",),
+                              workers=workers, audit=True)
+        ms = morse_smale(eng, pre, g, workers=workers)
+        ff = complete_adjacency(eng, "FF", np.arange(0, pre.n_faces, 3),
+                                path="device")
+        outs.append((types, g, ms, ff))
+        if device == "cuda":
+            assert eng.backend == "cuda" and eng.n_shards == shards
+            assert completion_gather.LAUNCHES["gather"] > before
+            m = eng.merged_shard_stats()
+            assert m.segments_produced == eng.stats.segments_produced
+            assert m.kernel_launches == eng.stats.kernel_launches
+    (t0, g0, ms0, ff0), (t1, g1, ms1, ff1) = outs
+    np.testing.assert_array_equal(t1, t0)
+    for name in ("pair_v2e", "pair_e2f", "pair_f2t", "crit_v", "crit_e",
+                 "crit_f", "crit_t"):
+        np.testing.assert_array_equal(getattr(g1, name), getattr(g0, name))
+    for name in ("dest_min", "dest_max", "saddle1_ends", "saddle2_ends"):
+        np.testing.assert_array_equal(getattr(ms1, name),
+                                      getattr(ms0, name))
+    for a, b in zip(ff1, ff0):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_tt_kernel_is_deterministic_past_its_precondition(cuda):

@@ -21,6 +21,7 @@ from repro_torch.core.engine import RelationEngine
 from repro_torch.core.mesh import segment_mesh
 from repro_torch.core.segtables import precondition
 from repro_torch.data.meshgen import structured_grid
+from repro_torch.distributed.sharding import ShardPlan
 from repro_torch.errors import RelationWidthError
 
 RELATIONS = ["VV", "VT", "VE"]
@@ -164,8 +165,11 @@ def test_concurrent_device_batches_produce_each_block_once(pres):
 
 def test_unported_options_and_missing_card_raise(pres):
     port = pres[1]
-    with pytest.raises(NotImplementedError, match="shard"):
-        RelationEngine(port, ["VV"], device="cpu", shards=2)
+    # shards on distinct cards: the cross-card exchange is unverified
+    cards = ShardPlan.make(port.smesh.n_segments, 2,
+                           devices=("cuda:0", "cuda:1"))
+    with pytest.raises(NotImplementedError, match="second card"):
+        RelationEngine(port, ["VV"], device="cpu", shard_plan=cards)
     with pytest.raises(NotImplementedError, match="fault"):
         RelationEngine(port, ["VV"], device="cpu", fault_policy=object())
     with pytest.raises(ValueError, match="CUDA device"):

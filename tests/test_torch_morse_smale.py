@@ -117,8 +117,9 @@ def test_unported_options_raise():
     pre = precondition(sm, RELS)
     eng = RelationEngine(pre, RELS, device="cpu")
     rank = total_order(sm.scalars)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # shards= validates against the engine's plan (one shard here)
+    with pytest.raises(ValueError, match="shards=2"):
         discrete_gradient(eng, pre, rank, shards=2)
     g = discrete_gradient(eng, pre, rank, shards=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shards=4"):
         morse_smale(eng, pre, g, shards=4)

@@ -170,5 +170,5 @@ def test_simplify_and_pairing_checks(bumpy):
         simplify_ms(ms, red, 0.5)
     with pytest.raises(ValueError, match="method"):
         persistence_pairs(eng, pre, rank, grad=g, method="euler")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shards=2"):
         persistence_pairs(eng, pre, rank, grad=g, shards=2)

@@ -199,7 +199,7 @@ def test_inverse_maps_and_boundary_relations_equal_the_reference(engines):
         gids = rng.integers(0, n, 200)
         np.testing.assert_array_equal(ref.local_rows(kind, segs, gids),
                                       port.local_rows(kind, segs, gids))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="shard 1"):
         port.dev_inverse("T", shard=1)
     ids = {"EV": port.pre.n_edges, "FV": port.pre.n_faces,
            "TV": port.smesh.n_tets, "FE": port.pre.n_faces,
