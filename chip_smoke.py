@@ -102,6 +102,28 @@ Phases, one JSON line each:
      halves, which sum to the single-pool gather, and timed like phase
      7; the whole audit -> persistence -> ``simplify_ms`` path at 48^3 on
      four shards and four workers against phase 8's 48^3 pins.
+  8d. fault recovery (the engine's §12 ladder) on the card: first, that no
+     phase before it ran the numpy host arm; then ``critical_points(...,
+     batch_segments=8, workers=2)`` (device pools of 4096 segments)
+     under six explicit ``FaultPolicy`` schedules: none (at 96^3 and at
+     48^3); 6 transient VV launch faults and one 5 s sync hang against a
+     0.05 s watchdog polling the launch's CUDA event, at 96^3; 6
+     permanent VV faults behind a breaker of 2 at ``batch_max=1``, shard
+     0's device lost at ``shards=2``, and two block-pool upload faults
+     with pools of one launch, at 48^3. Each ``types`` equal to its pin,
+     each run's recovery counters checked, every schedule with no
+     permanent fault kept off the host arm (``degraded_launches`` 0),
+     the launch identity (kernel wrapper launches = ``kernel_launches``
+     - ``degraded_launches`` + ``failed_launches``; host arm calls =
+     ``degraded_launches``) and the worker and shard merges held; the
+     gather kernel's masked halves of a 2-shard 96^3 TT engine whose
+     shard 0 (6,912 segments) was re-homed summing to its single-pool
+     gather; the 48^3 audit -> persistence path at 2 shards and 2 workers
+     under a seeded mixed schedule (launch, sync and device-lost faults)
+     against phase 8's 48^3 pins; the host arm
+     (``ops.relation_block_host``) held bit for bit against the kernels
+     (both assemblies) for all ten relations on phase 3's B=64 96^3
+     tables, and timed a batch.
   9. flash attention: the kernels held against their plain version
      (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
      routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256 on
@@ -118,7 +140,9 @@ Phases, one JSON line each:
      and timed at its main path's two shapes (the float32 S=2048 pin of
      phase 10, beside the SIMT kernel, held too, float32 SDPA and the
      plain version; whisper-base's encoder, beside the SIMT kernel and
-     float32 SDPA).
+     float32 SDPA); ``flash_fwd_wgmma`` held against the plain version
+     and timed at gemma-7b's shape (bf16, B 4, S 4096, 16 heads, hd 256,
+     causal) beside one SDPA call and its bound.
  10. the JAX reference's full-width LM pins (``LM_PINS``), on both
      attention arms: qwen2-7b at full width cut to two layers and
      whisper-base whole, float32, weights from ``reference_tree``; every
@@ -138,6 +162,7 @@ before that line; without a card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -164,6 +189,12 @@ REF_COUNTS = {"minima": 322, "saddles1": 570, "saddles2": 345, "maxima": 23,
               "degenerate": 0, "regular": 883476}
 REF_TYPES_SHA256 = ("46b39eccfd74eda185ac49442a81d318"
                     "a3959b05cadcc3b0239aa12a294395bd")
+# the same at N=48 (216 launches, 3456 segments produced; 10.7 s on a CPU):
+# the pin of phase 8d's 48^3 scenarios (breaker, device loss, upload OOM)
+REF_CP_48 = {"counts": {"minima": 11, "saddles1": 23, "saddles2": 12,
+                        "maxima": 7, "degenerate": 0, "regular": 110539},
+             "types_sha256": ("59822a83e268ede63b1cabedda3e627e"
+                              "315359709143fe50a7a3faeaf40fa432")}
 
 # The JAX reference's gradient and Morse-Smale complex at N=96 and N=48,
 # computed on a CPU with:
@@ -633,6 +664,15 @@ ROUTED = tuple(f"{arm}{r}" for arm in ROUTED_ARMS
 # float32, held and timed by force (simt=True) in phase 9; 0 launches on
 # the paths
 FORCED = ("VV_sort", "member_sort", "sub_sort", "flash")
+# the kernel wrappers' counters of the engine's launches: one per launch
+# that reaches a wrapper (VV, member, TT, sub-join; meet and VV counts on
+# the dense assembly)
+ENGINE_KERNELS = ("VV", "member", "TT", "sub", "meet", "vv_counts")
+# the engine's fault-recovery counters (docs/DESIGN.md §12)
+FAULT_COUNTERS = ("retries", "sync_timeouts", "failed_launches",
+                  "failed_segments", "breaker_trips", "breaker_recoveries",
+                  "degraded_launches", "degraded_segments", "degraded_reads",
+                  "shards_lost", "rehomed_segments")
 
 
 def all_bits(path: str, counts: dict) -> None:
@@ -979,6 +1019,28 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
           "bound_by": b_by, "tflops_per_s": flops / w_ms / 1e9})
     del q, k, v, qt, kt, vt
 
+    # gemma-7b's shape (bf16, head_dim 256, 16 heads of their own KV): the
+    # wgmma kernel's hd-256 tiles held against the plain version on the
+    # inputs it is then timed on, beside one SDPA call and the bound
+    B, S, H, KV, hd = 4, 4096, 16, 16, 256
+    q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.bfloat16)
+    flash_check("gemma-7b prefill", q, k, v, True)
+    g_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                          causal=True),
+                   reps=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gl_ms = time_ms(torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=True),
+                    reps=10)
+    flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
+    emit({"phase": "kernel_time", "arm": "flash_wgmma", "config": "gemma-7b",
+          "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "causal": True,
+          "dtype": "bfloat16", "flops": flops, "bytes": moved, "ms": g_ms,
+          "library_ms": gl_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "tflops_per_s": flops / g_ms / 1e9})
+    del q, k, v, qt, kt, vt
+
     # -- 10. the full-width LM pins of the JAX reference, on both arms -----
     for backend in ("cuda", "torch"):
         t0 = time.perf_counter()
@@ -1003,6 +1065,11 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
 
     # -- 11. qwen2-7b served at full width and depth, bf16 -----------------
     cfg = configs.get_config("qwen2-7b")
+    # the mesh phases' engines sit in reference cycles (their block store
+    # holds a closure over the engine) with their tables and pools on the
+    # card: collect them, so that the peak below is the LM's own
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for key in fa.LAUNCHES:
         fa.LAUNCHES[key] = 0
@@ -1111,6 +1178,8 @@ def main() -> int:
     from repro_torch.core.engine import RelationEngine
     from repro_torch.core.explicit import ActopoDS, ExplicitTriangulation, \
         TopoClusterDS
+    from repro_torch.core.faults import FaultInjector, FaultPolicy, \
+        FaultSpec
     from repro_torch.core.mesh import segment_mesh
     from repro_torch.core.pipeline import fused_extrema, fused_masks, \
         stage_fused
@@ -1124,6 +1193,17 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi()
     t_start = time.perf_counter()
+
+    # every call of the numpy host arm, the engine's degraded production:
+    # no phase before 8d runs a fault schedule, so none may reach it
+    host_arm = ops.relation_block_host
+    host_calls = [0]
+
+    def counted_host_arm(*args, **kw):
+        host_calls[0] += 1
+        return host_arm(*args, **kw)
+
+    ops.relation_block_host = counted_host_arm
 
     # -- 1. device and build -------------------------------------------------
     t0 = time.perf_counter()
@@ -1932,12 +2012,13 @@ def main() -> int:
     del eng, g
 
     # -- 6. the audit + persistence path at 96^3 (its engine serves phase 7)
-    def audit_path(p, r, backend, n, shards=1, workers=1):
+    def audit_path(p, r, backend, n, shards=1, workers=1, policy=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng = RelationEngine(p, PATH_RELS, lookahead=8,
                              dev_pool_segments=4096, device="cuda",
-                             backend=backend, shards=shards)
+                             backend=backend, shards=shards,
+                             fault_policy=policy)
         # raises ValueError unless every audit count is zero
         g = discrete_gradient(eng, p, r, batch_segments=16,
                               co_prefetch=("TT",), audit=True,
@@ -2402,12 +2483,12 @@ def main() -> int:
     impure = []
     launch_device = seng._launch_device
 
-    def shard_pure(relation, batch, shard):
+    def shard_pure(relation, batch, shard, attempt):
         # every launch reads one shard's tables: its segments are all that
         # shard's
         if {int(x) for x in seng._seg_shard[batch]} != {shard}:
             impure.append((relation, shard, batch[0], batch[-1]))
-        return launch_device(relation, batch, shard)
+        return launch_device(relation, batch, shard, attempt)
 
     seng._launch_device = shard_pure
     t0 = time.perf_counter()
@@ -2546,46 +2627,58 @@ def main() -> int:
                           torch.full_like(pairs[0], -1), *pairs[1:])
     check(not none[0].any() and not none[1].any(),
           "a shard owning no pair gave a nonzero row")
+    def masked_halves(meng, label=""):
+        """Phase 7's 96^3 chunk of paired tets gathered as each shard's
+        masked half of ``meng``'s pools, each half held against the plain
+        arm; the halves must sum to the single-pool gather of the same
+        pairs. Returns the pairs each shard owns."""
+        mplan = plan_completion(meng, "TT", tt_cross, prefetch=False)
+        mshard = meng.shard_plan.shard_of_array(mplan.pair_seg)
+        MP = len(mplan.pair_seg)
+        MP_pad = ops.bucket_rows(MP)
+        mcols = np.zeros((2, MP_pad), np.int32)
+        mcols[1] = -1
+        mcols[0, :MP] = mplan.pair_seg
+        mcols[1, :MP] = mplan.ids[mplan.pair_query]
+        mpairs = (cu(mcols[0]), cu(mcols[1]))
+        mstart = meng.dev_inverse_starts("T")
+        # the single-pool gather of the same pairs, unmasked
+        sM, sL = meng.get_full_dev_batch(
+            "TT", mplan.segments,
+            pad_to=ops.bucket_rows(len(mplan.segments)))
+        sslot = np.full(MP_pad, -1, np.int32)
+        sslot[:MP] = np.searchsorted(mplan.segments, mplan.pair_seg)
+        single = cg.resolve_gather_torch(sM, sL, inv_seg, inv_gid, inv_row,
+                                         cu(sslot), *mpairs)
+        halves, owned = [], []
+        n_shards = meng.n_shards
+        for k in range(n_shards):
+            lo, hi = meng.shard_plan.shard_bounds(k)
+            segs_k = mplan.segments[(mplan.segments >= lo)
+                                    & (mplan.segments < hi)]
+            if len(segs_k) == 0:
+                continue
+            kM, kL = meng.get_full_dev_batch(
+                "TT", segs_k, pad_to=ops.bucket_rows(len(segs_k)))
+            kslot = np.full(MP_pad, -1, np.int32)
+            kslot[:MP] = np.where(
+                mshard == k, np.searchsorted(segs_k, mplan.pair_seg), -1)
+            halves.append(masked_compare(
+                f"shard {k} of {n_shards}{label} "
+                f"({int((mshard == k).sum())} pairs)",
+                cu(kslot), *mpairs, pool=(kM, kL), start=mstart))
+            owned.append(int((mshard == k).sum()))
+        check(len(halves) >= 2, f"the chunk lies on {len(halves)} shard(s)")
+        summed = [sum(h[i] for h in halves) for i in range(2)]
+        check(torch.equal(summed[1], single[1])
+              and torch.equal(summed[0][single[1] > 0],
+                              single[0][single[1] > 0]),
+              f"the shards' masked halves{label} do not sum to the "
+              f"single-pool gather")
+        return owned
+
     meng = RelationEngine(pre, ["TT"], device="cuda", shards=SHARDS)
-    mplan = plan_completion(meng, "TT", tt_cross, prefetch=False)
-    mshard = meng.shard_plan.shard_of_array(mplan.pair_seg)
-    MP = len(mplan.pair_seg)
-    MP_pad = ops.bucket_rows(MP)
-    mcols = np.zeros((2, MP_pad), np.int32)
-    mcols[1] = -1
-    mcols[0, :MP] = mplan.pair_seg
-    mcols[1, :MP] = mplan.ids[mplan.pair_query]
-    mpairs = (cu(mcols[0]), cu(mcols[1]))
-    mstart = meng.dev_inverse_starts("T")
-    # the single-pool gather of the same pairs, unmasked
-    sM, sL = meng.get_full_dev_batch(
-        "TT", mplan.segments, pad_to=ops.bucket_rows(len(mplan.segments)))
-    sslot = np.full(MP_pad, -1, np.int32)
-    sslot[:MP] = np.searchsorted(mplan.segments, mplan.pair_seg)
-    single = cg.resolve_gather_torch(sM, sL, inv_seg, inv_gid, inv_row,
-                                     cu(sslot), *mpairs)
-    halves, owned = [], []
-    for k in range(SHARDS):
-        lo, hi = meng.shard_plan.shard_bounds(k)
-        segs_k = mplan.segments[(mplan.segments >= lo)
-                                & (mplan.segments < hi)]
-        if len(segs_k) == 0:
-            continue
-        kM, kL = meng.get_full_dev_batch(
-            "TT", segs_k, pad_to=ops.bucket_rows(len(segs_k)))
-        kslot = np.full(MP_pad, -1, np.int32)
-        kslot[:MP] = np.where(mshard == k,
-                              np.searchsorted(segs_k, mplan.pair_seg), -1)
-        halves.append(masked_compare(
-            f"shard {k} of {SHARDS} ({int((mshard == k).sum())} pairs)",
-            cu(kslot), *mpairs, pool=(kM, kL), start=mstart))
-        owned.append(int((mshard == k).sum()))
-    check(len(halves) >= 2, f"the chunk lies on {len(halves)} shard(s)")
-    summed = [sum(h[i] for h in halves) for i in range(2)]
-    check(torch.equal(summed[1], single[1])
-          and torch.equal(summed[0][single[1] > 0],
-                          single[0][single[1] > 0]),
-          "the shards' masked halves do not sum to the single-pool gather")
+    owned = masked_halves(meng)
     # timed like phase 7: the whole chunk as one shard's half (the same
     # work as row 5's unmasked launch, plus the zeroed rows' stores)
     launch = (lambda: cg.resolve_gather_cuda(
@@ -2603,7 +2696,7 @@ def main() -> int:
     emit({"phase": "kernel_time", "arm": "gather_masked", "pairs": P_pad,
           "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
           "shard_pairs": owned, **masked_timing})
-    del meng, halves, every, none
+    del meng, every, none
 
     # c. the whole sharded path at 48^3: audit -> Morse-Smale ->
     # persistence -> simplify_ms on four shards and four workers, against
@@ -2629,6 +2722,250 @@ def main() -> int:
     del sheng
     emit({"phase": "sharded_total",
           "wall_s": round(time.perf_counter() - t8c, 3)})
+
+    # -- 8d. fault recovery on the card -------------------------------------
+    t8d = time.perf_counter()
+    emit({"phase": "host_arm_before_faults", "calls": host_calls[0]})
+    check(host_calls[0] == 0,
+          f"the host arm ran {host_calls[0]} time(s) before phase 8d: a "
+          f"fault-free phase degraded")
+
+    def launch_identity(label, counters, eng):
+        """Every engine launch that reached a kernel wrapper is counted
+        there once: the wrappers' launches equal ``kernel_launches`` less
+        the host arm's launches plus the launches the watchdog or a device
+        loss abandoned (their ``kernel_launches`` bump is reversed). The
+        per-worker stats merge to ``stats``."""
+        st = eng.stats
+        wrapped = sum(counters[k] for k in ENGINE_KERNELS)
+        want = st.kernel_launches - st.degraded_launches + st.failed_launches
+        check(wrapped == want,
+              f"{label}: {wrapped} kernel launches != kernel_launches "
+              f"{st.kernel_launches} - degraded {st.degraded_launches} + "
+              f"failed {st.failed_launches}")
+        ints = {k: v for k, v in dataclasses.asdict(st).items()
+                if isinstance(v, int)}
+        merged = dataclasses.asdict(eng.merged_worker_stats())
+        check(all(merged[k] == v for k, v in ints.items()),
+              f"{label}: merged_worker_stats() != stats")
+        return wrapped
+
+    def fault_cp(label, policy, n=N, **kw):
+        """critical_points in consumer batches of 8 on two workers under
+        ``policy`` (at 96^3, or at 48^3 with ``n=SMALL_N``), launch
+        counters zeroed just before and read just after; ``types`` against
+        the pin. The device pool holds 4096 segments a shard, as the audit
+        path's: at the default 256 two workers thrash it (on an H100 80GB
+        HBM3: 27,376 uploads of 27,648 reads, 22.4 s against one
+        worker's 7.1 s)."""
+        p, r, ref_counts, ref_sha = (
+            (pre, rank, REF_COUNTS, REF_TYPES_SHA256) if n == N else
+            (ppre, prank, REF_CP_48["counts"], REF_CP_48["types_sha256"]))
+        kw.setdefault("dev_pool_segments", 4096)
+        zero_counts()
+        host0 = host_calls[0]
+        t0 = time.perf_counter()
+        eng = RelationEngine(p, ["VV", "VT"], device="cuda",
+                             fault_policy=policy, **kw)
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        types, counts = critical_points(eng, p, r, batch_segments=8,
+                                        workers=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        st = eng.stats
+        out = {"phase": "fault_scenario", "scenario": label, "n": n,
+               "wall_s": round(wall, 3), "init_s": round(init_s, 3),
+               **{k: getattr(st, k) for k in FAULT_COUNTERS},
+               "kernel_launches": st.kernel_launches,
+               "segments_produced": st.segments_produced,
+               "devpool_uploads": st.devpool_uploads,
+               "t_sync_s": round(st.t_sync, 3),
+               "injected": (len(policy.injector.injected)
+                            if policy.injector is not None else 0),
+               "host_arm_calls": host_calls[0] - host0,
+               "kernel_counters": {k: c[k] for k in ENGINE_KERNELS}}
+        digest_t = hashlib.sha256(types.astype(np.int32).tobytes()) \
+            .hexdigest()
+        check(digest_t == ref_sha and counts == ref_counts,
+              f"{label}: the critical points differ from the reference's")
+        out["wrapper_launches"] = launch_identity(label, c, eng)
+        check(out["host_arm_calls"] == st.degraded_launches,
+              f"{label}: {out['host_arm_calls']} host arm calls != "
+              f"degraded_launches {st.degraded_launches}")
+        mst = eng.merged_shard_stats()
+        for f in ("kernel_launches", "segments_produced", "failed_launches",
+                  "degraded_launches", "devpool_hits", "devpool_uploads"):
+            check(getattr(mst, f) == getattr(st, f),
+                  f"{label}: merged_shard_stats().{f} != stats")
+        all_bits(label, c)
+        for k in ("VV_bits", "member_bits"):
+            launches[k] += c[k]
+        return eng, out
+
+    def on_card(label, out):
+        # a schedule with no permanent fault must recover on the card: a
+        # watchdog timeout of a real launch also enters the ladder, and
+        # enough of them would open the breaker onto the host arm
+        check(out["degraded_launches"] == 0 and out["host_arm_calls"] == 0,
+              f"{label}: production left the card: {out}")
+
+    # the 96^3 schedules beside the 96^3 baseline; the breaker, device-lost
+    # and upload-oom ones at 48^3 beside a 48^3 baseline (at 96^3 they took
+    # 3.8, 11.9 and 20.8 s on an H100 80GB HBM3, 33.1 s for the breaker's
+    # one segment a launch; the 96^3 re-home is held below, on the gather)
+    eng, out = fault_cp("baseline", FaultPolicy())
+    base_wall = out["wall_s"]
+    emit(out)
+    check(all(out[k] == 0 for k in FAULT_COUNTERS),
+          f"the fault-free run moved a fault counter: {out}")
+    on_card("baseline", out)
+    eng, out = fault_cp("baseline-48", FaultPolicy(), n=SMALL_N)
+    base48_wall = out["wall_s"]
+    emit(out)
+    check(all(out[k] == 0 for k in FAULT_COUNTERS),
+          f"the fault-free 48^3 run moved a fault counter: {out}")
+    on_card("baseline-48", out)
+
+    inj = FaultInjector([FaultSpec(kind="launch", relation="VV", attempt=1,
+                                   count=6)])
+    eng, out = fault_cp("transient-launch",
+                        FaultPolicy(injector=inj, backoff_s=0.001))
+    emit({**out, "baseline_wall_s": base_wall})
+    check(out["injected"] == 6 and out["retries"] >= 6
+          and out["failed_launches"] == 0, f"transient-launch: {out}")
+    on_card("transient-launch", out)
+
+    inj = FaultInjector([FaultSpec(kind="launch", relation="VV",
+                                   transient=False, count=6)])
+    eng, out = fault_cp("degraded-breaker",
+                        FaultPolicy(injector=inj, breaker_threshold=2,
+                                    breaker_cooldown_s=0.01),
+                        n=SMALL_N, batch_max=1, lookahead=0)
+    emit({**out, "baseline_wall_s": base48_wall})
+    check(out["breaker_trips"] >= 1 and out["breaker_recoveries"] >= 1
+          and out["degraded_launches"] >= 1, f"degraded-breaker: {out}")
+
+    inj = FaultInjector([FaultSpec(kind="sync", hang_s=5.0, count=1)])
+    eng, out = fault_cp("hung-sync",
+                        FaultPolicy(injector=inj, sync_timeout_s=0.05,
+                                    sync_poll_s=0.005))
+    emit({**out, "baseline_wall_s": base_wall})
+    check(out["sync_timeouts"] >= 1 and out["failed_launches"] >= 1
+          and out["wall_s"] < base_wall + 5.0, f"hung-sync: {out}")
+    on_card("hung-sync", out)
+
+    inj = FaultInjector([FaultSpec(kind="device-lost", shard=0, count=1)])
+    eng, out = fault_cp("device-lost", FaultPolicy(injector=inj),
+                        n=SMALL_N, shards=2)
+    lo, hi = eng.shard_plan.shard_bounds(0)
+    out["shard0_segments"] = hi - lo
+    out["pool_route"] = list(eng.store._route)
+    emit({**out, "baseline_wall_s": base48_wall})
+    check(out["shards_lost"] == 1 and out["rehomed_segments"] == hi - lo
+          == psm.n_segments // 2 and out["pool_route"] == [1, 1],
+          f"device-lost: {out}")
+    on_card("device-lost", out)
+
+    inj = FaultInjector([FaultSpec(kind="upload", count=2)])
+    # one launch a shard pool, so that reads find evicted blocks and upload
+    eng, out = fault_cp("upload-oom", FaultPolicy(injector=inj),
+                        n=SMALL_N, dev_pool_segments=BATCH)
+    emit({**out, "baseline_wall_s": base48_wall})
+    check(out["injected"] == 2 and out["degraded_reads"] >= 1
+          and out["devpool_uploads"] >= 1, f"upload-oom: {out}")
+    on_card("upload-oom", out)
+    del eng
+
+    # the gather kernel's masked halves of a 2-shard TT engine whose shard
+    # 0 was lost at its first launch: the re-staged slice and the rerouted
+    # pool give halves that sum to the single-pool gather
+    inj = FaultInjector([FaultSpec(kind="device-lost", shard=0, count=1)])
+    reng = RelationEngine(pre, ["TT"], device="cuda", shards=2,
+                          fault_policy=FaultPolicy(injector=inj))
+    rowned = masked_halves(reng, " after the re-home")
+    emit({"phase": "rehomed_masked_gather", "shard_pairs": rowned,
+          "shards_lost": reng.stats.shards_lost,
+          "rehomed_segments": reng.stats.rehomed_segments,
+          "pool_route": list(reng.store._route)})
+    check(reng.stats.shards_lost == 1 and list(reng.store._route) == [1, 1]
+          and reng.stats.rehomed_segments == sm.n_segments // 2,
+          f"the TT engine's shard 0 was not re-homed: "
+          f"{reng.stats.rehomed_segments} segments")
+    del reng
+
+    # the chaos run: the whole 48^3 audit -> persistence path on two shards
+    # and two workers under a seeded mixed schedule, against phase 8's pins
+    inj = FaultInjector([
+        FaultSpec(kind="launch", relation="TT", count=1),
+        FaultSpec(kind="launch", relation="VT", transient=False, count=2),
+        FaultSpec(kind="launch", relation="FT", p=0.5, count=2),
+        # long enough that the first reader must wait out the watchdog
+        FaultSpec(kind="sync", hang_s=5.0, count=1),
+        FaultSpec(kind="device-lost", shard=1, count=1)], seed=22)
+    zero_counts()
+    ceng, _, cout = audit_path(
+        ppre, prank, "cuda", SMALL_N, shards=2, workers=2,
+        policy=FaultPolicy(injector=inj, backoff_s=0.001,
+                           breaker_threshold=2, breaker_cooldown_s=0.01,
+                           sync_timeout_s=0.05, sync_poll_s=0.005))
+    c = read_counts()
+    st = ceng.stats
+    kinds = sorted({e[0] for e in inj.injected})
+    cout = {**cout, "phase": "fault_chaos_path",
+            # (kind, relation, first segment, segments, attempt, shard)
+            "injected": [(k, r, segs[0], len(segs), a, sh)
+                         for k, r, segs, a, sh in inj.injected],
+            **{k: getattr(st, k) for k in FAULT_COUNTERS},
+            "kernel_counters": c}
+    cout["wrapper_launches"] = launch_identity("the chaos run", c, ceng)
+    emit(cout)
+    check(kinds == ["device-lost", "launch", "sync"],
+          f"the chaos schedule fired only {kinds}")
+    check(st.shards_lost == 1 and st.sync_timeouts >= 1
+          and st.retries >= 1, f"the chaos run recovered nothing: {cout}")
+    check(all(c[k] > 0 for k in ("member_bits", "TT", "sub_bits", "meet",
+                                 "gather")),
+          f"a kernel was not launched on the chaos run: {c}")
+    all_bits("the chaos run", c)
+    for k in ("member_bits", "TT", "sub_bits", "meet", "gather"):
+        launches[k] += c[k]
+    del ceng
+
+    # the host arm against the kernels for all ten relations, on phase 3's
+    # B=64 96^3 tables, bit for bit, both assemblies; one batch timed
+    host_ms = {}
+    for relation in sorted(ops.DEFAULT_DEG):
+        if relation == "VV":
+            hx = hy = tabs.T_local[:BATCH]
+            hcol = tabs.LV_global[:BATCH]
+        else:
+            hx = tabs.table(relation[0])[0][:BATCH]
+            hy, hcol = (a[:BATCH] for a in tabs.table(relation[1]))
+        t0 = time.perf_counter()
+        hM, hL = ops.relation_block_host(relation, hx, hy, hcol, nvl)
+        host_ms[relation] = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        eq = {}
+        for assembly in ("sparse", "dense"):
+            kM, kL = ops.relation_block(relation, cu(hx), cu(hy), cu(hcol),
+                                        nvl, backend="cuda",
+                                        assembly=assembly)
+            eq[assembly] = (np.array_equal(kM.cpu().numpy(), hM)
+                            and np.array_equal(kL.cpu().numpy(), hL))
+        c = read_counts()
+        ran = sorted(k for k in ENGINE_KERNELS if c[k])
+        emit({"phase": "host_arm", "relation": relation, "B": BATCH,
+              "shape": [list(hx.shape), list(hy.shape)],
+              "host_ms": round(host_ms[relation], 3), "equal": eq,
+              "kernels": ran, "max_L": int(hL.max())})
+        check(all(eq.values()), f"the host arm's {relation} blocks differ "
+                                f"from the kernels' ({eq})")
+        check(len(ran) == 2 or relation in ("EE", "FF"),
+              f"{relation}: the two assemblies ran {ran}")
+    emit({"phase": "fault_total", "host_arm_ms_per_batch": host_ms,
+          "wall_s": round(time.perf_counter() - t8d, 3)})
 
     lm_phases(torch, dev, max_err, timing, launches)
 

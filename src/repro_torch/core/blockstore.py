@@ -204,6 +204,8 @@ class BlockStore:
     engine's ``_dev_pool`` *is* the store) next to the host ``cache``,
     routing each ``(relation, segment)`` key to the pool of the segment's
     owning shard via ``shard_of``. With one shard this is a single pool.
+    A shard's slot can be re-routed onto another shard's pool after a
+    device loss (:meth:`rehome`).
     """
 
     def __init__(self, cache_segments: int, pool_arrays: int,
@@ -212,6 +214,9 @@ class BlockStore:
         self.cache = SegmentCache(cache_segments)
         self.pools = [DevBlockPool(pool_arrays)
                       for _ in range(max(1, int(n_shards)))]
+        # shard -> pool index; re-homing a lost shard redirects its slot
+        # onto a survivor's pool (DESIGN.md §12)
+        self._route = list(range(len(self.pools)))
         self._shard_of = shard_of
 
     def shard_of(self, segment: int) -> int:
@@ -220,13 +225,24 @@ class BlockStore:
         return int(self._shard_of(segment))
 
     def pool(self, shard: int) -> DevBlockPool:
-        return self.pools[shard]
+        return self.pools[self._route[shard]]
+
+    def rehome(self, lost: int, target: int) -> int:
+        # contract: holds-lock
+        """Re-home shard ``lost``'s pool slot onto shard ``target``'s pool
+        after device loss (DESIGN.md §12): the lost pool's blocks are
+        unreachable, so they are dropped in place, and every later
+        ``get``/``put`` for the lost shard's segments routes to the
+        survivor's pool. Returns the number of entries dropped."""
+        dropped = self.pools[self._route[lost]].clear()
+        self._route[lost] = self._route[target]
+        return dropped
 
     def clear_shard(self, shard: int) -> int:
         # contract: holds-lock
-        """Free one shard's device pool in place. Returns entries
-        dropped."""
-        return self.pools[shard].clear()
+        """Free one shard's device pool in place (upload-OOM recovery:
+        clear, then retry the upload once). Returns entries dropped."""
+        return self.pools[self._route[shard]].clear()
 
     # -- DevBlockPool surface, shard-routed --------------------------------
     def get(self, key):

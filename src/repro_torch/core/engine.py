@@ -43,11 +43,12 @@ Multi-consumer thread safety (docs/DESIGN.md §8)
 All shared-state mutation sits behind ONE lock + condition variable
 (``self._cond``): every public consumer method acquires it once at entry,
 and every internal step (queues, cache, in-flight table, device block pool,
-stats) runs with it held. The only wait that releases the lock is the
-device sync: the first consumer needing a launch becomes its *syncer*
-(``launch.syncing``), drops the lock for ``event.synchronize()``, then
-re-acquires and integrates exactly once; other consumers needing the same
-launch wait on the condition variable until ``launch.done``. A block is
+stats) runs with it held. The only waits that release the lock are the
+retry backoff (docs/DESIGN.md §12) and the device sync: the first consumer
+needing a launch becomes its *syncer* (``launch.syncing``), drops the lock
+for the wait on the launch's CUDA event, then re-acquires and integrates
+exactly once; other consumers needing the same launch wait on the
+condition variable until ``launch.done``. A block is
 never produced twice for any thread interleaving, stat updates are never
 lost (``merged_worker_stats() == stats``), and results are bit-identical
 for any number of consumer threads.
@@ -66,14 +67,34 @@ them. The engine's own plan puts every shard on the engine's device, so
 one card runs K logical shards; a plan whose shards sit on distinct cards
 raises, because the cross-card exchange needs a second card to verify.
 
+Fault recovery (docs/DESIGN.md §12)
+-----------------------------------
+
+``fault_policy=`` (default: :meth:`FaultPolicy.from_env`, which reads
+``$REPRO_FAULT_SPEC``) sets the recovery ladder every launch goes through
+(:meth:`_launch`): injected transient launch faults retry with a backoff
+slept with the lock released; after ``breaker_threshold`` consecutive
+device-arm failures a relation's circuit breaker opens and production
+degrades to the numpy host arm (:func:`ops.relation_block_host`) until a
+probe after the cooldown succeeds; a lost shard is re-homed onto a
+surviving shard's pool; with ``degrade=False`` an exhausted relation is
+poisoned. With ``sync_timeout_s`` set, the syncer polls the launch's CUDA
+event against a deadline instead of blocking on it, and a launch that
+stays un-ready is failed and re-dispatched: a real launch slower than
+the window enters the ladder as an injected hang does (as in the
+reference), and enough of them open the breaker onto the host arm. Only
+the taxonomy errors enter the ladder, those the injector raises and the
+watchdog's timeouts: a CUDA error, a kernel build failure or any other
+exception of a kernel wrapper propagates unchanged. Any
+survivable schedule gives blocks bit-identical to the fault-free run.
+
 This is the reference engine with the completion API (full-block reads,
-device inverse maps, boundary relations), and with no fault policy and no
+device inverse maps, boundary relations) and the fault ladder, and with no
 kernel-parameter tuning (the kernels pick their own tiles, so the
 reference's ``block_x``/``block_y``/``vv_block`` have no counterpart): its
 built-in defaults (``batch_max=64``, ``lookahead=8``,
 ``cache_segments=512``, ``dev_pool_segments=256``, ``inflight_max=8``)
-give the reference's ``tune="off"`` launch sequence. The fault-recovery
-ladder comes with a later port.
+give the reference's ``tune="off"`` launch sequence.
 """
 
 from __future__ import annotations
@@ -89,9 +110,17 @@ import numpy as np
 import torch
 
 from ..distributed.sharding import ShardPlan
-from ..errors import RelationWidthError
+from ..errors import (
+    DeviceLostError,
+    PoolUploadError,
+    RelationError,
+    RelationPoisonedError,
+    RelationWidthError,
+    SyncTimeoutError,
+)
 from ..kernels import ops
 from .blockstore import BlockStore
+from .faults import FaultPolicy
 from .mesh import _EDGE_COMBOS, _FACE_COMBOS, edge_lookup, face_lookup
 from .segtables import OFFLOADED_RELATIONS, Preconditioned, RELATION_TABLES
 
@@ -126,6 +155,23 @@ class EngineStats:
     # device-resident launch results vs host-cache blocks re-uploaded.
     devpool_hits: int = 0
     devpool_uploads: int = 0
+    # Fault recovery (docs/DESIGN.md §12). ``retries`` counts launch AND
+    # sync re-attempts; ``failed_*`` counts launches abandoned after a
+    # fault (their dispatch-time ``kernel_launches``/``segments_produced``
+    # bumps are reversed, so "produced == distinct blocks" still holds);
+    # ``degraded_*`` counts host-arm production/reads while a relation's
+    # circuit breaker is open.
+    retries: int = 0
+    sync_timeouts: int = 0
+    failed_launches: int = 0
+    failed_segments: int = 0
+    breaker_trips: int = 0
+    breaker_recoveries: int = 0
+    degraded_launches: int = 0
+    degraded_segments: int = 0
+    degraded_reads: int = 0
+    shards_lost: int = 0
+    rehomed_segments: int = 0
     # Cross-segment adjacency completion (core/adjacency.py).
     completion_queries: int = 0        # simplex ids completed
     completion_fanout_blocks: int = 0  # block consultations
@@ -178,8 +224,9 @@ class StatsHost:
     counters, up to float-summation order for the ``t_*`` phases).
     The producer-side counters (``kernel_launches``,
     ``segments_produced``, ``devpool_hits``, ``devpool_uploads``,
-    ``t_kernel``) are also attributed to segment shards (``shard_stats``,
-    docs/DESIGN.md §9)."""
+    ``t_kernel``, and the ``failed_*`` and ``degraded_*`` launch counters
+    of docs/DESIGN.md §12) are also attributed to segment shards
+    (``shard_stats``, docs/DESIGN.md §9)."""
 
     def _init_stats(self) -> None:
         self.stats = EngineStats()
@@ -296,22 +343,33 @@ class _Launch:
     """One dispatched batched kernel whose results may not be ready yet."""
 
     __slots__ = ("relation", "segments", "M", "L", "M_host", "L_host",
-                 "event", "n_rows", "done", "syncing")
+                 "event", "n_rows", "done", "syncing", "shard", "host",
+                 "error", "hang_until", "sync_attempts")
 
     def __init__(self, relation, segments, M, L, M_host, L_host, event,
-                 n_rows):
+                 n_rows, shard=0, host=False):
         self.relation = relation
         self.segments = segments      # real (unpadded) segment ids
         self.M = M                    # (B_padded, R, deg) device tensor
         self.L = L                    # (B_padded, R) device tensor
-        self.M_host = M_host          # host copies, filled by the stream
+        # host copies, filled by the stream: fresh pinned buffers of this
+        # launch alone, so a launch the watchdog abandons (still running on
+        # the stream) writes into nothing a re-dispatch reads
+        self.M_host = M_host
         self.L_host = L_host
         self.event = event            # recorded after the copies (or None)
         self.n_rows = n_rows          # per-segment internal row counts
         self.done = False
         self.syncing = False          # a consumer thread owns the sync wait
+        self.shard = shard            # owning segment shard (stats, re-home)
+        self.host = host              # degraded host-arm launch (not pooled)
+        self.error = None             # terminal fault (docs/DESIGN.md §12)
+        self.hang_until = 0.0         # injected sync hang deadline (faults)
+        self.sync_attempts = 0        # watchdog timeouts consumed so far
 
     def is_ready(self) -> bool:
+        if self.hang_until and time.monotonic() < self.hang_until:
+            return False              # injected hang: results stay un-ready
         return self.event is None or self.event.query()
 
 
@@ -327,7 +385,8 @@ class RelationEngine(StatsHost):
     EE/FF always take the dense arm. ``async_dispatch=False`` syncs every
     launch right after dispatch (the localized baselines'
     blocking producer). ``shards=K`` (or ``shard_plan=``) runs K segment
-    shards (module docstring). Safe for concurrent use by multiple
+    shards, and ``fault_policy=`` / ``sync_timeout_s=`` set the fault
+    recovery ladder (module docstring). Safe for concurrent use by multiple
     consumer threads: every public consumer method acquires the engine
     lock exactly once; internal ``_``-prefixed steps assume it is held."""
 
@@ -345,15 +404,30 @@ class RelationEngine(StatsHost):
         dev_pool_segments: int = 256,
         shards: int = 1,
         shard_plan: Optional[ShardPlan] = None,
-        fault_policy=None,
+        fault_policy: Optional[FaultPolicy] = None,
+        sync_timeout_s: Optional[float] = None,
         assembly: str = "sparse",
         async_dispatch: bool = True,
     ):
         if pre.tables is None:
             raise ValueError("precondition(..., build_tables=True) required")
-        if fault_policy is not None:
-            raise NotImplementedError(
-                "fault recovery is not ported yet (ROADMAP queue 1 item 4)")
+        # Fault-recovery policy (docs/DESIGN.md §12): defaults come from
+        # $REPRO_FAULT_SPEC when no explicit policy is passed;
+        # sync_timeout_s= overrides the policy's watchdog knob.
+        if fault_policy is None:
+            fault_policy = FaultPolicy.from_env()
+        if sync_timeout_s is not None:
+            fault_policy = dataclasses.replace(
+                fault_policy, sync_timeout_s=float(sync_timeout_s))
+        self._fault_policy = fault_policy
+        self._injector = fault_policy.injector
+        # per-relation circuit breaker: consecutive device-arm failures,
+        # open-until deadline, and the last fault
+        self._breaker: Dict[str, Dict] = {}
+        # relations that permanently failed under degrade=False: every
+        # later consumer call raises RelationPoisonedError immediately
+        self._poisoned: Dict[str, BaseException] = {}
+        self._lost_shards: set = set()
         self.device = ops.resolve_device(device)
         self.backend = ops.resolve_backend(backend, self.device)
         if assembly not in ops.ASSEMBLIES:
@@ -453,7 +527,9 @@ class RelationEngine(StatsHost):
 
     def _stage_shard_tables(self, lo: int, hi: int) -> Dict[str, torch.Tensor]:
         """One shard's slice ``[lo, hi)`` of the stacked segment tables on
-        the engine's device (all of them when the engine has one shard)."""
+        the engine's device (all of them when the engine has one shard).
+        Used at construction for every shard and again by
+        :meth:`_rehome_shard` to re-stage a lost shard's slice."""
         t = self.tables
         tabs: Dict[str, torch.Tensor] = {}
         for name in ("T_local", "LT_global", "LV_global", "E_local",
@@ -497,6 +573,7 @@ class RelationEngine(StatsHost):
 
     def _request(self, relation: str, segments: Sequence[int]) -> None:
         # contract: holds-lock
+        self._check_poisoned(relation)
         t0 = time.perf_counter()
         q = self.queues[relation]
         qs = set(q)
@@ -618,6 +695,7 @@ class RelationEngine(StatsHost):
         """Pooled device block entry ``(M, L, idx_or_None)`` for one
         segment, producing/uploading on miss (one request count per call).
         Lock held."""
+        self._check_poisoned(relation)
         self._bump(requests=1)
         self._count(relation, segment)
         key = (relation, segment)
@@ -635,9 +713,29 @@ class RelationEngine(StatsHost):
             # device pool — re-check before paying a host->device upload
             ent = self._dev_pool.get(key)
             if ent is None:
+                pooled = True
+                if self._injector is not None \
+                        and self._injector.upload_fault(relation, segment,
+                                                        shard):
+                    # injected pool-upload OOM: drop every entry of this
+                    # shard's pool (free, then retry once); a second
+                    # failure serves the read un-pooled (degraded), or
+                    # raises under degrade=False
+                    self._dev_pool.clear_shard(shard)
+                    if self._injector.upload_fault(relation, segment,
+                                                   shard):
+                        if not self._fault_policy.degrade:
+                            raise PoolUploadError(
+                                f"device block-pool upload failed twice "
+                                f"for relation {relation!r}",
+                                relation=relation, segment=segment,
+                                shard=shard)
+                        self._bump(degraded_reads=1)
+                        pooled = False
                 ent = (torch.from_numpy(Mh).to(self.device),
                        torch.from_numpy(Lh).to(self.device), None)
-                self._dev_pool.put(key, *ent)
+                if pooled:
+                    self._dev_pool.put(key, *ent)
                 self._bump(devpool_uploads=1)
                 self._bump_shard(shard, devpool_uploads=1)
                 return ent
@@ -697,7 +795,10 @@ class RelationEngine(StatsHost):
         block. ``cols`` optionally trims a relation's columns to a proven
         degree bound (entries past the true max row count are all ``-1``,
         so trimming is lossless). Counting is one pool read per
-        ``(relation, segment)``."""
+        ``(relation, segment)``. Relations whose circuit breaker is OPEN
+        (docs/DESIGN.md §12) bypass the device pool: their blocks are read
+        from the host cache (``degraded_reads``) and assembled on the host
+        in the gather's layout, bit-identical to it."""
         relations = tuple(relations)
         kind = relations[0][0]       # subject kind ("VV" subjects are V)
         for r in relations:
@@ -725,16 +826,46 @@ class RelationEngine(StatsHost):
         gid_dev = torch.from_numpy(gid_pad).to(self.device)
 
         # producer interaction under the lock: prefetch + pool-entry
-        # resolution (which may sync in-flight launches)
+        # resolution (which may sync in-flight launches); relations whose
+        # breaker is open read host blocks instead
         with self._consumer_entry("get_full_dev_many"):
-            self._prefetch_many({r: segments for r in relations})
+            live = [r for r in relations if self._device_arm_ok(r)]
+            if live:
+                self._prefetch_many({r: segments for r in live})
             ents_by_rel = {r: [self._dev_entry(r, s) for s in segments]
-                           for r in relations}
+                           for r in live}
+            host_by_rel: Dict[str, list] = {}
+            for r in relations:
+                if r in ents_by_rel:
+                    continue
+                blocks = []
+                for s in segments:
+                    self._bump(requests=1, degraded_reads=1)
+                    self._count(r, s)
+                    blocks.append(self._fetch(r, s, full=True))
+                host_by_rel[r] = blocks
 
         # the gathers run on held tensor references — outside the lock
         M: Dict[str, torch.Tensor] = {}
         L: Dict[str, torch.Tensor] = {}
         for r in relations:
+            if r in host_by_rel:
+                # degraded read: the internal rows assembled on the host in
+                # _gather_internal's layout (-1/0 bucket padding, columns
+                # trimmed to w) and uploaded once
+                w = self.deg[r]
+                if cols and r in cols:
+                    w = min(w, max(int(cols[r]), 1))
+                Mh = np.full((rows_pad, w), -1, dtype=np.int32)
+                Lh = np.zeros(rows_pad, dtype=np.int32)
+                at = 0
+                for (Mb, Lb), n in zip(host_by_rel[r], ns_rows):
+                    Mh[at:at + n] = Mb[:n, :w]
+                    Lh[at:at + n] = Lb[:n]
+                    at += n
+                M[r] = torch.from_numpy(Mh).to(self.device)
+                L[r] = torch.from_numpy(Lh).to(self.device)
+                continue
             ents = ents_by_rel[r]
             aid = id(ents[0][0])
             if (all(e[2] is not None for e in ents)
@@ -826,6 +957,7 @@ class RelationEngine(StatsHost):
         else queue-jump + dispatch + sync. ``full`` keeps external + padding
         rows. Lock held (only :meth:`_sync` may release it while waiting on
         the device)."""
+        self._check_poisoned(relation)
         key = (relation, segment)
         while True:
             hit = self.cache.get(key)
@@ -896,37 +1028,233 @@ class RelationEngine(StatsHost):
         same launch wait on the condition variable instead; each accounts
         its own wall-clock wait in ``t_sync``. If the syncer fails before
         integrating (a :class:`RelationWidthError`), a waiter takes over and
-        surfaces the same error instead of hanging."""
-        if launch.done:
+        surfaces the same error instead of hanging.
+
+        Sync watchdog (docs/DESIGN.md §12): with ``sync_timeout_s`` set,
+        the syncer's device wait is a bounded poll of the launch's CUDA
+        event; a launch that is not ready within the window costs one
+        ``sync_timeouts`` and is re-waited up to ``max_attempts`` times,
+        after which it is FAILED (:meth:`_fail_launch`): waiters wake at
+        once, the breaker records the failure, and callers re-dispatch the
+        segments. The abandoned kernel and copies may still run on the
+        stream; they write only into this launch's own tensors, which are
+        dropped."""
+        if launch.done or launch.error is not None:
             return
         t0 = time.perf_counter()
         if launch.syncing:
-            while launch.syncing and not launch.done:
+            while launch.syncing and not launch.done \
+                    and launch.error is None:
                 self._cond.wait()   # contract: syncer-handoff
+            if launch.error is not None:
+                # the syncer failed the launch (watchdog / device loss):
+                # account the wait and let the caller re-dispatch
+                self._bump(t_sync=time.perf_counter() - t0)
+                return
             if not launch.done:       # syncer failed: take over the sync
                 return self._sync(launch)
             self._bump(t_sync=time.perf_counter() - t0)
             return
         launch.syncing = True
         try:
-            self._cond.release()
-            try:
-                # the ONE device wait that runs lock-free (released above,
-                # re-acquired below)  # contract: syncer-handoff
-                if launch.event is not None:
-                    launch.event.synchronize()  # contract: syncer-handoff
-            finally:
-                self._cond.acquire()
+            while True:
+                self._cond.release()
+                try:
+                    # the ONE device wait that runs lock-free (released
+                    # above, re-acquired below)  # contract: syncer-handoff
+                    try:
+                        self._device_wait(launch)
+                        timed_out = None
+                    except SyncTimeoutError as exc:
+                        timed_out = exc
+                finally:
+                    self._cond.acquire()
+                if timed_out is None:
+                    break
+                self._bump(sync_timeouts=1)
+                launch.sync_attempts += 1
+                if launch.error is not None:
+                    break             # failed meanwhile (shard loss)
+                if launch.sync_attempts >= self._fault_policy.max_attempts:
+                    self._fail_launch(launch, timed_out)
+                    self._breaker_failure(launch.relation, timed_out)
+                    self._bump(t_sync=time.perf_counter() - t0)
+                    return
+                self._bump(retries=1)
         finally:
             launch.syncing = False
             self._cond.notify_all()
         self._bump(t_sync=time.perf_counter() - t0)
-        self._integrate(launch)
+        if launch.error is None:
+            self._integrate(launch)
         self._cond.notify_all()
+
+    def _device_wait(self, launch: _Launch) -> None:
+        """Device wait for one launch, called by the syncer with the engine
+        lock RELEASED (it touches no shared engine state). With no
+        ``sync_timeout_s`` this blocks on the launch's CUDA event (then
+        sleeps out an injected hang); with the watchdog armed it polls the
+        event and the injected hang every ``sync_poll_s`` and raises
+        :class:`SyncTimeoutError` when the window expires."""
+        timeout = self._fault_policy.sync_timeout_s
+        if timeout is None:
+            if launch.event is not None:
+                launch.event.synchronize()
+            wait = launch.hang_until - time.monotonic()
+            if wait > 0:              # injected hang, no watchdog armed
+                time.sleep(wait)
+            return
+        deadline = time.monotonic() + timeout
+        poll = max(float(self._fault_policy.sync_poll_s), 1e-4)
+        while True:
+            if launch.is_ready():     # event.query() and the hang deadline
+                return
+            if time.monotonic() >= deadline:
+                raise SyncTimeoutError(
+                    f"launch for relation {launch.relation!r} not ready "
+                    f"after {timeout}s (segments {list(launch.segments)!r})",
+                    timeout_s=timeout, relation=launch.relation,
+                    segment=launch.segments[0] if launch.segments else None,
+                    shard=launch.shard,
+                    attempt=launch.sync_attempts + 1)
+            time.sleep(poll)
+
+    def _fail_launch(self, launch: _Launch, exc: BaseException) -> None:
+        # contract: holds-lock
+        """Abandon a dispatched launch after a terminal fault: record the
+        error (waking condvar waiters), deregister its segments from the
+        in-flight table so they can re-dispatch, and reverse the
+        dispatch-time production counters — ``segments_produced`` keeps
+        meaning "distinct blocks actually produced". Idempotent."""
+        if launch.done or launch.error is not None:
+            return
+        launch.error = exc
+        for s in launch.segments:
+            if self._inflight.get((launch.relation, s)) is launch:
+                self._inflight.pop((launch.relation, s))
+        try:
+            self._flights.remove(launch)
+        except ValueError:
+            pass
+        n = len(launch.segments)
+        self._bump(failed_launches=1, failed_segments=n,
+                   kernel_launches=-1, segments_produced=-n)
+        self._bump_shard(launch.shard, failed_launches=1, failed_segments=n,
+                         kernel_launches=-1, segments_produced=-n)
+        self._cond.notify_all()
+
+    # -- per-relation circuit breaker (docs/DESIGN.md §12) -------------------
+
+    def _breaker_failure(self, relation: str, exc: BaseException) -> None:
+        # contract: holds-lock
+        """Record one device-arm failure; after ``breaker_threshold``
+        consecutive failures the breaker OPENS: production and
+        ``get_full_dev_many`` reads degrade to the host arm until the
+        cooldown expires (then one launch probes the device arm again).
+        A failure while open re-arms the cooldown."""
+        b = self._breaker.setdefault(
+            relation, {"failures": 0, "open": False, "open_until": 0.0,
+                       "exc": None})
+        b["failures"] += 1
+        b["exc"] = exc
+        if b["open"]:
+            b["open_until"] = (time.monotonic()
+                               + self._fault_policy.breaker_cooldown_s)
+        elif b["failures"] >= self._fault_policy.breaker_threshold:
+            b["open"] = True
+            b["open_until"] = (time.monotonic()
+                               + self._fault_policy.breaker_cooldown_s)
+            self._bump(breaker_trips=1)
+
+    def _breaker_success(self, relation: str) -> None:
+        # contract: holds-lock
+        """A device-arm launch succeeded: reset the consecutive-failure
+        count; if the breaker was open this was the cooldown probe — close
+        it (``breaker_recoveries``) and return reads to the device arm."""
+        b = self._breaker.get(relation)
+        if b is None:
+            return
+        if b["open"]:
+            b["open"] = False
+            self._bump(breaker_recoveries=1)
+        b["failures"] = 0
+
+    def _device_arm_ok(self, relation: str) -> bool:
+        # contract: holds-lock
+        """True when the device arm may be tried: breaker closed, or open
+        with an expired cooldown (the probe window)."""
+        b = self._breaker.get(relation)
+        if b is None or not b["open"]:
+            return True
+        return time.monotonic() >= b["open_until"]
+
+    def _poison(self, relation: str, exc: BaseException) -> None:
+        # contract: holds-lock
+        if relation not in self._poisoned:
+            self._poisoned[relation] = exc
+
+    def _check_poisoned(self, relation: str) -> None:
+        # contract: holds-lock
+        exc = self._poisoned.get(relation)
+        if exc is not None:
+            raise RelationPoisonedError(
+                f"relation {relation!r} permanently failed earlier "
+                f"(fault_policy.degrade is off); the engine cannot serve "
+                f"it", relation=relation) from exc
+
+    def _backoff_sleep(self, attempt: int) -> None:
+        # contract: holds-lock
+        """Exponential backoff between launch retry attempts. The sleep
+        runs with the engine lock RELEASED — sleeping under the lock would
+        stall every consumer thread; the caller re-filters its batch
+        against cache + in-flight after the gap, so the de-dup guarantee
+        survives the window."""
+        delay = float(self._fault_policy.backoff_s) * (
+            float(self._fault_policy.backoff_factor) ** max(attempt - 1, 0))
+        if delay <= 0:
+            return
+        self._cond.release()
+        try:
+            # lock released above, re-acquired below
+            time.sleep(delay)   # contract: backoff-sleep
+        finally:
+            self._cond.acquire()
+
+    def _rehome_shard(self, lost: int, exc: BaseException) -> bool:
+        # contract: holds-lock
+        """Whole-shard device loss (docs/DESIGN.md §12): re-home the lost
+        shard onto the first surviving shard — fail its un-synced flights
+        (their device tensors are gone), drop and re-route its device pool
+        through :meth:`BlockStore.rehome`, re-stage its table slice on the
+        survivor's device, and point its ``ShardPlan`` slot there. Every
+        shard reads the engine's one copy of the inverse maps
+        (:meth:`dev_inverse`), so no per-shard replica is left to drop.
+        Segment *attribution* (``_seg_shard``, per-shard stats) stays
+        logical, so the per-shard production partition is untouched.
+        Returns ``False`` when no surviving shard exists (a one-shard
+        engine degrades to the host arm instead)."""
+        if lost in self._lost_shards:
+            return True               # already re-homed; retry proceeds
+        survivors = [k for k in range(self.n_shards)
+                     if k != lost and k not in self._lost_shards]
+        if not survivors:
+            return False
+        target = survivors[0]
+        self._lost_shards.add(lost)
+        for launch in list(self._flights):
+            if launch.shard == lost and not launch.done:
+                self._fail_launch(launch, exc)
+        self.store.rehome(lost, target)
+        lo, hi = self.shard_plan.shard_bounds(lost)
+        self._shard_tables[lost] = self._stage_shard_tables(lo, hi)
+        self.shard_plan = self.shard_plan.rehomed(lost, target)
+        self._bump(shards_lost=1, rehomed_segments=hi - lo)
+        self._cond.notify_all()
+        return True
 
     def _integrate(self, launch: _Launch) -> None:
         # contract: holds-lock
-        if launch.done:
+        if launch.done or launch.error is not None:
             return
         t0 = time.perf_counter()
         # The host copies were queued right behind the kernel and are
@@ -955,8 +1283,12 @@ class RelationEngine(StatsHost):
             self.cache.put((launch.relation, s),
                            (Mh[i], Lh[i], launch.n_rows[i]))
             # device pool: keep the still-device-resident rows addressable
-            # for get_full_dev_many (holds a reference to the launch)
-            self._dev_pool.put((launch.relation, s), launch.M, launch.L, i)
+            # for get_full_dev_many (holds a reference to the launch).
+            # Degraded host-arm launches are never pooled: device reads of
+            # their blocks go through the counted upload in _dev_entry.
+            if not launch.host:
+                self._dev_pool.put((launch.relation, s), launch.M, launch.L,
+                                   i)
         launch.done = True
         self._bump(evictions=self.cache.evictions - self.stats.evictions,
                    t_integrate=time.perf_counter() - t0)
@@ -1023,15 +1355,94 @@ class RelationEngine(StatsHost):
             qs = set(q)
             q.extend(s for s in look[room:] if s not in qs)
         self._bump(t_prepare=time.perf_counter() - t0)
-        return self._launch_device(relation, batch, shard)
+        return self._launch(relation, batch, shard)
 
-    def _launch_device(self, relation: str, batch: List[int],
-                       shard: int) -> _Launch:
+    def _launch(self, relation: str, batch: List[int], shard: int
+                ) -> Optional[_Launch]:
         # contract: holds-lock
-        """One kernel launch: pad to the power-of-two bucket, gather the
-        batch's rows of the shard's tables on the device (shard-local
-        indices), launch, queue the host copies, record the readiness
-        event, and register the in-flight launch."""
+        """Produce one drained batch through the §12 recovery ladder:
+
+        1. breaker OPEN (cooldown running) -> host arm at once;
+        2. device arm; an injected :class:`RelationError` feeds the
+           breaker, and a *transient* one retries up to ``max_attempts``
+           with exponential backoff — the backoff sleeps with the lock
+           RELEASED, and the batch is re-filtered against cache +
+           in-flight afterwards, so a segment is never produced twice
+           even if another thread produced it during the gap;
+        3. :class:`DeviceLostError` re-homes the shard (a surviving
+           shard's pool) and retries there;
+        4. exhausted/permanent -> host arm (``degrade=True``, the default)
+           or poison the relation and raise (``degrade=False``).
+
+        Only :class:`RelationError` subclasses enter the ladder —
+        :class:`RelationWidthError` (a data error, identical on every arm)
+        and every other exception (a CUDA error, a kernel build failure)
+        propagate unchanged."""
+        policy = self._fault_policy
+        attempt = 1
+        while True:
+            if not self._device_arm_ok(relation):
+                if policy.degrade:
+                    return self._launch_host(relation, batch, shard)
+                b = self._breaker.get(relation) or {}
+                self._poison(relation, b.get("exc") or RelationError(
+                    "circuit breaker open", relation=relation, shard=shard))
+                self._check_poisoned(relation)
+            try:
+                launch = self._launch_device(relation, batch, shard,
+                                             attempt)
+            except RelationWidthError:
+                raise                 # data error: identical on every arm
+            except RelationError as exc:
+                if isinstance(exc, DeviceLostError) \
+                        and attempt < policy.max_attempts \
+                        and self._rehome_shard(shard, exc):
+                    self._bump(retries=1)
+                    attempt += 1
+                    continue
+                self._breaker_failure(relation, exc)
+                transient = (getattr(exc, "transient", False)
+                             and not isinstance(exc, DeviceLostError))
+                if transient and attempt < policy.max_attempts:
+                    self._bump(retries=1)
+                    attempt += 1
+                    self._backoff_sleep(attempt - 1)
+                    # the backoff gap ran with the lock released: another
+                    # thread may have produced part of the batch meanwhile
+                    batch = self._refilter(relation, batch)
+                    if not batch:
+                        return None
+                    continue
+                if policy.degrade:
+                    return self._launch_host(relation, batch, shard)
+                self._poison(relation, exc)
+                raise
+            if launch is not None and launch.error is None:
+                self._breaker_success(relation)
+            return launch
+
+    def _refilter(self, relation: str, batch: List[int]) -> List[int]:
+        # contract: holds-lock
+        """De-dup a retry batch against cache + in-flight after a window
+        in which the lock was released (backoff sleep)."""
+        return [s for s in batch
+                if (relation, s) not in self.cache
+                and (relation, s) not in self._inflight]
+
+    def _launch_device(self, relation: str, batch: List[int], shard: int,
+                       attempt: int) -> _Launch:
+        # contract: holds-lock
+        """One device-arm kernel launch: pad to the power-of-two bucket,
+        gather the batch's rows of the shard's tables on the device
+        (shard-local indices), launch, queue the host copies, record the
+        readiness event, and register the in-flight launch. Injected
+        faults surface here as :class:`RelationError` subclasses: a launch
+        fault before the kernel call, a sync hang after it."""
+        if self._injector is not None:
+            exc = self._injector.launch_fault(relation, batch, attempt,
+                                              shard)
+            if exc is not None:
+                raise exc
         t0 = time.perf_counter()
         # pad the launch to a power-of-two bucket (duplicating the last
         # segment): O(log batch_max) launch shapes, as the reference
@@ -1079,7 +1490,12 @@ class RelationEngine(StatsHost):
 
         n_int, _ = self.tables.counts(kx if relation != "VV" else "V")
         launch = _Launch(relation, batch, M, L, M_host, L_host, event,
-                         [int(n_int[s]) for s in batch])
+                         [int(n_int[s]) for s in batch], shard=shard)
+        if self._injector is not None:
+            hang = self._injector.sync_hang_s(relation, batch, attempt,
+                                              shard)
+            if hang > 0:
+                launch.hang_until = time.monotonic() + hang
         for s in batch:
             self._inflight[(relation, s)] = launch
         self._flights.append(launch)
@@ -1093,6 +1509,44 @@ class RelationEngine(StatsHost):
                 l for l in self._flights if not l.done)
         if len(self._flights) > self.inflight_max:
             self._sync(self._flights.popleft())
+        return launch
+
+    def _launch_host(self, relation: str, batch: List[int], shard: int
+                     ) -> _Launch:
+        # contract: holds-lock
+        """Degraded production on the HOST arm (docs/DESIGN.md §12): the
+        numpy :func:`ops.relation_block_host` computes the batch with the
+        same ``(M, L)`` as the device arms; results integrate into the host
+        cache at once (nothing to sync) and the ``degraded_*`` counters
+        record the detour. Host launches are never device-pooled — device
+        reads of their blocks go through the counted upload path."""
+        t0 = time.perf_counter()
+        t = self.tables
+        kx, ky = RELATION_TABLES[relation]
+        segs = np.asarray(batch, dtype=np.intp)
+        if relation == "VV":
+            tabX = tabY = t.T_local[segs]
+            colg = t.LV_global[segs]
+        else:
+            tabX = t.table(kx, segs)[0]
+            tabY, colg = t.table(ky, segs)
+        Mh, Lh = ops.relation_block_host(relation, tabX, tabY, colg,
+                                         t.NV, deg=self.deg[relation])
+        dt = time.perf_counter() - t0
+        n = len(batch)
+        self._bump(t_kernel=dt, kernel_launches=1, segments_produced=n,
+                   degraded_launches=1, degraded_segments=n)
+        self._bump_shard(shard, t_kernel=dt, kernel_launches=1,
+                         segments_produced=n, degraded_launches=1,
+                         degraded_segments=n)
+        n_int, _ = t.counts(kx if relation != "VV" else "V")
+        Mt, Lt = torch.from_numpy(Mh), torch.from_numpy(Lh)
+        launch = _Launch(relation, batch, Mt, Lt, Mt, Lt, None,
+                         [int(n_int[s]) for s in batch], shard=shard,
+                         host=True)
+        for s in batch:
+            self._inflight[(relation, s)] = launch
+        self._integrate(launch)
         return launch
 
     def _table_dev(self, kind: str, segs: torch.Tensor,

@@ -124,22 +124,19 @@ class SegmentTables:
     def NF(self) -> Optional[int]:
         return None if self.LF_global is None else self.LF_global.shape[1]
 
-    def table(self, kind: str):
-        """(local_table (ns,N,a), global_ids (ns,N)) for kind in V/E/F/T."""
+    def table(self, kind: str, segs=None):
+        """(local_table (ns,N,a), global_ids (ns,N)) for kind in V/E/F/T;
+        with ``segs`` (an index array), only those segments' rows."""
         if kind == "V":
-            nv = self.NV
-            iota = np.arange(nv, dtype=np.int32)[None, :, None]
-            ns = self.LV_global.shape[0]
-            tab = np.broadcast_to(iota, (ns, nv, 1)).copy()
-            tab[self.LV_global < 0] = -1
-            return tab, self.LV_global
-        if kind == "E":
-            return self.E_local, self.LE_global
-        if kind == "F":
-            return self.F_local, self.LF_global
-        if kind == "T":
-            return self.T_local, self.LT_global
-        raise KeyError(kind)
+            lv = self.LV_global if segs is None else self.LV_global[segs]
+            iota = np.arange(self.NV, dtype=np.int32)[None, :, None]
+            tab = np.broadcast_to(iota, lv.shape + (1,)).copy()
+            tab[lv < 0] = -1
+            return tab, lv
+        tab, glob = {"E": (self.E_local, self.LE_global),
+                     "F": (self.F_local, self.LF_global),
+                     "T": (self.T_local, self.LT_global)}[kind]
+        return (tab, glob) if segs is None else (tab[segs], glob[segs])
 
     def counts(self, kind: str):
         """(n_internal, n_local) per segment for kind."""

@@ -21,6 +21,11 @@ predicate and the compaction (:func:`_predicate`, :func:`_compact`) in
 torch, as the reference computes that epilogue outside its kernels. Both
 arms are bit-identical to the reference package's ``xla`` and ``pallas``
 arms for every relation.
+
+:func:`relation_block_host` is the engine's degraded arm (docs/DESIGN.md
+§12), not a kernel fallback: dense counts, predicate and compaction in
+numpy, run only while a relation's circuit breaker is open, with the same
+``(M, L)`` as the arms above.
 """
 
 from __future__ import annotations
@@ -401,3 +406,79 @@ def relation_block(
         mask = _predicate(counts_meet(tabX, tabY, backend), k, exact,
                           exclude_diag=False)
     return _compact(mask, colg, deg)
+
+
+def _counts_vv_host(T_local: np.ndarray, nvl: int) -> np.ndarray:
+    """Shared-tet counts ``C (B, nvl, nvl)`` on the host: the product of
+    each segment's tet-vertex incidence with itself (the numpy twin of
+    :func:`_counts_vv_onehot`). The product runs in float32, which is
+    exact here: every count is at most NT, far below 2**24."""
+    B, NT, arity = T_local.shape
+    onehot = np.zeros((B, NT, nvl), dtype=np.float32)
+    for a in range(arity):
+        v = T_local[:, :, a]
+        bi, ti = np.nonzero(v >= 0)
+        onehot[bi, ti, v[bi, ti]] = 1
+    return np.matmul(onehot.transpose(0, 2, 1), onehot).astype(np.int32)
+
+
+def _counts_pairwise_host(tabX: np.ndarray, tabY: np.ndarray,
+                          nvl: int) -> np.ndarray:
+    """``C[b, x, y]`` = number of ``tabX[b, x]`` slots whose vertex appears
+    in ``tabY[b, y]``, on the host (the numpy twin of
+    :func:`_counts_pairwise`): how many of x's slots hold each local
+    vertex, times whether y holds it, summed over the ``nvl`` vertices.
+    Exact in float32 (every count is at most the arity)."""
+    B, NX, ax = tabX.shape
+    NY, ay = tabY.shape[1:]
+    slots = np.zeros((B, NX, nvl), dtype=np.float32)
+    for i in range(ax):
+        bi, xi = np.nonzero(tabX[:, :, i] >= 0)
+        slots[bi, xi, tabX[bi, xi, i]] += 1
+    holds = np.zeros((B, NY, nvl), dtype=np.float32)
+    for j in range(ay):
+        bi, yi = np.nonzero(tabY[:, :, j] >= 0)
+        holds[bi, yi, tabY[bi, yi, j]] = 1
+    return np.matmul(slots, holds.transpose(0, 2, 1)).astype(np.int32)
+
+
+def relation_block_host(
+    relation: str,
+    tabX: np.ndarray,
+    tabY: np.ndarray,
+    col_global: np.ndarray,
+    nvl: int,
+    deg: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pure-numpy host arm of :func:`relation_block` (docs/DESIGN.md §12).
+
+    The degraded production path while a relation's circuit breaker is
+    open: dense counts -> predicate -> compaction, all on the host, for
+    all ten relations. It gives the same ``(M, L)`` as the card's entry,
+    TT, sub-join and count kernels, the plain torch arm and the
+    reference's host arm: global ids in ascending local column order,
+    ``-1`` padding, and ``L`` the TRUE row count (it may exceed ``deg``),
+    so the engine's :class:`~repro_torch.errors.RelationWidthError` check
+    still fires. The tables hold local vertex ids below ``nvl``."""
+    k, exact = PREDICATE[relation]
+    deg = DEFAULT_DEG[relation] if deg is None else deg
+    tabX = np.asarray(tabX)
+    tabY = np.asarray(tabY)
+    colg = np.asarray(col_global).astype(np.int32)
+    if relation == "VV":
+        C = _counts_vv_host(tabX, nvl)
+        mask = (C == k) if exact else (C >= k)
+        n = min(C.shape[1], C.shape[2])
+        mask[:, np.arange(n), np.arange(n)] = False
+    else:
+        C = _counts_pairwise_host(tabX, tabY, nvl)
+        mask = (C == k) if exact else (C >= k)
+    # compaction: a set column's slot is the number of set columns before
+    # it; those past deg are dropped, and L keeps the true count
+    B, R, _ = mask.shape
+    L = mask.sum(axis=2, dtype=np.int32)
+    slot = np.cumsum(mask, axis=2, dtype=np.int32) - 1
+    b, r, c = np.nonzero(mask & (slot < deg))
+    M = np.full((B, R, deg), -1, dtype=np.int32)
+    M[b, r, slot[b, r, c]] = colg[b, c]
+    return M, L

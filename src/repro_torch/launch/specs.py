@@ -23,7 +23,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig
     if cfg.family not in ("dense", "encdec") or shape.kind == "train":
         raise NotImplementedError(
             f"{shape.kind} batches of the {cfg.family} family are not "
-            f"ported yet (ROADMAP queue 1 item 6)")
+            f"ported yet (ROADMAP queue 1 item 3)")
     if shape.kind == "decode":
         return {"token": ((B, 1), i32), "pos": ((B,), i32)}
     if cfg.family == "encdec":

@@ -11,7 +11,7 @@ run by a Python loop. Parameter names follow the reference's tree
 The families ``moe``, ``ssm``, ``hybrid`` and ``vlm`` raise
 ``NotImplementedError``. There is no ``Runtime``: with ``mesh=None`` every
 sharding hint of the reference is the identity (sharding the LM is ROADMAP
-queue 1 item 6).
+queue 1 item 3).
 
 Entry points (used by ``launch/{steps,serve}.py``):
   init_params(cfg, generator, device)        -> model (random weights)
@@ -40,10 +40,10 @@ from . import layers
 
 # what each family that is not ported yet waits for
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 6 (models/moe.py)",
-    "ssm": "ROADMAP queue 1 item 6 (models/mamba2.py)",
-    "hybrid": "ROADMAP queue 1 item 6 (models/mamba2.py)",
-    "vlm": "ROADMAP queue 1 item 6 (mrope_angles, the vision inputs)",
+    "moe": "ROADMAP queue 1 item 3 (models/moe.py)",
+    "ssm": "ROADMAP queue 1 item 3 (models/mamba2.py)",
+    "hybrid": "ROADMAP queue 1 item 3 (models/mamba2.py)",
+    "vlm": "ROADMAP queue 1 item 3 (mrope_angles, the vision inputs)",
 }
 # parameter groups the reference stacks on a leading layer axis
 _STACKED = ("layers", "enc_layers", "dec_layers")

@@ -10,7 +10,10 @@ flash-attention kernels (float32 2e-5, bf16 2e-2; the mma kernel on both
 its load paths, twice for equal outputs; the SIMT kernel by force), the
 critical-points (both
 assemblies), gradient -> Morse-Smale and audit + persistence paths on the
-``cuda`` backend against the CPU (also at 2 and 4 segment shards), and the LM smoke configs' prefill and
+``cuda`` backend against the CPU (also at 2 and 4 segment shards), the
+fault ladder on the card (the numpy host arm against every kernel, the
+sync watchdog reclaiming an injected hang on a CUDA event, a lost shard
+re-homed on one card), and the LM smoke configs' prefill and
 decode on both attention arms against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
@@ -20,6 +23,7 @@ they run where JAX is not installed:
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import pytest
@@ -925,3 +929,86 @@ def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
         np.testing.assert_array_equal(
             serve.generate(cfg, on_card, prompts, 5, 16),
             serve.generate(cfg, model, prompts, 5, 16))
+
+
+# -- fault recovery on the card (docs/DESIGN.md §12) -------------------------
+
+@pytest.mark.parametrize("relation", sorted(ops.DEFAULT_DEG))
+def test_host_arm_equals_the_kernels(cuda, relation):
+    """The breaker's numpy host arm gives the kernels' blocks (both
+    assemblies: the entry, TT and sub-join kernels, and the meet and VV
+    count kernels) bit for bit on a small mesh, rows past deg included."""
+    pre = _grid_pre(12, ("VV", "VE", "VF", "VT", "FT", "TT"))
+    t = pre.tables
+    if relation == "VV":
+        tabs = (t.T_local, t.T_local, t.LV_global)
+    else:
+        tabs = (t.table(relation[0])[0], *t.table(relation[1]))
+    cu = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tabs]
+    for deg in (None, 1):
+        hM, hL = ops.relation_block_host(relation, *tabs, t.NV, deg=deg)
+        for assembly in ("sparse", "dense"):
+            M, L = ops.relation_block(relation, *cu, t.NV, deg=deg,
+                                      backend="cuda", assembly=assembly)
+            np.testing.assert_array_equal(M.cpu().numpy(), hM)
+            np.testing.assert_array_equal(L.cpu().numpy(), hL)
+
+
+def test_watchdog_reclaims_an_injected_hang_on_a_cuda_event(cuda):
+    """A launch held un-ready for 5 s past its CUDA event is failed by the
+    0.05 s watchdog and re-dispatched: the blocks equal the CPU engine's,
+    well inside the hang, and no launch degrades to the host arm."""
+    from repro_torch.core.faults import FaultInjector, FaultPolicy, \
+        FaultSpec
+    pre = _grid_pre(12)
+    cpu = RelationEngine(pre, ["VV", "VT"], device="cpu", lookahead=0,
+                         batch_max=4)
+    inj = FaultInjector([FaultSpec(kind="sync", relation="VV", hang_s=5.0,
+                                   count=1)])
+    eng = RelationEngine(pre, ["VV", "VT"], device="cuda", lookahead=0,
+                         batch_max=4, fault_policy=FaultPolicy(
+                             injector=inj, sync_timeout_s=0.05,
+                             sync_poll_s=0.005))
+    t0 = time.perf_counter()
+    for r in ("VV", "VT"):
+        for s in range(pre.smesh.n_segments):
+            for a, b in zip(eng.get(r, s), cpu.get(r, s)):
+                np.testing.assert_array_equal(a, b)
+    assert time.perf_counter() - t0 < 5.0
+    st = eng.stats
+    assert st.sync_timeouts >= 1 and st.failed_launches == 1
+    assert st.degraded_launches == 0 and len(inj.injected) == 1
+
+
+def test_device_loss_on_one_card_leaves_blocks_bit_identical(cuda):
+    """shards=2 on one card, shard 0 lost at its first launch: it is
+    re-homed onto shard 1's pool (same card), and every block and the
+    drivers' results equal the CPU engine's."""
+    from repro_torch.core.faults import FaultInjector, FaultPolicy, \
+        FaultSpec
+    pre = _grid_pre(12, ("VV", "VE", "VF", "VT", "FT", "TT"))
+    rank = total_order(pre.smesh.scalars)
+    rels = ["VV", "VE", "VF", "VT", "FT", "TT"]
+    inj = FaultInjector([FaultSpec(kind="device-lost", shard=0, count=1)])
+    eng = RelationEngine(pre, rels, device="cuda", shards=2,
+                         fault_policy=FaultPolicy(injector=inj))
+    cpu = RelationEngine(pre, rels, device="cpu")
+    outs = []
+    for e in (eng, cpu):
+        types, _ = critical_points(e, pre, rank, workers=2)
+        g = discrete_gradient(e, pre, rank, co_prefetch=("TT",), workers=2)
+        outs.append((types, g, morse_smale(e, pre, g, workers=2)))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    for name in ("pair_v2e", "pair_e2f", "pair_f2t"):
+        np.testing.assert_array_equal(getattr(outs[0][1], name),
+                                      getattr(outs[1][1], name))
+    for name in ("dest_min", "dest_max", "saddle1_ends", "saddle2_ends"):
+        np.testing.assert_array_equal(getattr(outs[0][2], name),
+                                      getattr(outs[1][2], name))
+    assert eng.stats.shards_lost == 1 and list(eng.store._route) == [1, 1]
+    lo, hi = eng.shard_plan.shard_bounds(0)
+    assert eng.stats.rehomed_segments == hi - lo
+    for r in rels:
+        for s in (lo, hi - 1, hi):
+            for a, b in zip(eng.get(r, s), cpu.get(r, s)):
+                np.testing.assert_array_equal(a, b)

@@ -18,6 +18,7 @@ from repro.core.segtables import precondition as ref_precondition
 from repro.data.meshgen import structured_grid as ref_structured_grid
 from repro_torch.algorithms import fields
 from repro_torch.core.engine import RelationEngine
+from repro_torch.core.faults import FaultPolicy
 from repro_torch.core.mesh import segment_mesh
 from repro_torch.core.segtables import precondition
 from repro_torch.data.meshgen import structured_grid
@@ -170,8 +171,10 @@ def test_unported_options_and_missing_card_raise(pres):
                            devices=("cuda:0", "cuda:1"))
     with pytest.raises(NotImplementedError, match="second card"):
         RelationEngine(port, ["VV"], device="cpu", shard_plan=cards)
-    with pytest.raises(NotImplementedError, match="fault"):
-        RelationEngine(port, ["VV"], device="cpu", fault_policy=object())
+    # the fault ladder is ported: an explicit policy is taken as given
+    eng = RelationEngine(port, ["VV"], device="cpu",
+                         fault_policy=FaultPolicy(max_attempts=5))
+    assert eng._fault_policy.max_attempts == 5
     with pytest.raises(ValueError, match="CUDA device"):
         RelationEngine(port, ["VV"], device="cpu", backend="cuda")
     if not torch.cuda.is_available():

@@ -22,13 +22,9 @@ from repro_torch.data import meshgen
 RELATIONS = ["VV", "VT", "VE"]
 COUNTERS = ("requests", "kernel_launches", "segments_produced",
             "cache_hits", "cache_misses", "evictions")
-# fault-recovery counters of the reference's EngineStats: the port has no
-# fault ladder yet (ROADMAP queue 1 item 4)
-REFERENCE_ONLY_KEYS = {
-    "breaker_recoveries", "breaker_trips", "degraded_launches",
-    "degraded_reads", "degraded_segments", "failed_launches",
-    "failed_segments", "rehomed_segments", "retries", "shards_lost",
-    "sync_timeouts"}
+# counters of the reference's EngineStats that the port lacks: none, since
+# the fault-recovery counters were ported with the fault ladder
+REFERENCE_ONLY_KEYS = set()
 
 
 @pytest.fixture(scope="module")
