@@ -124,6 +124,28 @@ Phases, one JSON line each:
      (``ops.relation_block_host``) held bit for bit against the kernels
      (both assemblies) for all ten relations on phase 3's B=64 96^3
      tables, and timed a batch.
+  8e. kernel-parameter autotuning (``launch/autotune.py``): the VV and VT
+     bitmask kernels on phase 3's 96^3 tables at B = 8, 16, 32 and 64, at
+     1, 2, 4, 8 and 16 shares a segment, and FT's sub-join at B=64 (1, 2,
+     4) and B=16 (2, 4, 8, 16), each held bit for bit against its plain
+     version and timed by graph replay beside its roofline bound
+     (``launch/roofline.py``) and the ranking model's prediction;
+     ``candidate_configs`` for the 48^3 mesh (1728 segments): at the
+     critical-points consumer's batch of 8 (launches of 8 + 8 of
+     lookahead) the whole grid launches as ``KernelConfig()`` does and the
+     ranking holds the default alone; at a batch of 64 the top three and
+     the default are timed on the critical-points path (each from its own
+     table, ``clear_cache`` before each run, three runs after a warm-up,
+     in turns), each one's blocks held against a ``tune="off"`` engine's
+     on a sample of segments, and ``autotune.pick_winner`` records the
+     fastest only where it beats the default by more than the runs'
+     spread, else the default; an engine built from the run's table
+     adopting the recorded knobs, its ``types`` equal to ``REF_CP_48``,
+     its blocks equal to the untuned engine's, and the wrappers' launches
+     equal to its ``kernel_launches``. Every phase's engines take
+     ``tune="auto"``: ``$REPRO_TORCH_TUNE_TABLE`` points at a fresh
+     temporary file from the start, which only 8e writes, so no stray
+     table changes a launch or a counter before it.
   9. flash attention: the kernels held against their plain version
      (float32 2e-5, bf16 2e-2), each case naming the kernel the wrapper
      routed it to (``flash_fwd_wgmma`` for bf16 at hd 64/128/256 on
@@ -161,14 +183,18 @@ before that line; without a card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import hashlib
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -301,16 +327,17 @@ SMALL_N = 48
 # bitmask kernels split each segment's rows over 4 and 11 blocks)
 BIG_CAPACITY = 1024
 
-# H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
-# notes): HBM3 bytes/s, and the float32 non-tensor rate, the table's closest
-# entry for the kernels' int32 compare/select work; for attention, the bf16
-# tensor-core rate (bf16 inputs) and, for float32 inputs, the TF32
-# tensor-core rate over three: a float32-accurate product on the tensor
-# cores takes three TF32 products (3xTF32), which beats the CUDA cores'
-# 67 TFLOP/s, so this is the least time float32 attention can take.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
+# the H100 SXM peaks every bound below is priced at live in the port's
+# roofline model (``repro_torch.launch.roofline``); tools/time_flash.py
+# reads them from this module by these names
+_PEAKS = ("HBM_BYTES_PER_S", "INT32_OPS_PER_S", "FLOPS_PER_S")
+
+
+def __getattr__(name):
+    if name in _PEAKS:
+        from repro_torch.launch import roofline
+        return getattr(roofline, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 SR_SOURCE = "src/repro_torch/kernels/csrc/segment_relations.cu"
 CG_SOURCE = "src/repro_torch/kernels/csrc/completion_gather.cu"
@@ -754,18 +781,6 @@ def graph_ms(torch, fn, reps: int = 20, rounds: int = 5) -> float:
     return out[len(out) // 2]
 
 
-def bound_ms(nbytes: float, sorts, ops: float = 0.0) -> tuple:
-    """Least time for the work: ``nbytes`` (each input read once, each
-    output written once) at the HBM rate, or the int32 operations (``ops``,
-    plus the comparisons that comparison sorts of this run's valid entries
-    need: n log2 n for each sort of n entries) at the int32 proxy rate,
-    whichever is larger."""
-    ops += sum(n * math.log2(n) for n in sorts if n > 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -783,7 +798,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     from repro_torch import configs
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve, specs, steps
+    from repro_torch.launch import roofline, serve, specs, steps
     from repro_torch.models import lm
 
     # -- 9. the flash-attention kernels against their plain version ---------
@@ -938,16 +953,12 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
                    reps=2, rounds=3)
 
     def flash_bound(q, k, v, causal):
+        """(flops, bytes moved, bound ms, what sets it) of one launch on
+        these inputs (``roofline.flash_work``)."""
         B, S, H, hd = q.shape
-        T = k.shape[1]
-        pairs = sum(min(s + 1, T) for s in range(S)) if causal else S * T
-        flops = 4 * B * H * hd * pairs
-        moved = nbytes(q, k, v) + nbytes(q)       # q, k, v read; o written
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FLOPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
-            (t_ops, "operations")
-        return flops, moved, b_ms, b_by
+        work = roofline.flash_work(B, S, k.shape[1], H, k.shape[2], hd,
+                                   causal, str(q.dtype).split(".")[-1])
+        return (int(work.ops), int(work.nbytes), *work.bound_ms())
 
     flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
     timing["flash_wgmma"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -1189,10 +1200,18 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import completion_gather as cg
     from repro_torch.kernels import segment_relations as sr
+    from repro_torch.launch import autotune, roofline
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
     t_start = time.perf_counter()
+    # every engine takes tune="auto": its table is a fresh file of this run,
+    # written only by phase 8e, so no stray table in the working directory
+    # changes a launch or a counter of the other phases
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    tune_path = os.path.join(tune_dir, "TUNE_torch_kernel_params.json")
+    os.environ["REPRO_TORCH_TUNE_TABLE"] = tune_path
 
     # every call of the numpy host arm, the engine's degraded production:
     # no phase before 8d runs a fault schedule, so none may reach it
@@ -1267,8 +1286,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     max_err = {k: 0 for k in KERNELS}
-    arm_of = {"VV": "VV", "VE": "member", "VF": "member", "VT": "member",
-              "TT": "TT", "EF": "sub", "ET": "sub", "FT": "sub"}
+    arm_of = roofline.ENTRY_ARM
 
     def plain(relation, tx, ty, colg, nvl, deg):
         return ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
@@ -1471,8 +1489,8 @@ def main() -> int:
                              ("VT", 8, 110000)):
         side = sr.entry_route(relation, nv_, n, limit)
         fit = sr.bits_rows_fit(relation, nv_, n, limit)
-        sides.append((side, sr.bits_shares(relation, 2, nv_, fit, sms) if fit
-                      else None))
+        sides.append((side, sr.bits_blocks(relation, 2, nv_, n, n, limit,
+                                           sms) or None))
         tt = rand_tets(2, n, nv_)
         cv = rng.integers(0, 10 ** 6, (2, nv_ if relation == "VV" else n))
         compare(f"{side} side of the route limit", relation, cu(tt), cu(tt),
@@ -1559,7 +1577,7 @@ def main() -> int:
 
     timing = {}
 
-    def time_arm(key, relation, tx, ty, colg, deg, sorts, nv=nvl,
+    def time_arm(key, relation, tx, ty, colg, deg, work, nv=nvl,
                  route=None):
         kw = {"route": route} if route else {}
         launch = (lambda: sr.relation_entries_cuda(
@@ -1571,36 +1589,32 @@ def main() -> int:
         k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
         p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nv,
                                             deg))
-        M, L = plain(relation, tx, ty, colg, nv, deg)
-        # the tables the arm reads: VV and TT the tets, the member arm the
-        # coface table, the sub-join both
-        read = {"VV": (tx,), "member": (ty,), "TT": (tx,),
-                "sub": (tx, ty)}[arm_of[relation]]
-        b_ms, b_by = bound_ms(nbytes(*read, colg, M, L), sorts)
+        b_ms, b_by = work.bound_ms()
         row = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel_time", "arm": key, "relation": relation,
               "kernel": KERNELS[key]["name"],
               "shape": [list(tx.shape), list(ty.shape)], "nvl": nv,
-              "deg": deg, **row, "sorted_entries": int(sum(sorts)),
+              "deg": deg, **row, "bytes": int(work.nbytes),
+              "ops": work.ops,
               **({"shares": shares_of(relation, tx, ty, nv)}
                  if key.endswith("_bits") else {})})
         return row
 
-    def shares_of(relation, tx, ty, nv):
-        """Blocks a segment of the wrapper's bitmask launch."""
-        sub = arm_of[relation] == "sub"
-        R = tx.shape[1] if sub else nv
-        fit = sr.bits_rows_fit(relation, nv, ty.shape[1], limit,
-                               tx.shape[1] if sub else 0)
-        return sr.bits_shares(relation, tx.shape[0], R, fit, sms)
+    def shares_of(relation, tx, ty, nv, k=None):
+        """Blocks a segment of the wrapper's bitmask launch, at ``k``
+        shares where given, else by the share rule."""
+        return sr.bits_blocks(relation, tx.shape[0], nv, tx.shape[1],
+                              ty.shape[1], limit, sms, k)
 
     def valid_rows(t):
         return (t >= 0).all(-1).sum(-1)               # per segment
 
-    def entry_sorts(relation, tx, ty, colg, nv, deg):
-        """The comparison sorts of the arm's valid entries (n of each):
-        the row bound counts the same work whatever implements it."""
+    def entry_work(relation, tx, ty, colg, nv, deg):
+        """The arm's work on these tables (``roofline.entry_work``), with
+        the entries this run's data sorts: the valid entries, and for TT
+        and the sub-join the emitted ones (the row bound counts the same
+        work whatever implements it)."""
         arm = arm_of[relation]
         if relation == "VV":
             va = (tx >= 0).sum(-1)
@@ -1612,35 +1626,62 @@ def main() -> int:
         else:
             n_sub = math.comb(ty.shape[2], tx.shape[2])
             first = valid_rows(tx) + n_sub * valid_rows(ty)
-        # the entry lanes sorted twice (emit_entries); TT and the sub-join
-        # sort their join lanes once before that
-        if arm in ("VV", "member"):
-            return first.tolist() * 2
-        emitted = plain(relation, tx, ty, colg, nv, deg)[1].sum(-1)
-        return first.tolist() + emitted.tolist() * 2
+        emitted = None
+        if arm in ("TT", "sub"):
+            emitted = plain(relation, tx, ty, colg, nv, deg)[1].sum(-1) \
+                .tolist()
+        return roofline.entry_work(relation, tx.shape[0], nv, tx.shape[1],
+                                   ty.shape[1], deg, first.tolist(),
+                                   emitted)
+
+    def shares_case(case, relation, tx, ty, colg, nv, deg, k, want):
+        """The bitmask kernel at ``k`` shares a segment (or more, where
+        shared memory asks for more) against the plain arm's ``want``, bit
+        for bit; returns the launch and the blocks a segment it ran."""
+        key = f"{arm_of[relation]}_bits"
+        launch = (lambda: sr.relation_entries_cuda(
+            relation, tx, ty, colg, nvl=nv, deg=deg, route="bits",
+            shares=k))
+        before = sr.LAUNCHES[key]
+        got = launch()
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        max_err[key] = max(max_err[key], err)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        blocks = shares_of(relation, tx, ty, nv, k)
+        emit({"phase": "kernel_case", "case": case, "relation": relation,
+              "kernel": KERNELS[key]["name"],
+              "shape": [list(tx.shape), list(ty.shape)], "nvl": nv,
+              "deg": deg, "shares": k, "blocks": blocks, "equal": ok})
+        check(sr.LAUNCHES[key] == before + 1,
+              f"{relation} ({case}) did not take the bitmask route")
+        check(ok, f"{relation} at {k} shares disagrees with the plain arm "
+                  f"({case})")
+        return launch, blocks
 
     for relation in ("VV", "VE", "VF", "VT", "TT", "FT", "EF", "ET"):
         tx, ty, colg = main_inputs[relation]
         deg = ops.DEFAULT_DEG[relation]
         arm = arm_of[relation]
-        sorts = entry_sorts(relation, tx, ty, colg, nvl, deg)
+        work = entry_work(relation, tx, ty, colg, nvl, deg)
         if arm in ROUTED_ARMS:
             # the sort kernels forced onto the same tables, for comparison
             for route in ("bits", "sort"):
                 row = time_arm(f"{arm}_{route}", relation, tx, ty, colg,
-                               deg, sorts, route=route)
+                               deg, work, route=route)
                 if relation in ("VV", "VT", "FT") and (
                         route == "bits" or arm == "sub"):
                     timing[f"{arm}_{route}"] = row
         else:
-            row = time_arm(arm, relation, tx, ty, colg, deg, sorts)
+            row = time_arm(arm, relation, tx, ty, colg, deg, work)
             timing[arm] = row
     # the localized baselines' launch: one segment (B=1), bitmask route
     for relation in ("VV", "VT"):
         tx, ty, colg = (t[:1].contiguous() for t in main_inputs[relation])
         deg = ops.DEFAULT_DEG[relation]
         time_arm(f"{arm_of[relation]}_bits", relation, tx, ty, colg, deg,
-                 entry_sorts(relation, tx, ty, colg, nvl, deg), route="bits")
+                 entry_work(relation, tx, ty, colg, nvl, deg), route="bits")
 
     # -- 3b. the count kernels of the dense fallback ------------------------
     def counts_compare(case, kind, *args):
@@ -1721,7 +1762,8 @@ def main() -> int:
     epi_ms = time_ms(torch, lambda: ops._compact(ops._predicate(
         C, 2, True, False), cu(tabs.LF_global[:BATCH]), 48), reps=5)
     # the slot compares the outputs need: ax * ay per output
-    b_ms, b_by = bound_ms(nbytes(Fm, Fm, C), [], ops=C.numel() * 9)
+    b_ms, b_by = roofline.meet_work(BATCH, Fm.shape[1], 3, Fm.shape[1],
+                                    3).bound_ms()
     timing["meet"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_ms}
@@ -1736,8 +1778,8 @@ def main() -> int:
                    reps=5)
     lib_ms = time_ms(torch, lambda: torch.bmm(At, At.transpose(1, 2)))
     # one add per ordered slot pair of each valid tet
-    b_ms, b_by = bound_ms(nbytes(T, C), [],
-                          ops=16 * int((T >= 0).all(-1).sum()))
+    b_ms, b_by = roofline.vv_counts_work(
+        *T.shape[:2], nvl, int((T >= 0).all(-1).sum())).bound_ms()
     timing["vv_counts"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib_ms}
@@ -1759,8 +1801,8 @@ def main() -> int:
     p_ms = time_ms(torch, lambda: ops.counts_vv(T8, nvl, backend="torch"),
                    reps=5)
     lib_ms = time_ms(torch, lambda: torch.bmm(A8, A8.transpose(1, 2)))
-    b_ms, b_by = bound_ms(nbytes(T8, C), [],
-                          ops=16 * int((T8 >= 0).all(-1).sum()))
+    b_ms, b_by = roofline.vv_counts_work(
+        *T8.shape[:2], nvl, int((T8 >= 0).all(-1).sum())).bound_ms()
     emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
           "case": "fused batch", "shape": [list(T8.shape)], "nvl": nvl,
           "ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -1909,16 +1951,24 @@ def main() -> int:
             ("VV", bT, bT, cu(bt.LV_global[:BATCH])),
             ("VT", bV, bT, cu(bt.LT_global[:BATCH]))):
         deg = ops.DEFAULT_DEG[relation]
-        sorts = entry_sorts(relation, tx, ty, colg, bt.NV, deg)
+        work = entry_work(relation, tx, ty, colg, bt.NV, deg)
         for route in ("bits", "sort"):
             key = f"{arm_of[relation]}_{route}"
-            compare(f"capacity-{BIG_CAPACITY} tables, {route} route",
-                    relation, tx, ty, colg, bt.NV, deg, route=route,
-                    want_route=route)
-            row = time_arm(key, relation, tx, ty, colg, deg, sorts,
+            want = compare(f"capacity-{BIG_CAPACITY} tables, {route} route",
+                           relation, tx, ty, colg, bt.NV, deg, route=route,
+                           want_route=route)
+            row = time_arm(key, relation, tx, ty, colg, deg, work,
                            nv=bt.NV, route=route)
             if route == "sort":
                 timing[key] = row
+        # share counts given: 1 gives way to the shared-memory floor
+        # (ceil(R / fit): VV 3, VT 11 blocks), 8 splits finer where it can
+        for k in (1, 8):
+            _, blocks = shares_case(f"capacity-{BIG_CAPACITY} tables, "
+                                    f"{k} shares", relation, tx, ty, colg,
+                                    bt.NV, deg, k, want)
+            check(blocks >= k, f"{relation}: {blocks} blocks for {k} "
+                               f"shares")
     del bT, bV, bpre, bsm
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
@@ -2251,13 +2301,13 @@ def main() -> int:
     cand, clen = cg.resolve_gather_torch(
         pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs)
     degp = pool_M.shape[2]
-    steps = math.ceil(math.log2(max(int(inv_seg.shape[0]), 2))) + 1
-    # bytes this chunk's work needs: the pair columns in, each pair's
-    # bisection reads (seg and gid per step, then its row), its pool row
-    # and length, and cand + clen out
-    need = (nbytes(*pairs) + P_pad * (steps * 8 + 4)
-            + P_pad * (degp + 1) * 4 + nbytes(cand, clen))
-    b_ms, b_by = bound_ms(need, [])
+    # the bytes this chunk's work needs (roofline.gather_work): the pair
+    # columns in, each pair's bisection reads, its pool row and length, and
+    # cand + clen out
+    check(nbytes(*pairs, cand, clen) == P_pad * (12 + (degp + 1) * 4),
+          "the gather's pairs or rows are not the shapes its bound counts")
+    b_ms, b_by = roofline.gather_work(P_pad, int(inv_seg.shape[0]),
+                                      degp).bound_ms()
     timing["gather"] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernel_time", "arm": "gather", "pairs": P_pad,
@@ -2687,9 +2737,8 @@ def main() -> int:
     k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
     p_ms = time_ms(torch, lambda: cg.gather_candidates(
         pool_M, pool_L, inv_seg, inv_gid, inv_row, *pairs))
-    need = (nbytes(*pairs) + P_pad * (steps * 8 + 4)
-            + P_pad * (degp + 1) * 4 + nbytes(*every))
-    b_ms, b_by = bound_ms(need, [])
+    b_ms, b_by = roofline.gather_work(P_pad, int(inv_seg.shape[0]),
+                                      degp).bound_ms()
     masked_timing = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "unmasked_ms": timing["gather"]["ms"]}
@@ -2966,6 +3015,161 @@ def main() -> int:
               f"{relation}: the two assemblies ran {ran}")
     emit({"phase": "fault_total", "host_arm_ms_per_batch": host_ms,
           "wall_s": round(time.perf_counter() - t8d, 3)})
+
+    # -- 8e. kernel-parameter autotuning -------------------------------------
+    t8e = time.perf_counter()
+    check(not os.path.exists(tune_path),
+          "a tuning table existed before phase 8e")
+    # (i) the row shares, one kernel at a time: the first B segments of
+    # phase 3's B=64 96^3 tables, each share count held bit for bit
+    # against the plain arm, timed by graph replay (and the eager loop:
+    # the wrapper's host cost) beside its bound and the model's prediction
+    shapes = {"NV": tabs.NV, "NE": tabs.NE, "NF": tabs.NF, "NT": tabs.NT}
+    sweep = [(r, B, (1, 2, 4, 8, 16)) for B in (8, 16, 32, BATCH)
+             for r in ("VV", "VT")]
+    sweep += [("FT", BATCH, (1, 2, 4)), ("FT", 16, (2, 4, 8, 16))]
+    for relation, B, counts in sweep:
+        tx, ty, colg = (t[:B].contiguous() for t in main_inputs[relation])
+        deg = ops.DEFAULT_DEG[relation]
+        want = plain(relation, tx, ty, colg, nvl, deg)
+        b_ms, b_by = entry_work(relation, tx, ty, colg, nvl, deg).bound_ms()
+        rule = shares_of(relation, tx, ty, nvl)
+        for k in counts:
+            launch, blocks = shares_case(f"B={B}, {k} shares", relation, tx,
+                                         ty, colg, nvl, deg, k, want)
+            emit({"phase": "share_time", "relation": relation, "B": B,
+                  "shares": k, "blocks": blocks, "rule_blocks": rule,
+                  "ms": graph_ms(torch, launch),
+                  "eager_ms": time_ms(torch, launch),
+                  "predicted_ms": autotune.predicted_kernel_s(
+                      relation, B, k, shapes, deg, sms, limit) * 1e3,
+                  "bound_ms": b_ms, "bound_by": b_by})
+
+    # (ii) the ranking for the 48^3 mesh. Critical points at the consumer's
+    # batch of 8 segments launches 8 + 8 of lookahead: every batch_max >=
+    # 16 launches 16, and 1728 = 108 * 16 leaves no tail for a floor to
+    # pad, so the whole grid launches as the default does and the ranking
+    # holds the default alone. At a batch of CP_BATCH segments (+ 8 of
+    # lookahead) the batch_max values launch apart: the top three and the
+    # default there, each from a table of its own: warm-up, then
+    # clear_cache and a timed run, three times, in turns (the middle round
+    # reversed, so no candidate always runs last). The fastest is recorded
+    # only where it beats the default by more than the repeats' spread
+    pt = ppre.tables
+    pshapes = {"NV": pt.NV, "NE": pt.NE, "NF": pt.NF, "NT": pt.NT}
+    ns = psm.n_segments
+    widths = {r: ops.DEFAULT_DEG[r] for r in ("VV", "VT")}
+    default = autotune.KernelConfig()
+
+    def ranking(demand):
+        cands = autotune.candidate_configs(ns, pshapes, ("VV", "VT"),
+                                           demand=demand, sms=sms,
+                                           smem=limit)
+        predicted = {c: autotune._predicted_launch_s(
+            c, ns, pshapes, ("VV", "VT"), widths, demand, sms, limit)
+            for c in cands + [default]}
+        emit({"phase": "tune_candidates", "n": SMALL_N, "segments": ns,
+              "shapes": pshapes, "demand": demand,
+              "ranked": [{**c.to_dict(), "predicted_s_per_segment":
+                          predicted[c]} for c in cands],
+              "default_predicted_s_per_segment": predicted[default]})
+        return cands, predicted
+
+    cands, _ = ranking(8 + 8)
+    check(cands == [default], f"at the consumer's batch of 8 the grid "
+                              f"launched apart from the default: {cands}")
+    CP_BATCH = 64
+    cands, predicted = ranking(CP_BATCH + 8)
+    measured = list(dict.fromkeys(cands[:3] + [default]))
+    check(len(measured) >= 3, f"the ranking gave {cands}")
+    engines = {}
+    for i, cfg in enumerate(measured):
+        path = os.path.join(tune_dir, f"candidate{i}.json")
+        autotune.record("cuda", ns, cfg, path=path)
+        eng = RelationEngine(ppre, ["VV", "VT"], lookahead=8, device="cuda",
+                             tune=path)
+        check(eng.kernel_config == cfg,
+              f"candidate {cfg} built {eng.kernel_config}")
+        critical_points(eng, ppre, prank, batch_segments=CP_BATCH)  # warm
+        engines[cfg] = eng
+    walls = {cfg: [] for cfg in measured}
+    for order in (measured, measured[::-1], measured):
+        for cfg in order:
+            eng = engines[cfg]
+            eng.clear_cache()
+            eng.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            types, counts = critical_points(eng, ppre, prank,
+                                            batch_segments=CP_BATCH)
+            torch.cuda.synchronize()
+            walls[cfg].append(time.perf_counter() - t0)
+            check(counts == REF_CP_48["counts"] and hashlib.sha256(
+                types.astype(np.int32).tobytes()).hexdigest()
+                == REF_CP_48["types_sha256"],
+                f"candidate {cfg}: the critical points differ from the pin")
+    winner = autotune.pick_winner(walls)
+    oeng = RelationEngine(ppre, ["VV", "VT"], lookahead=8, device="cuda",
+                          tune="off")
+    check(oeng.kernel_config == default,
+          "tune='off' did not give the built-in knobs")
+    sample = list(range(0, ns, 97))
+    for cfg, eng in engines.items():
+        st = eng.stats
+        same = all(np.array_equal(a, b)
+                   for r in ("VV", "VT") for s in sample
+                   for a, b in zip(eng.get(r, s), oeng.get(r, s)))
+        emit({"phase": "tune_measured", **cfg.to_dict(),
+              "batch_segments": CP_BATCH, "default": cfg == default,
+              "walls_s": walls[cfg], "best_s": min(walls[cfg]),
+              "spread_s": max(walls[cfg]) - min(walls[cfg]),
+              "predicted_s": predicted[cfg] * ns,
+              "kernel_launches": st.kernel_launches,
+              "segments_produced": st.segments_produced,
+              "devpool_uploads": st.devpool_uploads,
+              "t_kernel_s": st.t_kernel, "t_sync_s": st.t_sync,
+              "blocks_equal_untuned": same})
+        check(same, f"candidate {cfg}: blocks differ from the untuned "
+                    f"engine's")
+    autotune.record("cuda", ns, winner, path=tune_path,
+                    score_s=min(walls[winner]))
+    del engines
+
+    # (iii) the round trip: an engine from the run's table (tune="auto")
+    # adopts the recorded knobs, gives the pin, and its blocks equal a
+    # tune="off" engine's; its launches are the wrappers' launches
+    zero_counts()
+    teng = RelationEngine(ppre, ["VV", "VT"], lookahead=8, device="cuda")
+    check(teng.kernel_config == winner,
+          f"the tuned engine took {teng.kernel_config}, not {winner}")
+    types, counts = critical_points(teng, ppre, prank,
+                                    batch_segments=CP_BATCH)
+    c = read_counts()
+    wrapped = sum(c[k] for k in ENGINE_KERNELS)
+    tuned_launches = teng.stats.kernel_launches
+    check(counts == REF_CP_48["counts"] and hashlib.sha256(
+        types.astype(np.int32).tobytes()).hexdigest()
+        == REF_CP_48["types_sha256"],
+        "the tuned engine's critical points differ from the pin")
+    check(wrapped == tuned_launches,
+          f"{wrapped} wrapper launches != kernel_launches {tuned_launches}")
+    check(c["VV_bits"] > 0 and c["member_bits"] > 0,
+          f"the tuned path launched no bitmask kernel: {c}")
+    all_bits("the tuned critical-points path", c)
+    for k in ("VV_bits", "member_bits"):
+        launches[k] += c[k]
+    same = all(np.array_equal(a, b)
+               for r in ("VV", "VT") for s in sample
+               for a, b in zip(teng.get(r, s), oeng.get(r, s)))
+    emit({"phase": "tune_round_trip", "table": autotune.load_table(),
+          "winner": winner.to_dict(), "winner_is_default": winner == default,
+          "kernel_launches": tuned_launches,
+          "wrapper_launches": wrapped, "kernel_counters":
+              {k: c[k] for k in ENGINE_KERNELS},
+          "sample_segments": len(sample), "blocks_equal_untuned": same,
+          "wall_s": round(time.perf_counter() - t8e, 3)})
+    check(same, "the tuned engine's blocks differ from the untuned one's")
+    del teng, oeng
 
     lm_phases(torch, dev, max_err, timing, launches)
 

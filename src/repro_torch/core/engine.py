@@ -88,11 +88,25 @@ watchdog's timeouts: a CUDA error, a kernel build failure or any other
 exception of a kernel wrapper propagates unchanged. Any
 survivable schedule gives blocks bit-identical to the fault-free run.
 
+Kernel-parameter tuning (docs/DESIGN.md §4)
+-------------------------------------------
+
+``tune=`` (default ``"auto"``, as the reference) resolves ``batch_max``
+and ``bucket_floor`` in the reference's order: explicit constructor
+argument > the entry of the port's tuning table for ``(backend, mesh-size
+bucket)`` (:mod:`repro_torch.launch.autotune`: ``$REPRO_TORCH_TUNE_TABLE``
+or ``TUNE_torch_kernel_params.json`` in the working directory for
+``"auto"``, a path otherwise) > the built-in default; ``bucket_floor``
+comes from the table only. ``tune="off"`` skips the table. A missing,
+corrupt or stale table gives the defaults. The port's kernels pick no
+tiles, so the reference's ``block_x`` / ``block_y`` / ``vv_block`` have
+no counterpart: the bitmask kernels size their grids from the launch
+itself (``segment_relations.bits_blocks``).
+
 This is the reference engine with the completion API (full-block reads,
-device inverse maps, boundary relations) and the fault ladder, and with no
-kernel-parameter tuning (the kernels pick their own tiles, so the
-reference's ``block_x``/``block_y``/``vv_block`` have no counterpart): its
-built-in defaults (``batch_max=64``, ``lookahead=8``,
+device inverse maps, boundary relations), the fault ladder and the tuning
+table. With no table, or ``tune="off"``, its built-in defaults
+(``batch_max=64``, ``bucket_floor=1``, ``lookahead=8``,
 ``cache_segments=512``, ``dev_pool_segments=256``, ``inflight_max=8``)
 give the reference's ``tune="off"`` launch sequence.
 """
@@ -119,6 +133,7 @@ from ..errors import (
     SyncTimeoutError,
 )
 from ..kernels import ops
+from ..launch import autotune
 from .blockstore import BlockStore
 from .faults import FaultPolicy
 from .mesh import _EDGE_COMBOS, _FACE_COMBOS, edge_lookup, face_lookup
@@ -385,10 +400,11 @@ class RelationEngine(StatsHost):
     EE/FF always take the dense arm. ``async_dispatch=False`` syncs every
     launch right after dispatch (the localized baselines'
     blocking producer). ``shards=K`` (or ``shard_plan=``) runs K segment
-    shards, and ``fault_policy=`` / ``sync_timeout_s=`` set the fault
-    recovery ladder (module docstring). Safe for concurrent use by multiple
-    consumer threads: every public consumer method acquires the engine
-    lock exactly once; internal ``_``-prefixed steps assume it is held."""
+    shards, ``fault_policy=`` / ``sync_timeout_s=`` set the fault
+    recovery ladder, and ``tune=`` / ``batch_max=`` the kernel parameters
+    (module docstring). Safe for concurrent use by multiple consumer
+    threads: every public consumer method acquires the engine lock exactly
+    once; internal ``_``-prefixed steps assume it is held."""
 
     def __init__(
         self,
@@ -397,7 +413,7 @@ class RelationEngine(StatsHost):
         backend: Optional[str] = None,
         device=None,
         lookahead: int = 8,
-        batch_max: int = 64,
+        batch_max: Optional[int] = None,
         cache_segments: int = 512,
         deg: Optional[Dict[str, int]] = None,
         inflight_max: int = 8,
@@ -408,6 +424,7 @@ class RelationEngine(StatsHost):
         sync_timeout_s: Optional[float] = None,
         assembly: str = "sparse",
         async_dispatch: bool = True,
+        tune: str = "auto",
     ):
         if pre.tables is None:
             raise ValueError("precondition(..., build_tables=True) required")
@@ -438,7 +455,20 @@ class RelationEngine(StatsHost):
         self.smesh = pre.smesh
         self.tables = pre.tables
         self.lookahead = lookahead
-        self.batch_max = int(batch_max)
+        # Kernel-parameter resolution (docs/DESIGN.md §4): explicit argument
+        # > tuned table entry (tune="auto" or a path) > built-in default.
+        # tune="off" skips the table so today's defaults are reproduced
+        # bit-for-bit; a missing/corrupt table silently falls back, so
+        # construction never depends on on-disk tuning state.
+        tuned = self._load_tuned_config(tune, self.backend,
+                                        pre.smesh.n_segments)
+        self.kernel_config = autotune.KernelConfig(
+            batch_max=int(batch_max if batch_max is not None
+                          else tuned.get("batch_max", 64)),
+            bucket_floor=max(1, int(tuned.get("bucket_floor", 1))))
+        self.batch_max = self.kernel_config.batch_max
+        self.bucket_floor = self.kernel_config.bucket_floor
+        batch_max = self.batch_max
         self.async_dispatch = async_dispatch
         self.inflight_max = max(1, inflight_max)
         self.relations = tuple(r for r in relations
@@ -524,6 +554,26 @@ class RelationEngine(StatsHost):
             self._inv_nglob[kind] = int(n_glob)
             if len(keys) == 0 or int(keys[-1]) < 2 ** 31:
                 self._dev[f"inv_key_{kind}"] = put(keys.astype(np.int32))
+
+    @staticmethod
+    def _load_tuned_config(tune: str, backend: str, n_segments: int) -> Dict:
+        """Resolve the autotuned kernel-parameter dict for this engine.
+
+        ``tune="off"`` returns ``{}`` (built-in defaults); ``"auto"`` looks
+        up the default on-disk table (``launch/autotune.py``); any other
+        string is a path to an explicit table. Lookup failures of any kind
+        (missing file, stale version, corrupt JSON) resolve to ``{}`` so
+        construction never fails because of tuning state. Only the table
+        read sits in the ``try``: nothing here builds or launches a
+        kernel."""
+        if tune == "off":
+            return {}
+        try:
+            cfg = autotune.lookup(backend, n_segments,
+                                  path=None if tune == "auto" else tune)
+            return cfg.to_dict() if cfg is not None else {}
+        except Exception:
+            return {}
 
     def _stage_shard_tables(self, lo: int, hi: int) -> Dict[str, torch.Tensor]:
         """One shard's slice ``[lo, hi)`` of the stacked segment tables on
@@ -1446,7 +1496,7 @@ class RelationEngine(StatsHost):
         t0 = time.perf_counter()
         # pad the launch to a power-of-two bucket (duplicating the last
         # segment): O(log batch_max) launch shapes, as the reference
-        b_pad = ops.bucket_rows(len(batch))
+        b_pad = ops.bucket_rows(len(batch), self.bucket_floor)
         padded = batch + [batch[-1]] * (b_pad - len(batch))
         lo = self.shard_plan.bounds[shard]
         segs = torch.tensor([s - lo for s in padded], dtype=torch.int64,

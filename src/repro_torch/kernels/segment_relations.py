@@ -31,7 +31,7 @@ VV, member and sub have two routes, chosen in Python before the launch by
                    segment's rows are split over as many blocks as the
                    share rule (:func:`bits_row_blocks`,
                    :func:`sub_row_blocks`) or the limit asks
-                   (:func:`bits_shares`). Every table the repo's paths
+                   (:func:`bits_blocks`). Every table the repo's paths
                    build takes it;
   - ``"sort"``   — ``vv_entries_kernel`` / ``member_entries_kernel`` /
                    ``sub_entries_kernel``: the entry lanes sorted,
@@ -255,11 +255,13 @@ def entry_route(relation: str, nvl: int, NY: int, limit: int,
 
 def bits_row_blocks(B: int, R: int, sms: int) -> int:
     """Blocks that share one segment's R rows on the bitmask route, where
-    any count fits: enough for B segments to give each of the card's
-    ``sms`` multiprocessors two blocks, at most four a segment (each block
-    walks the whole table; on an H100 at B = 64, 4 blocks beat 1, 2 and 3,
-    and 6 or 8 gained nothing: ``tools/time_entries.py``)."""
-    return max(1, min(4, -(-2 * sms // max(B, 1)), R))
+    any count fits: as many as B segments' blocks fill two on each of the
+    card's ``sms`` multiprocessors in one wave, at most 16 a segment (each
+    block walks the whole table). On an H100 (132 SMs, 700 W; VV and VT on
+    the 96^3 tables, ``chip_smoke.py`` phase 8e) the fastest of 1, 2, 4, 8
+    and 16 shares was 16 at B = 8 and 16, 8 at B = 32 and 4 at B = 64:
+    256 blocks or fewer, never a second wave."""
+    return max(1, min(16, 2 * sms // max(B, 1), R))
 
 
 def sub_row_blocks(B: int, R: int, sms: int) -> int:
@@ -272,13 +274,38 @@ def sub_row_blocks(B: int, R: int, sms: int) -> int:
     return max(1, min(sms // max(B, 1), R))
 
 
-def bits_shares(relation: str, B: int, R: int, fit: int, sms: int) -> int:
-    """Blocks a bitmask launch gives each segment's R rows: the share rule
-    (:func:`bits_row_blocks`, :func:`sub_row_blocks` for EF/ET/FT), or
-    more where a block holds only ``fit`` rows (:func:`bits_rows_fit`, at
-    least 1)."""
-    rule = sub_row_blocks if relation in _SUB_ARITY else bits_row_blocks
-    return max(rule(B, R, sms), -(-R // fit))
+def bits_shares(relation: str, B: int, R: int, fit: int, sms: int,
+                shares: Optional[int] = None) -> int:
+    """Shares a bitmask launch asks for each segment's R rows: ``shares``
+    (at most R) where the caller gives it, else the share rule
+    (:func:`bits_row_blocks`, :func:`sub_row_blocks` for EF/ET/FT); in
+    either case more where a block holds only ``fit`` rows
+    (:func:`bits_rows_fit`, at least 1), so a share never outgrows shared
+    memory. The blocks are the same for every share count."""
+    if shares is None:
+        rule = sub_row_blocks if relation in _SUB_ARITY else bits_row_blocks
+        want = rule(B, R, sms)
+    else:
+        want = min(int(shares), max(R, 1))
+    return max(want, -(-R // fit))
+
+
+def bits_blocks(relation: str, B: int, nvl: int, NX: int, NY: int,
+                smem: int, sms: int, shares: Optional[int] = None) -> int:
+    """Blocks a segment of a bitmask launch of ``relation`` over B
+    segments, as the wrapper sizes its grid: :func:`bits_shares` rounded
+    to whole rows a block (``ceil(R / ceil(R / shares))``), on tables of
+    ``NX`` subject rows (EF/ET/FT only) and ``NY`` coface rows (ignored
+    for VV), ``smem`` bytes of shared memory a block and ``sms``
+    multiprocessors; 0 where the segment has no rows or not one mask row
+    fits (the sort route serves it)."""
+    sub = relation in _SUB_ARITY
+    R = NX if sub else nvl
+    fit = bits_rows_fit(relation, nvl, NY, smem, NX if sub else 0)
+    if not fit or R == 0:
+        return 0
+    rows = -(-R // bits_shares(relation, B, R, fit, sms, shares))
+    return -(-R // rows)
 
 
 def smem_limit(device: torch.device) -> int:
@@ -325,7 +352,8 @@ def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
 
 def relation_entries_cuda(relation: str, tabX: torch.Tensor,
                           tabY: torch.Tensor, col_global: torch.Tensor, *,
-                          nvl: int, deg: int, route: Optional[str] = None
+                          nvl: int, deg: int, route: Optional[str] = None,
+                          shares: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(M (B, R, deg), L (B, R))`` int32, where R is ``nvl`` for VV
     (``tabX`` is the ``(B, NT, 4)`` tet table, ``col_global`` the
@@ -343,8 +371,10 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     ``route`` picks the VV, member or sub-join kernel: ``None`` takes
     :func:`entry_route`'s choice on this device, ``"bits"`` or ``"sort"``
     forces one (``"bits"`` raises when not one mask row fits); TT takes
-    ``None``. The bitmask route launches :func:`bits_shares` blocks a
-    segment."""
+    ``None``. The bitmask route launches :func:`bits_blocks` blocks a
+    segment: the share rule's, or ``shares`` where given (a parameter
+    study's), never fewer than shared memory allows; the sort route and
+    TT ignore it."""
     for name, t in (("tabX", tabX), ("tabY", tabY)):
         if isinstance(t, torch.Tensor) and t.dim() != 3:
             raise ValueError(f"{name} must be (B, N, arity), got "
@@ -383,6 +413,9 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     same = (col_global, tabY) if arm == "sub" else (col_global,)
     if any(t.device != tab.device for t in same):
         raise ValueError("the tables and col_global must share one device")
+    if shares is not None and int(shares) < 1:
+        raise ValueError(f"shares={shares}: a segment takes at least one "
+                         f"block")
     if route not in (None, "bits", "sort") or (
             route is not None and arm not in _ROUTED):
         raise ValueError(f"route={route!r} for relation {relation!r}: "
@@ -410,7 +443,9 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     if route == "bits":
         if R == 0:
             return M, L
-        rows = -(-R // bits_shares(relation, B, R, fit, _sm_count(idx)))
+        blocks = bits_blocks(relation, B, nvl, N, NY if arm == "sub" else N,
+                             smem_limit(dev), _sm_count(idx), shares)
+        rows = -(-R // blocks)
         if arm == "VV":
             rc = lib.sr_vv_bits(idx, tab.data_ptr(), col_global.data_ptr(),
                                 M.data_ptr(), L.data_ptr(), B, N,

@@ -13,7 +13,9 @@ assemblies), gradient -> Morse-Smale and audit + persistence paths on the
 ``cuda`` backend against the CPU (also at 2 and 4 segment shards), the
 fault ladder on the card (the numpy host arm against every kernel, the
 sync watchdog reclaiming an injected hang on a CUDA event, a lost shard
-re-homed on one card), and the LM smoke configs' prefill and
+re-homed on one card), the bitmask kernels at every tuned share count
+and a tuned engine against an untuned one, and the LM smoke configs'
+prefill and
 decode on both attention arms against the CPU. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
@@ -160,6 +162,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     t = torch.zeros((1, 4, 8), dtype=torch.int32, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         segment_relations.relation_entries_cuda("VV", t, t, c, nvl=8, deg=4)
+    t = torch.zeros((1, 4, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at least one block"):
+        segment_relations.relation_entries_cuda("VV", t, t, c, nvl=8, deg=4,
+                                                shares=0)
 
 
 @pytest.mark.parametrize("workers", [1, 4])
@@ -582,6 +588,87 @@ def test_explicit_on_the_card_equals_the_cpu(cuda):
         pre, rank)
     np.testing.assert_array_equal(types, want)
     assert counts == want_counts
+
+
+@pytest.fixture(scope="module")
+def share_tables():
+    """The bitmask kernels' B=64 inputs on the 48^3 mesh at capacity 64
+    (the 96^3 tables' row shapes: NV 256, NE 1280, NF 1920, NT 896) and at
+    capacity 1024 (NV 2048, NT 8576: whole masks past the opt-in limit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    out = {}
+    for cap, rels in ((64, ("VV", "VE", "VF", "VT", "EF", "ET", "FT")),
+                      (1024, ("VV", "VT"))):
+        sm = segment_mesh(structured_grid(48, 48, 48,
+                                          scalar_fn=fields.gaussians(
+                                              0, k=4, sigma=3.0, scale=48)),
+                          capacity=cap)
+        t = precondition(sm, list(rels)).tables
+        cu = lambda a: torch.from_numpy(np.ascontiguousarray(a[:64])) \
+            .to("cuda")
+        for relation in rels:
+            if relation == "VV":
+                ins = (cu(t.T_local), cu(t.T_local), cu(t.LV_global))
+            else:
+                kx, ky = relation
+                ins = (cu(t.table(kx)[0]), cu(t.table(ky)[0]),
+                       cu(getattr(t, f"L{ky}_global")))
+            out[(cap, relation)] = (ins, t.NV)
+    return out
+
+
+@pytest.mark.parametrize("cap,relation", [
+    (64, r) for r in ("VV", "VE", "VF", "VT", "EF", "ET", "FT")]
+    + [(1024, "VV"), (1024, "VT")])
+def test_bits_kernels_equal_at_every_share_count(cuda, share_tables, cap,
+                                                 relation):
+    """A share count splits a segment's rows over more or fewer blocks,
+    never changes a block: at 1, 2, 4, 8 and 16 shares (fewer give way to
+    the shared-memory floor on the capacity-1024 tables) the bitmask
+    kernel's blocks equal the plain arm's, bit for bit, on the bitmask
+    route."""
+    (tx, ty, colg), nvl = share_tables[(cap, relation)]
+    deg = ops.DEFAULT_DEG[relation]
+    arm = {"VV": "VV", "EF": "sub", "ET": "sub", "FT": "sub"}.get(relation,
+                                                                  "member")
+    want = ops.relation_block(relation, tx, ty, colg, nvl, deg=deg,
+                              backend="torch")
+    for k in (1, 2, 4, 8, 16):
+        before = segment_relations.LAUNCHES[f"{arm}_bits"]
+        got = segment_relations.relation_entries_cuda(
+            relation, tx, ty, colg, nvl=nvl, deg=deg, route="bits",
+            shares=k)
+        torch.cuda.synchronize()
+        assert segment_relations.LAUNCHES[f"{arm}_bits"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (relation, cap, k)
+
+
+def test_tuned_engine_types_equal_the_untuned(cuda, tmp_path):
+    """An engine built from a tuning table (batch 16, floor 4) gives the
+    untuned engine's types and blocks; its kernel launches are the
+    wrappers' launches."""
+    from repro_torch.launch import autotune
+    pre = _grid_pre(24, ("VV", "VT", "FT"))
+    rank = total_order(pre.smesh.scalars)
+    path = str(tmp_path / "tune.json")
+    cfg = autotune.KernelConfig(batch_max=16, bucket_floor=4)
+    autotune.record("cuda", pre.smesh.n_segments, cfg, path=path)
+    eng = RelationEngine(pre, ["VV", "VT", "FT"], tune=path)
+    assert eng.kernel_config == cfg
+    base = RelationEngine(pre, ["VV", "VT", "FT"], tune="off")
+    before = dict(segment_relations.LAUNCHES)
+    types, counts = critical_points(eng, pre, rank)
+    moved = {k: segment_relations.LAUNCHES[k] - before[k] for k in before}
+    assert moved["VV"] + moved["member"] == eng.stats.kernel_launches
+    want, want_counts = critical_points(base, pre, rank)
+    np.testing.assert_array_equal(types, want)
+    assert counts == want_counts
+    for s in range(0, pre.smesh.n_segments, 17):
+        for r in ("VV", "VT", "FT"):
+            for a, b in zip(eng.get(r, s), base.get(r, s)):
+                np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("batch", [3, 8])

@@ -733,7 +733,8 @@ def test_entry_route_on_both_sides_of_the_limit():
         assert route(relation, nvl, NY, h100) == "bits"
         assert fit(relation, nvl, NY, h100) == rows
     assert shares("VV", 64, 1376, 1335, 132) == 4
-    assert shares("VT", 2, 1664, 226, 132) == 8
+    assert shares("VT", 2, 1664, 226, 132) == 16     # the rule's, past 8
+    assert shares("VT", 2, 1664, 226, 4) == 8         # the limit's floor
     assert shares("VV", 64, 2048, 892, 132) == 4
     assert shares("VT", 64, 2048, 200, 132) == 11
     # the single-row limits on an H100: member NY 109,376 (VV never passes
@@ -763,8 +764,10 @@ def test_entry_route_on_both_sides_of_the_limit():
     assert sub_blocks(1, 5, 132) == 5
     with pytest.raises(KeyError):
         route("TT", 256, 896, h100)
-    # row shares: two blocks for each of 132 SMs, at most 4 a segment
+    # row shares: two blocks for each of 132 SMs in one wave, at most 16 a
+    # segment
     blocks = segment_relations.bits_row_blocks
-    assert [blocks(B, 256, 132) for B in (1, 64, 66, 67, 88, 132, 264,
-                                          500)] == [4, 4, 4, 4, 3, 2, 1, 1]
+    assert [blocks(B, 256, 132) for B in (1, 8, 16, 17, 32, 64, 66, 67, 88,
+                                          132, 264, 500)] == \
+        [16, 16, 16, 15, 8, 4, 4, 3, 3, 2, 1, 1]
     assert blocks(1, 3, 132) == 3
