@@ -69,7 +69,8 @@ Phases, one JSON line each:
      the table and below 0, runs of 1 to 3000 gids, maps cut to an odd K
      inside a run, and a combined key that wraps int32; timed like phase 3.
   8. the audit of a corrupted field and the completed FF rows of a seeded
-     face sample, equal on the kernels and the plain arm at 96^3; then
+     face sample on the kernels at 96^3, equal to the plain arm's result
+     (``PLAIN_BAD_AUDIT_96``, recorded from its runs on the card); then
      the whole audit + persistence path on both arms at 48^3, corrupted
      audit and FF rows included, against the 48^3 pins.
  8b. the compared data structures on phase 2's mesh: ``critical_points``
@@ -164,7 +165,11 @@ Phases, one JSON line each:
      plain version; whisper-base's encoder, beside the SIMT kernel and
      float32 SDPA); ``flash_fwd_wgmma`` held against the plain version
      and timed at gemma-7b's shape (bf16, B 4, S 4096, 16 heads, hd 256,
-     causal) beside one SDPA call and its bound.
+     causal) beside one SDPA call and its bound; and at phase 11b's two
+     path shapes (bf16, B 4, S 4096, causal): ``flash_fwd_wgmma`` at
+     granite-moe-3b's (24 heads over 8 KV heads, hd 64) and
+     ``flash_fwd_mma`` at zamba2-2.7b's (32 heads, hd 80), each beside
+     one SDPA call, the plain version and its bound.
  10. the JAX reference's full-width LM pins (``LM_PINS``), on both
      attention arms: qwen2-7b at full width cut to two layers and
      whisper-base whole, float32, weights from ``reference_tree``; every
@@ -175,6 +180,22 @@ Phases, one JSON line each:
      and S=1000 on both arms in turns, 28 flash launches per call on the
      kernels' arm, every one ``flash_fwd_wgmma``, and the arms' logits
      within ``LM_ARM_TOL``; walls, tokens/s and the peak device memory.
+ 11b. the vlm, moe, ssm and hybrid families, through the same entry points:
+     (a) the JAX reference's float32 pins (``LM_FAMILY_PINS``) on both
+     arms: qwen2-vl-7b cut to two layers (256 vision tokens on a 16 x 16
+     grid of (0, h, w) ids, 768 text tokens), granite-moe-3b cut to two
+     layers (and its first layer's per-expert counts and dropped pairs,
+     with ``moe.dispatch`` dropping as many), mamba2-130m whole, zamba2-
+     2.7b cut to one group (6 Mamba2 layers and the shared block), each
+     prefill's flash launches counted (float32: the mma kernel; 2, 2, 0,
+     1), and ``generate``; (b) each family at full width and depth in
+     bf16 with seeded weights: ``serve.main`` and ``generate`` (4 x 32 +
+     16 tokens, no flash launch in decode), ``make_prefill_step`` at B 4,
+     S 4096 on both arms in turns with the kernels' launches asserted per
+     call (qwen2-vl 28 and granite 32 ``flash_fwd_wgmma``, zamba2 9
+     ``flash_fwd_mma``, mamba2 none), the arms' logits within
+     ``LM_ARM_TOL``, granite's flipped expert choices between the arms
+     per layer, walls, tokens/s and the peak device memory.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -322,6 +343,16 @@ REF_PATH = {
 # the plain torch arm of phase 5, and both arms of phase 7's pinned
 # corrupted audit and FF rows, run at this size
 SMALL_N = 48
+# the plain torch arm's corrupted audit and FF-row digest at N=96 on the
+# card (an H100), equal in each of four earlier runs of this script, as
+# the kernels' were; the kernels are held to it at 96^3, where the plain
+# arm took about 125 s a run, and both arms run at SMALL_N against the
+# reference's pins
+PLAIN_BAD_AUDIT_96 = {
+    "bad_audit": {"tt_conflicts": 8, "ff_conflicts": 8,
+                  "reverse_mismatch": 9},
+    "ff_sha256":
+        "2e88ca62824c6089c6923cad4089b691e51ec8cb9c3c8a2529737aaea2c45923"}
 # the row-share path: the SMALL_N mesh in segments of this many vertices
 # (NV 2048, NT 8576: whole VV and VT masks past the opt-in limit, so the
 # bitmask kernels split each segment's rows over 4 and 11 blocks)
@@ -384,17 +415,37 @@ FF_SAMPLE = 512              # faces whose completed FF rows are digested
 
 # the LM pins: name -> (B, S, input seed); weights from reference_tree(cfg,
 # 0). qwen2 S=2048 takes the reference's _sdpa_chunked branch, S=100 its
-# _sdpa (ragged for the kernel's 64-row tiles); "generate" is B=2 prompts
-# of 16 tokens, 8 generated against a 64-slot cache
+# _sdpa (ragged for the kernel's 64-row tiles); a "generate" pin is B=2
+# prompts of 16 tokens, 8 generated against a 64-slot cache; "vl" is 256
+# vision tokens on a 16 x 16 grid and 768 text tokens (S counts both)
 LM_PIN_SHAPES = {"S2048": (2, 2048, 1), "S100": (2, 100, 2),
-                 "generate": (2, 16, 3), "whisper": (2, 64, 4)}
+                 "generate": (2, 16, 3), "whisper": (2, 64, 4),
+                 "vl": (2, 1024, 5), "vl_generate": (2, 16, 6),
+                 "granite": (2, 2048, 7), "granite_generate": (2, 16, 8),
+                 "mamba2": (2, 2048, 9), "mamba2_generate": (2, 16, 10),
+                 "zamba2": (2, 2048, 11), "zamba2_generate": (2, 16, 12)}
+# the configuration each pin runs (lm_pin_cfg cuts its depth)
+LM_PIN_ARCH = {"S2048": "qwen2-7b", "S100": "qwen2-7b",
+               "generate": "qwen2-7b", "whisper": "whisper-base",
+               "vl": "qwen2-vl-7b", "vl_generate": "qwen2-vl-7b",
+               "granite": "granite-moe-3b-a800m",
+               "granite_generate": "granite-moe-3b-a800m",
+               "mamba2": "mamba2-130m", "mamba2_generate": "mamba2-130m",
+               "zamba2": "zamba2-2.7b", "zamba2_generate": "zamba2-2.7b"}
+# phase 10's pins, and phase 11b's (the vlm, moe, ssm and hybrid families)
+LM_DENSE_PINS = ("S2048", "S100", "generate", "whisper")
+LM_FAMILY_PINS = ("vl", "vl_generate", "granite", "granite_generate",
+                  "mamba2", "mamba2_generate", "zamba2", "zamba2_generate")
 LM_GEN, LM_CACHE = 8, 64
 WHISPER_FRAMES = 1500        # whisper-base's encoder length (30 s of audio)
 # The JAX reference's LM pins: next tokens and the last position's top-5
-# logit ids and values of prefill_fn / make_prefill_step, and the tokens of
-# generate, for qwen2-7b at full width cut to two layers and whisper-base
-# whole, both in float32, weights reference_tree(cfg, 0), inputs
-# lm_pin_inputs; computed on a CPU (41.9 s, 13.5 GB peak) with:
+# logit ids and values of prefill_fn / make_prefill_step, the tokens of
+# generate, and for granite its first layer's per-expert pair counts and
+# dropped pairs (routing_counts; none drop at this size: the CPU tests of
+# tests/test_torch_moe.py hold the drop path), for the configurations of
+# lm_pin_cfg in float32, weights reference_tree(cfg, 0), inputs
+# lm_pin_inputs; computed on a CPU (all twelve pins 156.7 s, 12.9 GB peak;
+# the four of qwen2-7b and whisper-base as before) with:
 #   PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py
 LM_PINS = {
     "S2048": {
@@ -440,6 +491,104 @@ LM_PINS = {
              3.132631778717041, 3.1045970916748047],
             [3.4208157062530518, 3.297736406326294, 3.2097878456115723,
              3.1924920082092285, 3.191192150115967],
+        ],
+    },
+    "vl": {
+        "next": [12363, 63931],
+        "top5_ids": [
+            [12363, 70163, 131240, 73391, 28940],
+            [63931, 133735, 133549, 30193, 46908],
+        ],
+        "top5_vals": [
+            [3.7177231311798096, 3.615222930908203,
+             3.596891403198242, 3.55729341506958,
+             3.4962661266326904],
+            [3.9579238891601562, 3.8296234607696533,
+             3.7116386890411377, 3.60048770904541,
+             3.5197980403900146],
+        ],
+    },
+    "vl_generate": {
+        "tokens": [
+            [69089, 134350, 11552, 1961, 80652, 123187, 81476,
+             63512],
+            [19089, 37040, 45476, 123311, 88553, 62369, 113478,
+             27255],
+        ],
+    },
+    "granite": {
+        "next": [22779, 15893],
+        "top5_ids": [
+            [22779, 34391, 45919, 36311, 6862],
+            [15893, 32378, 43014, 9975, 44010],
+        ],
+        "top5_vals": [
+            [1278.262451171875, 141.71995544433594,
+             139.6916961669922, 137.41705322265625,
+             137.0718994140625],
+            [1350.8909912109375, 150.31756591796875,
+             146.41749572753906, 145.7859344482422,
+             142.7532196044922],
+        ],
+        "counts": [
+            769, 800, 775, 810, 806, 845, 812, 829, 866, 892, 840,
+            838, 853, 845, 803, 840, 832, 777, 813, 843, 841, 791,
+            804, 843, 826, 886, 778, 804, 837, 781, 800, 865, 798,
+            758, 775, 767, 840, 801, 870, 815,
+        ],
+        "dropped": 0,
+    },
+    "granite_generate": {
+        "tokens": [
+            [18322, 18322, 18322, 18322, 18322, 18322, 18322,
+             18322],
+            [20791, 20791, 20791, 20791, 20791, 20791, 20791,
+             20791],
+        ],
+    },
+    "mamba2": {
+        "next": [18886, 49199],
+        "top5_ids": [
+            [18886, 29463, 30372, 38240, 29621],
+            [49199, 25624, 45334, 32757, 47429],
+        ],
+        "top5_vals": [
+            [150.46279907226562, 103.60066223144531,
+             100.83694458007812, 100.55513000488281,
+             97.11344146728516],
+            [106.94844818115234, 99.97207641601562,
+             95.6868896484375, 95.27554321289062,
+             93.44425964355469],
+        ],
+    },
+    "mamba2_generate": {
+        "tokens": [
+            [42323, 42323, 42323, 42323, 42323, 42323, 35429,
+             35429],
+            [25324, 25324, 25324, 25324, 21210, 21210, 21210,
+             21210],
+        ],
+    },
+    "zamba2": {
+        "next": [27255, 23942],
+        "top5_ids": [
+            [27255, 22077, 19485, 17376, 26684],
+            [23942, 8357, 6777, 22410, 30665],
+        ],
+        "top5_vals": [
+            [766.5870971679688, 191.55044555664062,
+             189.30899047851562, 181.341552734375,
+             175.15919494628906],
+            [816.7860107421875, 184.12942504882812,
+             173.65704345703125, 159.4117889404297,
+             159.323974609375],
+        ],
+    },
+    "zamba2_generate": {
+        "tokens": [
+            [3682, 3682, 3682, 3682, 3682, 3682, 3682, 3682],
+            [14515, 14515, 14515, 14515, 14515, 14515, 14515,
+             14515],
         ],
     },
 }
@@ -498,19 +647,22 @@ def corrupt(grad, ds):
 
 def reference_tree(cfg, seed: int):
     """A parameter tree in the JAX reference's layout (``lm.init_params``:
-    nested dicts of float32 numpy arrays, each layer group stacked on a
-    leading axis) for a dense or encdec ``cfg``, drawn from children of
-    ``SeedSequence(seed)``: truncated normals in [-2, 2] x the reference's
-    scales (1/sqrt(fan-in); 1/sqrt(H*hd) for ``wo``; 1 for the embedding;
-    0.02 for the position tables), norm gains 1 + 0.1 n, and small nonzero
-    biases 0.02 n so that every bias add is exercised. Pure numpy: the pin
-    computation (``tools/lm_pins.py``) and the card build the same tree."""
+    nested dicts of float32 numpy arrays, each layer group stacked on its
+    leading axes: ``(L, ...)``, ``(groups, attn_every, ...)`` for the
+    hybrid's Mamba2 layers) for ``cfg`` of any family, drawn from children
+    of ``SeedSequence(seed)``: truncated normals in [-2, 2] x the
+    reference's scales (1/sqrt(fan-in); 1/sqrt(H*hd) for ``wo``, 1/sqrt(F)
+    for an expert's ``wo``, 1/sqrt(K) for the conv taps; 1 for the
+    embedding; 0.02 for the position tables), norm gains 1 + 0.1 n, small
+    nonzero biases and ``conv_b`` 0.02 n, ``dt_bias`` 0.1 n, ``D`` 1 + 0.1
+    n and ``A_log`` log(linspace(1, 16, h)) + 0.1 n, so that every add and
+    scale is exercised. Pure numpy: the pin computation
+    (``tools/lm_pins.py``) and the card build the same tree."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
     f32 = np.float32
     root = np.random.SeedSequence(seed)
-    D, H, KV, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                       cfg.d_ff)
+    D, F = cfg.d_model, cfg.d_ff
     pool = ThreadPoolExecutor(8)
 
     def normal(shape, trunc):
@@ -538,45 +690,81 @@ def reference_tree(cfg, seed: int):
         x *= f32(scale)
         return x
 
-    def small(shape):
-        return f32(0.02) * normal(shape, False)
+    def small(shape, scale=0.02):
+        return f32(scale) * normal(shape, False)
 
-    def norm(lead):
-        p = {"g": f32(1) + f32(0.1) * normal(lead + (D,), False)}
+    def norm(lead, d=D):
+        p = {"g": f32(1) + f32(0.1) * normal(lead + (d,), False)}
         if cfg.norm == "layernorm":
-            p["b"] = small(lead + (D,))
+            p["b"] = small(lead + (d,))
         return p
 
-    def attn(L, bias):
+    def attn(lead, bias):
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         s = 1.0 / np.sqrt(D)
-        p = {"wq": tn((L, D, H, hd), s), "wk": tn((L, D, KV, hd), s),
-             "wv": tn((L, D, KV, hd), s),
-             "wo": tn((L, H, hd, D), 1.0 / np.sqrt(H * hd))}
+        p = {"wq": tn(lead + (D, H, hd), s), "wk": tn(lead + (D, KV, hd), s),
+             "wv": tn(lead + (D, KV, hd), s),
+             "wo": tn(lead + (H, hd, D), 1.0 / np.sqrt(H * hd))}
         if bias:
-            p.update(bq=small((L, H, hd)), bk=small((L, KV, hd)),
-                     bv=small((L, KV, hd)))
+            p.update(bq=small(lead + (H, hd)), bk=small(lead + (KV, hd)),
+                     bv=small(lead + (KV, hd)))
         return p
 
-    def block(L, cross=False):
-        names = ("wi", "wo") if cfg.norm == "layernorm" else \
-            ("wi", "wg", "wo")
-        mlp = {n: {"w": tn((L, F, D), 1.0 / np.sqrt(F)) if n == "wo"
-                   else tn((L, D, F), 1.0 / np.sqrt(D))} for n in names}
-        p = {"ln1": norm((L,)), "attn": attn(L, cfg.qkv_bias),
-             "ln2": norm((L,)), "mlp": mlp}
+    def block(lead, cross=False):
+        # the FFN first: the pinned trees drew it before the norms
+        if cfg.family == "moe":
+            E = cfg.n_experts
+            s = 1.0 / np.sqrt(D)
+            ffn = {"moe": {"router": tn(lead + (D, E), s),
+                           "wi": tn(lead + (E, D, F), s),
+                           "wg": tn(lead + (E, D, F), s),
+                           "wo": tn(lead + (E, F, D), 1.0 / np.sqrt(F))}}
+        else:
+            names = ("wi", "wo") if cfg.norm == "layernorm" else \
+                ("wi", "wg", "wo")
+            ffn = {"mlp": {n: {"w": tn(lead + (F, D), 1.0 / np.sqrt(F))
+                               if n == "wo"
+                               else tn(lead + (D, F), 1.0 / np.sqrt(D))}
+                           for n in names}}
+        p = {"ln1": norm(lead), "attn": attn(lead, cfg.qkv_bias),
+             "ln2": norm(lead), **ffn}
         if cross:
-            p["ln_x"] = norm((L,))
-            p["xattn"] = attn(L, False)
+            p["ln_x"] = norm(lead)
+            p["xattn"] = attn(lead, False)
         return p
+
+    def mamba(lead):
+        di, st, h, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+        C = di + 2 * st
+        a_log = np.log(np.linspace(1.0, 16.0, h, dtype=f32))
+        return {"ln": norm(lead),
+                "mix": {"in_proj": {"w": tn(lead + (D, 2 * di + 2 * st + h),
+                                            1.0 / np.sqrt(D))},
+                        "conv_w": tn(lead + (K, C), 1.0 / np.sqrt(K)),
+                        "conv_b": small(lead + (C,)),
+                        "A_log": a_log + small(lead + (h,), 0.1),
+                        "D": f32(1) + small(lead + (h,), 0.1),
+                        "dt_bias": small(lead + (h,), 0.1),
+                        "norm": norm(lead, di),
+                        "out_proj": {"w": tn(lead + (di, D),
+                                             1.0 / np.sqrt(di))}}}
 
     tree = {"embed": {"table": tn((cfg.vocab, D), 1.0)}, "ln_f": norm(())}
     if not cfg.tie_embeddings:
         tree["unembed"] = {"w": tn((D, cfg.vocab), 1.0 / np.sqrt(D))}
-    if cfg.family == "dense":
-        tree["layers"] = block(cfg.n_layers)
+    if cfg.family in ("dense", "moe", "vlm"):
+        tree["layers"] = block((cfg.n_layers,))
+    elif cfg.family == "ssm":
+        tree["layers"] = mamba((cfg.n_layers,))
+    elif cfg.family == "hybrid":
+        tree["layers"] = mamba((cfg.n_layers // cfg.attn_every,
+                                cfg.attn_every))
+        tree["shared_attn"] = block(())
+        tree["shared_attn"]["in_proj"] = {
+            "w": tn((2 * D, D), 1.0 / np.sqrt(2 * D))}
     else:
-        tree["enc_layers"] = block(cfg.enc_layers)
-        tree["dec_layers"] = block(cfg.n_layers, cross=True)
+        tree["enc_layers"] = block((cfg.enc_layers,))
+        tree["dec_layers"] = block((cfg.n_layers,), cross=True)
         tree["pos_enc"] = tn((cfg.max_pos, D), 0.02)
         tree["pos_dec"] = tn((cfg.max_pos, D), 0.02)
         tree["ln_enc"] = norm(())
@@ -584,13 +772,34 @@ def reference_tree(cfg, seed: int):
     return tree
 
 
+def grid_positions(nv: int, n_text: int, batch: int):
+    """(3, batch, nv + n_text) int32 M-RoPE ids: nv vision tokens on a
+    sqrt(nv) square grid as (0, h, w), then text continuing from the
+    grid's side as (p, p, p)."""
+    import numpy as np
+    g = int(round(math.sqrt(nv)))
+    h, w = np.divmod(np.arange(nv), g)
+    pos = np.concatenate([np.stack([np.zeros(nv, np.int64), h, w]),
+                          np.tile(g + np.arange(n_text), (3, 1))], axis=1)
+    return np.ascontiguousarray(np.broadcast_to(
+        pos.astype(np.int32)[:, None], (3, batch, nv + n_text)))
+
+
 def lm_pin_inputs(cfg, name: str):
     """The seeded numpy inputs of one LM pin: ``tokens`` (B, S) int32 (and
-    ``frames`` (B, 1500, D) float32 for whisper), or ``prompts`` for the
-    generate pin."""
+    ``frames`` (B, 1500, D) float32 for whisper; for the vlm prefill
+    ``tokens`` (B, S - nv), ``vision_embeds`` (B, nv, D) float32 and
+    ``positions3d`` on a grid), or the prompts of a generate pin."""
     import numpy as np
     B, S, seed = LM_PIN_SHAPES[name]
     rng = np.random.default_rng(seed)
+    if cfg.family == "vlm" and not name.endswith("generate"):
+        nv = cfg.n_vision_tokens
+        return {"tokens": rng.integers(0, cfg.vocab, (B, S - nv),
+                                       dtype=np.int32),
+                "vision_embeds": rng.normal(0, 1, (B, nv, cfg.d_model))
+                .astype(np.float32),
+                "positions3d": grid_positions(nv, S - nv, B)}
     out = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)}
     if cfg.family == "encdec":
         out["frames"] = rng.normal(0, 1, (B, WHISPER_FRAMES, cfg.d_model)) \
@@ -599,23 +808,46 @@ def lm_pin_inputs(cfg, name: str):
 
 
 def lm_pin_cfg(configs, arch: str):
-    """The configuration a pin runs: qwen2-7b at full width cut to two
-    layers, whisper-base whole; both in float32. ``configs`` is either
-    package's ``configs`` module."""
+    """The configuration a pin runs, in float32: qwen2-7b, qwen2-vl-7b and
+    granite-moe-3b at full width cut to two layers, zamba2-2.7b to one
+    group (6 Mamba2 layers and the shared block), whisper-base and
+    mamba2-130m whole. ``configs`` is either package's ``configs``
+    module."""
     cfg = configs.get_config(arch)
-    if arch == "qwen2-7b":
+    if arch in ("qwen2-7b", "qwen2-vl-7b", "granite-moe-3b-a800m"):
         cfg = dataclasses.replace(cfg, n_layers=2)
+    elif arch == "zamba2-2.7b":
+        cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every)
     return dataclasses.replace(cfg, dtype="float32")
 
 
-def lm_pin_run(torch, dev, backend):
-    """The port's results for every LM pin, on ``dev`` through ``backend``,
-    in ``LM_PINS``' layout, with the flash launches of each ``prefill_fn``
-    call, per kernel (counters zeroed just before, read just after)."""
+def routing_counts(eidx, cfg):
+    """Per-expert pair counts of a moe layer's expert choices ``eidx`` (T,
+    k) (numpy), and the pairs its capacity drops, by the reference's
+    ``moe_ffn`` at ep = 1: c_send = ceil(T k cf), c_loc = min(c_send,
+    ceil(c_send / E cf))."""
+    import numpy as np
+    T, k = eidx.shape
+    counts = np.bincount(np.asarray(eidx).reshape(-1),
+                         minlength=cfg.n_experts)
+    c_send = int(np.ceil(T * k * cfg.moe_capacity_factor))
+    c_loc = min(c_send, int(np.ceil(c_send / cfg.n_experts
+                                    * cfg.moe_capacity_factor)))
+    return {"counts": counts.tolist(),
+            "dropped": int(np.maximum(counts - c_loc, 0).sum()),
+            "c_loc": c_loc}
+
+
+def lm_pin_run(torch, dev, backend, names):
+    """The port's results for the LM pins ``names``, on ``dev`` through
+    ``backend``, in ``LM_PINS``' layout, with the flash launches of each
+    ``prefill_fn`` call, per kernel (counters zeroed just before, read just
+    after). A moe prefill also gives its first layer's routing counts, and
+    checks that ``moe.dispatch`` drops the pairs they predict."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve, steps
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
 
     out, launches = {}, {}
 
@@ -624,39 +856,64 @@ def lm_pin_run(torch, dev, backend):
             torch.cuda.synchronize()
 
     def prefill(model, cfg, batch, name):
-        sync()
-        for key in fa.LAUNCHES:
-            fa.LAUNCHES[key] = 0
-        logits, _ = lm.prefill_fn(model, batch, cfg, backend)
-        sync()
+        routed = []
+        route = moe.route
+
+        def recording(p, x, c):
+            gates, eidx = route(p, x, c)
+            routed.append(eidx)
+            return gates, eidx
+        moe.route = recording
+        try:
+            sync()
+            for key in fa.LAUNCHES:
+                fa.LAUNCHES[key] = 0
+            logits, _ = lm.prefill_fn(model, batch, cfg, backend)
+            sync()
+        finally:
+            moe.route = route
         launches[name] = {key: fa.LAUNCHES[key] for key in
                           ("flash_mma", "flash_simt", "flash_wgmma")}
         nxt = steps.make_prefill_step(cfg, backend)(model, batch)
         vals, ids = torch.topk(logits[:, -1].float(), 5, dim=-1)
         out[name] = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
                      "top5_vals": vals.tolist()}
+        if cfg.family == "moe":
+            rc = routing_counts(routed[0].cpu().numpy(), cfg)
+            plan = moe.dispatch(routed[0], cfg,
+                                moe.padded_experts(cfg.n_experts, 1))
+            dropped = int((~plan.keep2).sum()) - int(plan.counts[-1])
+            check(plan.c_loc == rc["c_loc"] and dropped == rc["dropped"],
+                  f"{name}: moe.dispatch drops {dropped} pairs at c_loc "
+                  f"{plan.c_loc}, the counts say {rc}")
+            out[name].update(counts=rc["counts"], dropped=rc["dropped"])
 
-    cfg = lm_pin_cfg(configs, "qwen2-7b")
-    model = lm.params_from_reference(reference_tree(cfg, 0), cfg, dev)
-    for name in ("S2048", "S100"):
-        prefill(model, cfg, {"tokens": torch.from_numpy(
-            lm_pin_inputs(cfg, name)["tokens"]).to(dev)}, name)
-    prompts = lm_pin_inputs(cfg, "generate")["tokens"]
-    out["generate"] = {"tokens": serve.generate(
-        cfg, model, prompts, LM_GEN, LM_CACHE, backend=backend).tolist()}
-    del model
-    cfg = lm_pin_cfg(configs, "whisper-base")
-    model = lm.params_from_reference(reference_tree(cfg, 0), cfg, dev)
-    prefill(model, cfg, {k: torch.from_numpy(v).to(dev) for k, v in
-                         lm_pin_inputs(cfg, "whisper").items()}, "whisper")
+    arch_model = None
+    for name in names:
+        arch = LM_PIN_ARCH[name]
+        cfg = lm_pin_cfg(configs, arch)
+        if arch_model is None or arch_model[0] != arch:
+            arch_model = None           # free the last arch's weights first
+            arch_model = (arch, lm.params_from_reference(
+                reference_tree(cfg, 0), cfg, dev))
+        model = arch_model[1]
+        inputs = {k: torch.from_numpy(v).to(dev)
+                  for k, v in lm_pin_inputs(cfg, name).items()}
+        if name.endswith("generate"):
+            out[name] = {"tokens": serve.generate(
+                cfg, model, inputs["tokens"].cpu().numpy(), LM_GEN,
+                LM_CACHE, backend=backend).tolist()}
+        else:
+            prefill(model, cfg, inputs, name)
     return out, launches
 
 
-def check_lm_pins(got, what: str) -> None:
-    """Tokens and top-5 ids exactly the reference's, top-5 logit values
-    within rtol 1e-3."""
-    for name, want in LM_PINS.items():
-        for key in ("next", "top5_ids", "tokens"):
+def check_lm_pins(got, what: str, names) -> None:
+    """Tokens, top-5 ids and moe routing counts exactly the reference's,
+    top-5 logit values within rtol 1e-3."""
+    for name in names:
+        want = LM_PINS[name]
+        for key in ("next", "top5_ids", "tokens", "counts", "dropped"):
             if key in want:
                 check(got[name][key] == want[key],
                       f"{what} {name}: {key} {got[name][key]} != reference "
@@ -1052,15 +1309,44 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
           "tflops_per_s": flops / g_ms / 1e9})
     del q, k, v, qt, kt, vt
 
+    # phase 11b's two new path shapes, bf16, causal, at B 4 and S 4096:
+    # granite-moe-3b's attention (24 heads over 8 KV heads, hd 64) on the
+    # wgmma kernel and zamba2-2.7b's shared block (32 heads, hd 80) on the
+    # mma kernel, each held against the plain version on the inputs it is
+    # then timed on, beside one SDPA call, the plain version and the bound
+    for config, arm, (H, KV, hd) in (
+            ("granite-moe-3b-a800m", "flash_wgmma", (24, 8, 64)),
+            ("zamba2-2.7b", "flash_mma", (32, 32, 80))):
+        B, S = 4, 4096
+        q, k, v = attn_inputs(B, S, S, H, KV, hd, torch.bfloat16)
+        flash_check(f"{config} prefill", q, k, v, True)
+        f_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True), reps=10)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        fl_ms = time_ms(torch, lambda: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True,
+                            enable_gqa=KV != H), reps=10)
+        fp_ms = time_ms(torch, lambda: fa.flash_attention_ref(
+            q, k, v, causal=True), reps=2, rounds=3)
+        flops, moved, b_ms, b_by = flash_bound(q, k, v, True)
+        emit({"phase": "kernel_time", "arm": arm, "config": config,
+              "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "causal": True,
+              "dtype": "bfloat16", "flops": flops, "bytes": moved,
+              "ms": f_ms, "plain_ms": fp_ms, "library_ms": fl_ms,
+              "bound_ms": b_ms, "bound_by": b_by,
+              "tflops_per_s": flops / f_ms / 1e9})
+        del q, k, v, qt, kt, vt
+
     # -- 10. the full-width LM pins of the JAX reference, on both arms -----
     for backend in ("cuda", "torch"):
         t0 = time.perf_counter()
-        got, pin_launches = lm_pin_run(torch, dev, backend)
+        got, pin_launches = lm_pin_run(torch, dev, backend, LM_DENSE_PINS)
         torch.cuda.synchronize()
         emit({"phase": "lm_pins", "backend": backend, "results": got,
               "flash_launches": pin_launches,
               "wall_s": round(time.perf_counter() - t0, 3)})
-        check_lm_pins(got, backend)
+        check_lm_pins(got, backend, LM_DENSE_PINS)
         # float32 pins: every cuda-arm launch is the mma kernel's
         per = {"S2048": 2, "S100": 2, "whisper": 18}
         want = {name: {"flash_mma": n if backend == "cuda" else 0,
@@ -1161,6 +1447,232 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
           f"the LM path launched the flash kernels {fa.LAUNCHES}, not "
           f"{want} times flash_fwd_wgmma")
     del model, logits
+
+
+# phase 11b: the four families served at full width and depth, bf16: the
+# flash kernel each prefill's attention takes and its launches per call
+FAMILY_FLASH = {"qwen2-vl-7b": ("flash_wgmma", 28),
+                "granite-moe-3b-a800m": ("flash_wgmma", 32),
+                "mamba2-130m": (None, 0), "zamba2-2.7b": ("flash_mma", 9)}
+# flash launches of each float32 pin's prefill on the kernels' arm (every
+# one the mma kernel's): two attention layers, none, one shared block
+FAMILY_PIN_FLASH = {"vl": 2, "granite": 2, "mamba2": 0, "zamba2": 1}
+
+
+def moe_flips(a, b, n_experts: int):
+    """(token, expert) choices in ``a`` (T, k) that ``b`` lacks."""
+    import torch
+    oh = [torch.zeros((x.shape[0], n_experts), dtype=torch.bool,
+                      device=x.device).scatter_(1, x, True) for x in (a, b)]
+    return int((oh[0] & ~oh[1]).sum())
+
+
+def device_breakdown(torch, fn, top: int = 6) -> dict:
+    """``fn()`` once under ``torch.profiler``: its wall (host clock ending in
+    a synchronise), the device's busy time (the kernels' summed device
+    time), the idle share, the ``top`` kernels by device time and the
+    ``top`` host operators by their own host time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    host = sorted((e for e in events if not str(e.device_type)
+                   .endswith("CUDA")),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall,
+            "top": [{"name": e.key[:90], "count": e.count,
+                     "ms": dev_us(e) / 1e3}
+                    for e in sorted(kernels, key=dev_us, reverse=True)[:top]],
+            "top_host": [{"name": e.key[:90], "count": e.count,
+                          "ms": e.self_cpu_time_total / 1e3}
+                         for e in host[:top]]}
+
+
+def lm_family_phases(torch, dev, launches) -> None:
+    """Phase 11b: the vlm, moe, ssm and hybrid families on the card. (a)
+    their float32 pins of the JAX reference on both arms; (b) each family
+    at full width and depth in bf16 with seeded weights: ``serve.main``
+    and ``generate`` (4 prompts of 32 tokens, 16 generated, a 128-slot
+    cache), then ``make_prefill_step`` at B 4, S 4096 (qwen2-vl: 256
+    vision tokens on a 16 x 16 grid and 3840 text tokens) on both arms in
+    turns, the flash launches of every call asserted, the arms' logits
+    within ``LM_ARM_TOL``, granite's flipped expert choices between the
+    arms per layer, walls, tokens/s and the peak device memory. Adds the
+    kernels' arm's flash launches to ``launches``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, specs, steps
+    from repro_torch.models import lm, moe
+
+    t11 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- a. the float32 pins, both arms ------------------------------------
+    for backend in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        got, pin_launches = lm_pin_run(torch, dev, backend, LM_FAMILY_PINS)
+        torch.cuda.synchronize()
+        emit({"phase": "lm_family_pins", "backend": backend,
+              "results": got, "flash_launches": pin_launches,
+              "wall_s": round(time.perf_counter() - t0, 3)})
+        check_lm_pins(got, backend, LM_FAMILY_PINS)
+        want = {name: {"flash_mma": n if backend == "cuda" else 0,
+                       "flash_simt": 0, "flash_wgmma": 0}
+                for name, n in FAMILY_PIN_FLASH.items()}
+        check(pin_launches == want, f"{backend}: flash launches per "
+              f"prefill {pin_launches} != {want}")
+        if backend == "cuda":
+            launches["flash_mma"] += sum(FAMILY_PIN_FLASH.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- b. full width and depth, bf16 ---------------------------------------
+    S, Bp = 4096, 4
+    for arch, (kernel, per) in FAMILY_FLASH.items():
+        cfg = configs.get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            toks = serve.main(["--arch", arch, "--batch", "4",
+                               "--prompt-len", "32", "--gen", "16",
+                               "--cache-len", "128"])
+        main_wall = time.perf_counter() - t0
+        check(toks.shape == (4, 16) and toks.min() >= 0
+              and toks.max() < cfg.vocab, f"{arch}: serve.main gave {toks}")
+        model = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32),
+                                                    dtype=np.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = serve.generate(cfg, model, prompts, 16, 128)
+        gen_wall = time.perf_counter() - t0
+        check(all(n == 0 for n in fa.LAUNCHES.values()),
+              f"{arch}: decode launched the flash kernels {fa.LAUNCHES}")
+        emit({"phase": "lm_serve", "arch": cfg.name,
+              "n_layers": cfg.n_layers,
+              "serve_line": out.getvalue().strip(),
+              "main_wall_s": round(main_wall, 3),
+              "generate_wall_s": round(gen_wall, 3),
+              "tokens_per_s": 4 * (32 + 16) / gen_wall,
+              "same_tokens_as_main": bool(np.array_equal(again, toks)),
+              "params": sum(p.numel() for p in model.parameters())})
+
+        batch = specs.concrete_batch(
+            cfg, ShapeConfig(f"prefill_{S}", S, Bp, "prefill"), rng=S,
+            device=dev)
+        if cfg.family == "vlm":
+            nv = cfg.n_vision_tokens
+            batch["positions3d"] = torch.from_numpy(
+                grid_positions(nv, S - nv, Bp)).to(dev)
+        logits, nxt, walls = {}, {}, {"cuda": [], "torch": []}
+        routed = {}
+        route = moe.route
+        for backend in ("cuda", "torch"):      # warm-up, logits, routing
+            rec = routed[backend] = []
+
+            def recording(p, x, c, rec=rec):
+                gates, eidx = route(p, x, c)
+                rec.append(eidx)
+                return gates, eidx
+            moe.route = recording
+            try:
+                logits[backend] = lm.prefill_fn(model, batch, cfg,
+                                                backend)[0][:, -1].float()
+            finally:
+                moe.route = route
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        for backend in ("cuda", "torch", "torch", "cuda"):
+            step = steps.make_prefill_step(cfg, backend)
+            torch.cuda.synchronize()
+            before = dict(fa.LAUNCHES)
+            t0 = time.perf_counter()
+            nxt[backend] = step(model, batch)
+            torch.cuda.synchronize()
+            walls[backend].append(time.perf_counter() - t0)
+            n = {key: fa.LAUNCHES[key] - before[key] for key in before}
+            want = {key: 0 for key in before}
+            if backend == "cuda" and per:
+                want.update({"flash": per, kernel: per})
+            check(n == want, f"{arch} {backend} prefill launched the flash "
+                             f"kernels {n} times, not {want}")
+        if kernel:
+            launches[kernel] += fa.LAUNCHES[kernel]
+        diff = float((logits["cuda"] - logits["torch"]).abs().max())
+        scale = float(logits["torch"].abs().max())
+        share = float((nxt["cuda"] == nxt["torch"]).float().mean())
+        line = {"phase": "lm_prefill", "arch": cfg.name, "B": Bp, "S": S,
+                "walls_s": walls, "tokens_per_s": {
+                    b: Bp * S / min(w) for b, w in walls.items()},
+                "flash_kernel": kernel, "flash_launches_per_call": per,
+                "logit_max_abs_diff": diff, "logit_max_abs": scale,
+                "arm_gap_share": diff / scale, "equal_next_tokens": share}
+        # where the time goes: one kernels'-arm prefill and four decode
+        # steps against a 128-slot cache, under the profiler
+        cache = lm.init_cache(cfg, Bp, 128, dev)
+        serve_step = steps.make_serve_step(cfg)
+        tok = batch["tokens"][:, :1]
+
+        def decode4():
+            c = cache
+            for t in range(4):
+                b = {"token": tok, "pos": torch.full((Bp,), t,
+                                                     dtype=torch.int32,
+                                                     device=dev)}
+                if cfg.family == "vlm":
+                    b["positions3d"] = torch.full((3, Bp, 1), t,
+                                                  dtype=torch.int32,
+                                                  device=dev)
+                _, c = serve_step(model, c, b)
+        step = steps.make_prefill_step(cfg, "cuda")
+        emit({"phase": "lm_profile", "arch": cfg.name,
+              "prefill": device_breakdown(torch, lambda: step(model, batch)),
+              "decode_4_steps": device_breakdown(torch, decode4)})
+        del cache
+        if cfg.family == "moe":
+            line["flipped_choices_per_layer"] = [
+                moe_flips(a, b, cfg.n_experts)
+                for a, b in zip(routed["cuda"], routed["torch"])]
+            line["choices_per_layer"] = Bp * S * cfg.top_k
+        emit(line)
+        torch.cuda.synchronize()
+        emit({"phase": "lm_memory", "arch": cfg.name,
+              "peak_allocated_gib":
+                  torch.cuda.max_memory_allocated() / 2 ** 30})
+        check(torch.isfinite(logits["cuda"]).all()
+              and torch.isfinite(logits["torch"]).all(),
+              f"{arch}: non-finite logits")
+        check(diff <= LM_ARM_TOL * scale,
+              f"{arch}: the arms' bf16 logits differ by {diff} (max |logit| "
+              f"{scale})")
+        del model, logits, routed
+    emit({"phase": "lm_families_total",
+          "wall_s": round(time.perf_counter() - t11, 3)})
 
 
 def main() -> int:
@@ -2316,18 +2828,15 @@ def main() -> int:
 
     # -- 8. the corrupted audit and the FF rows, at 96^3 and 48^3 -----------
     # the corrupted field's audit and a face sample's FF rows at 96^3 on
-    # both arms (their reference pins are at 48^3, checked below)
+    # the kernels, against the plain arm's (their reference pins are at
+    # 48^3, where both arms run, below)
     big = bad_audit(eng, pre, g)
     del eng
-    peng = RelationEngine(pre, PATH_RELS, lookahead=8,
-                          dev_pool_segments=4096, device="cuda",
-                          backend="torch")
-    pbig = bad_audit(peng, pre, g)
-    del peng
-    emit({"phase": "bad_audit", "n": N, "cuda": big, "torch": pbig})
-    check(big["bad_audit"] == pbig["bad_audit"]
-          and big["ff_sha256"] == pbig["ff_sha256"],
-          "the corrupted audit or the FF rows differ between the arms")
+    emit({"phase": "bad_audit", "n": N, "cuda": big,
+          "torch": PLAIN_BAD_AUDIT_96})
+    check(big["bad_audit"] == PLAIN_BAD_AUDIT_96["bad_audit"]
+          and big["ff_sha256"] == PLAIN_BAD_AUDIT_96["ff_sha256"],
+          "the corrupted audit or the FF rows differ from the plain arm's")
     check(big["bad_audit"]["tt_conflicts"] >= SITES
           and big["bad_audit"]["ff_conflicts"] >= SITES,
           f"the corrupted audit missed a double claim: {big['bad_audit']}")
@@ -3172,6 +3681,7 @@ def main() -> int:
     del teng, oeng
 
     lm_phases(torch, dev, max_err, timing, launches)
+    lm_family_phases(torch, dev, launches)
 
     # -- 12. summary ---------------------------------------------------------
     check(all(launches[arm] > 0 for arm in KERNELS if arm not in FORCED),

@@ -1,9 +1,9 @@
 """Batched serving loop, ported from the reference's ``launch/serve.py``:
 prefill a batch of prompts through the decode path, then greedy-decode
-with the KV cache.
+with the per-family cache (KV / SSM state / hybrid).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --arch qwen2-7b --smoke --batch 4 --prompt-len 32 --gen 16
+      --arch mamba2-130m --smoke --batch 4 --prompt-len 32 --gen 16
 
 Runs on ``cuda`` unless ``--device`` says otherwise; ``--backend`` picks
 the attention arm (``cuda`` kernels or plain ``torch``; default: the
@@ -29,7 +29,7 @@ def generate(cfg, params, prompts: np.ndarray, gen: int, cache_len: int,
              *, backend: Optional[str] = None) -> np.ndarray:
     """prompts (B, P) -> generated tokens (B, gen). Greedy. The prompt is
     consumed through the decode path token-by-token (prefill-by-decode),
-    as in the reference."""
+    as in the reference; a vlm step's rope positions are (t, t, t)."""
     B, P = prompts.shape
     dev = params.embed.table.device
     cache = lm.init_cache(cfg, B, cache_len, dev)
@@ -40,6 +40,9 @@ def generate(cfg, params, prompts: np.ndarray, gen: int, cache_len: int,
     for t in range(P + gen - 1):
         batch = {"token": tok,
                  "pos": torch.full((B,), t, dtype=torch.int32, device=dev)}
+        if cfg.family == "vlm":
+            batch["positions3d"] = torch.full((3, B, 1), t,
+                                              dtype=torch.int32, device=dev)
         nxt, cache = step(params, cache, batch)
         if t + 1 < P:
             tok = prompts_d[:, t + 1: t + 2]
@@ -51,7 +54,7 @@ def generate(cfg, params, prompts: np.ndarray, gen: int, cache_len: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-7b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="mamba2-130m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,6 +1,7 @@
 """Smoke batches for the LM substrate: a port of the reference's
-``launch/specs.py`` ``input_specs`` / ``concrete_batch`` for the dense and
-encdec families, drawing the same numbers from the same numpy seed."""
+``launch/specs.py`` ``input_specs`` / ``concrete_batch`` for the serving
+cells (``prefill``, ``decode``) of every family, drawing the same numbers
+from the same numpy seed in the same key order."""
 
 from __future__ import annotations
 
@@ -19,15 +20,23 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig
     ``decode``), in the reference's key order. Decode shapes describe ONE
     new token against a KV cache of ``shape.seq_len``."""
     B, S = shape.global_batch, shape.seq_len
-    i32 = torch.int32
-    if cfg.family not in ("dense", "encdec") or shape.kind == "train":
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "train":
         raise NotImplementedError(
-            f"{shape.kind} batches of the {cfg.family} family are not "
-            f"ported yet (ROADMAP queue 1 item 3)")
+            f"train batches ({cfg.name}) are not ported yet: training is "
+            f"ROADMAP queue 1 item 3.4")
+    if cfg.family == "vlm":
+        nv = cfg.n_vision_tokens
+        if shape.kind == "prefill":     # text tokens; the total stays S
+            return {"tokens": ((B, S - nv), i32),
+                    "vision_embeds": ((B, nv, cfg.d_model), bf16),
+                    "positions3d": ((3, B, S), i32)}
+        return {"token": ((B, 1), i32), "pos": ((B,), i32),
+                "positions3d": ((3, B, 1), i32)}
     if shape.kind == "decode":
         return {"token": ((B, 1), i32), "pos": ((B,), i32)}
     if cfg.family == "encdec":
-        return {"frames": ((B, S, cfg.d_model), torch.bfloat16),
+        return {"frames": ((B, S, cfg.d_model), bf16),
                 "tokens": ((B, S), i32)}
     return {"tokens": ((B, S), i32)}
 

@@ -20,7 +20,7 @@ def make_prefill_step(cfg: ArchConfig, backend: Optional[str] = None):
 
 
 def make_serve_step(cfg: ArchConfig, backend: Optional[str] = None):
-    """One greedy decode step: (params, cache, {token,pos}) ->
+    """One greedy decode step: (params, cache, {token,pos,...}) ->
     (next_token (B, 1) int32, cache)."""
     def serve_step(params, cache, batch):
         logits, new_cache = lm.decode_fn(params, cache, batch, cfg, backend)

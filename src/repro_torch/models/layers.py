@@ -1,6 +1,7 @@
 """Shared layers of the LM substrate, ported from the reference's
-``models/layers.py``: norms, rotary embeddings, GQA/MQA/MHA attention with
-a KV cache, GLU and GELU MLPs, the embedding and its transpose.
+``models/layers.py``: norms, rotary embeddings (with M-RoPE), GQA/MQA/MHA
+attention with a KV cache, GLU and GELU MLPs, the embedding and its
+transpose.
 
 Parameters live in small ``nn.Module``s with the reference's names and
 head-shaped layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``), in the config's
@@ -104,19 +105,42 @@ def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5
 # Rotary embeddings
 
 
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """The rotary frequencies ``theta ** (-arange(half) / half)``: the
+    float32 power taken in float64 and rounded once, which matches the
+    reference's float32 ``theta ** x`` where torch's own float32 power is
+    off by an ulp in a few slots."""
+    expo = -(torch.arange(0, half, dtype=torch.float32, device=device)
+             / half)
+    base = torch.tensor(float(np.float32(theta)), dtype=torch.float64,
+                        device=device)
+    return torch.pow(base, expo.double()).float()
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (..., S) -> cos/sin (..., S, head_dim//2), float32. The
-    frequencies are the float32 power taken in float64 and rounded once,
-    which matches the reference's float32 ``theta ** x`` where torch's own
-    float32 power is off by an ulp in a few slots."""
-    half = head_dim // 2
-    dev = positions.device
-    expo = -(torch.arange(0, half, dtype=torch.float32, device=dev) / half)
-    base = torch.tensor(float(np.float32(theta)), dtype=torch.float64,
-                        device=dev)
-    freqs = torch.pow(base, expo.double()).float()
+    """positions (..., S) -> cos/sin (..., S, head_dim//2), float32."""
+    freqs = _rope_freqs(head_dim // 2, theta, positions.device)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (Qwen2-VL): positions (3, B, S) are (t, h, w) ids;
+    frequency slot ``j`` takes the component whose section holds it ->
+    cos/sin (B, S, head_dim//2), float32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    dev = positions.device
+    freqs = _rope_freqs(half, theta, dev)
+    comp = torch.cat([torch.full((s,), i, dtype=torch.long, device=dev)
+                      for i, s in enumerate(sections)])
+    p = positions.float().movedim(0, -1)              # (B, S, 3)
+    ang = p[..., comp] * freqs                         # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,17 +1,21 @@
 """Language-model assembly of the LM substrate, ported from the reference's
-``models/lm.py`` for the ``dense`` and ``encdec`` families: the serving
-path (prefill, KV cache, one-token decode).
+``models/lm.py``: the serving path (prefill, caches, one-token decode) of
+all six families: ``dense``, ``moe`` (:mod:`.moe`), ``vlm`` (M-RoPE and
+vision embeddings in front of the text), ``ssm`` (:mod:`.mamba2`),
+``hybrid`` (Mamba2 layers with one weight-shared attention block every
+``attn_every`` layers) and ``encdec``.
 
-The reference stacks each layer's parameters on a leading L axis and runs
-the stack under ``lax.scan``; here a model is an ``nn.Module`` per family
-(:class:`DenseLM`, :class:`EncDecLM`) holding a ``ModuleList`` of blocks,
-run by a Python loop. Parameter names follow the reference's tree
-(``layers.<l>.attn.wq``, ``embed.table``, ``ln_f.g``, ...), so
+The reference stacks each layer's parameters on a leading L axis (two for
+the hybrid's ``(groups, attn_every)``) and runs the stack under
+``lax.scan``; here a model is an ``nn.Module`` per family (:class:`DenseLM`
+for dense, moe and vlm, :class:`SSMLM`, :class:`HybridLM`,
+:class:`EncDecLM`) holding ``ModuleList`` s of blocks, run by Python loops.
+Parameter names follow the reference's tree (``layers.<l>.attn.wq``,
+``layers.<g>.<j>.mix.A_log``, ``embed.table``, ...), so
 :func:`params_from_reference` loads a reference parameter tree as it is.
-The families ``moe``, ``ssm``, ``hybrid`` and ``vlm`` raise
-``NotImplementedError``. There is no ``Runtime``: with ``mesh=None`` every
-sharding hint of the reference is the identity (sharding the LM is ROADMAP
-queue 1 item 3).
+There is no ``Runtime``: with ``mesh=None`` every sharding hint of the
+reference is the identity and ``moe_apply`` is the local ``moe_ffn``
+(sharding the LM is ROADMAP queue 1 item 3.5).
 
 Entry points (used by ``launch/{steps,serve}.py``):
   init_params(cfg, generator, device)        -> model (random weights)
@@ -36,30 +40,24 @@ import torch
 from torch import nn
 
 from ..kernels.ops import resolve_backend
-from . import layers
+from . import layers, mamba2, moe
 
-# what each family that is not ported yet waits for
-_NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 3 (models/moe.py)",
-    "ssm": "ROADMAP queue 1 item 3 (models/mamba2.py)",
-    "hybrid": "ROADMAP queue 1 item 3 (models/mamba2.py)",
-    "vlm": "ROADMAP queue 1 item 3 (mrope_angles, the vision inputs)",
-}
 # parameter groups the reference stacks on a leading layer axis
 _STACKED = ("layers", "enc_layers", "dec_layers")
+# families whose stack is attention blocks (DenseLM)
+_ATTN = ("dense", "moe", "vlm")
 
 
 def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_family(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[cfg.family]}")
-    if cfg.family not in ("dense", "encdec"):
-        raise ValueError(cfg.family)
+def _stack_depth(cfg, group: str) -> int:
+    """Leading stacked axes of a reference parameter group: the hybrid's
+    ``layers`` are ``(groups, attn_every, ...)``."""
+    if group not in _STACKED:
+        return 0
+    return 2 if cfg.family == "hybrid" and group == "layers" else 1
 
 
 def _norm(cfg):
@@ -73,8 +71,8 @@ def _norm(cfg):
 
 
 class Block(nn.Module):
-    """ln1 -> attention -> ln2 -> MLP, plus ln_x -> cross attention in a
-    decoder block."""
+    """ln1 -> attention -> ln2 -> MLP (the MoE FFN in a moe model), plus
+    ln_x -> cross attention in a decoder block."""
 
     def __init__(self, cfg, *, cross=False, dtype, device):
         super().__init__()
@@ -84,8 +82,12 @@ class Block(nn.Module):
                                      cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
                                      dtype=dtype, device=device)
         self.ln2 = norm(cfg.d_model, device=device)
-        mlp = layers.GeluMLP if cfg.norm == "layernorm" else layers.GluMLP
-        self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
+        if cfg.family == "moe":
+            self.moe = moe.MoE(cfg, dtype=dtype, device=device)
+        else:
+            mlp = layers.GeluMLP if cfg.norm == "layernorm" else \
+                layers.GluMLP
+            self.mlp = mlp(cfg.d_model, cfg.d_ff, dtype=dtype, device=device)
         if cross:
             self.ln_x = norm(cfg.d_model, device=device)
             self.xattn = layers.Attention(cfg.d_model, cfg.n_heads,
@@ -111,11 +113,49 @@ class _LM(nn.Module):
 
 
 class DenseLM(_LM):
+    """The attention stack of the dense, moe and vlm families."""
+
     def __init__(self, cfg, *, device):
         super().__init__(cfg, device=device)
         self.layers = nn.ModuleList(
             Block(cfg, dtype=_dtype(cfg), device=device)
             for _ in range(cfg.n_layers))
+
+
+class MambaLayer(nn.Module):
+    """ln -> Mamba2 mixer, with a residual."""
+
+    def __init__(self, cfg, *, device):
+        super().__init__()
+        norm, _ = _norm(cfg)
+        self.ln = norm(cfg.d_model, device=device)
+        self.mix = mamba2.Mamba2(cfg, dtype=_dtype(cfg), device=device)
+
+
+class SSMLM(_LM):
+    def __init__(self, cfg, *, device):
+        super().__init__(cfg, device=device)
+        self.layers = nn.ModuleList(MambaLayer(cfg, device=device)
+                                    for _ in range(cfg.n_layers))
+
+
+class HybridLM(_LM):
+    """``layers.<g>.<j>``: ``n_layers // attn_every`` groups of
+    ``attn_every`` Mamba2 layers; ``shared_attn``: one attention block
+    applied before every group, with ``in_proj (2D, D)`` taking the hidden
+    state concatenated with the original embeddings."""
+
+    def __init__(self, cfg, *, device):
+        super().__init__(cfg, device=device)
+        groups = cfg.n_layers // cfg.attn_every
+        self.layers = nn.ModuleList(
+            nn.ModuleList(MambaLayer(cfg, device=device)
+                          for _ in range(cfg.attn_every))
+            for _ in range(groups))
+        dt = _dtype(cfg)
+        self.shared_attn = Block(cfg, dtype=dt, device=device)
+        self.shared_attn.in_proj = layers.Dense(2 * cfg.d_model, cfg.d_model,
+                                                dtype=dt, device=device)
 
 
 class EncDecLM(_LM):
@@ -134,19 +174,25 @@ class EncDecLM(_LM):
         self.ln_enc = norm(cfg.d_model, device=device)
 
 
+_MODELS = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM,
+           "ssm": SSMLM, "hybrid": HybridLM, "encdec": EncDecLM}
+
+
 def build(cfg, device) -> _LM:
     """The family's module with uninitialised weights on ``device``."""
-    _check_family(cfg)
-    cls = EncDecLM if cfg.family == "encdec" else DenseLM
-    return cls(cfg, device=torch.device(device))
+    if cfg.family not in _MODELS:
+        raise ValueError(cfg.family)
+    return _MODELS[cfg.family](cfg, device=torch.device(device))
 
 
 def init_params(cfg, generator: torch.Generator, device) -> _LM:
     """Random weights at the reference's scales: truncated normals in
-    [-2, 2] x 1/sqrt(fan-in) for projections (1/sqrt(H*hd) for wo), x 1
-    for the embedding, x 0.02 for the encdec position tables; norm gains 1,
-    biases 0. Drawn from ``generator`` (on ``device``) in module order; the
-    numbers differ from the reference's JAX PRNG."""
+    [-2, 2] x 1/sqrt(fan-in) for projections (1/sqrt(H*hd) for wo, 1/sqrt
+    (F) for an expert's wo, 1/sqrt(K) for the conv taps), x 1 for the
+    embedding, x 0.02 for the encdec position tables; norm gains 1, biases
+    0; Mamba2's ``A_log = log(linspace(1, 16, heads))``, ``D = 1``,
+    ``dt_bias = conv_b = 0``. Drawn from ``generator`` (on ``device``) in
+    module order; the numbers differ from the reference's JAX PRNG."""
     model = build(cfg, device)
     for m in model.modules():
         if hasattr(m, "reset"):
@@ -166,20 +212,29 @@ def _flatten(tree, prefix=""):
             yield name, v
 
 
+def _unstack(prefix, rest, arr, depth):
+    if depth == 0:
+        yield f"{prefix}.{rest}", arr
+        return
+    for i in range(arr.shape[0]):
+        yield from _unstack(f"{prefix}.{i}", rest, arr[i], depth - 1)
+
+
 def params_from_reference(tree: Dict[str, Any], cfg, device) -> _LM:
     """Load the reference's parameter tree (nested dicts of numpy arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``): the leading-L arrays of
+    e.g. ``jax.tree.map(np.asarray, params)``): the stacked arrays of
     ``layers`` / ``enc_layers`` / ``dec_layers`` are unstacked into the
-    blocks, every array is cast to its parameter's dtype. Every parameter
-    must be given, with the reference's shape."""
+    blocks (both leading axes of the hybrid's ``layers``), every array is
+    cast to its parameter's dtype. Every parameter must be given, with the
+    reference's shape."""
     model = build(cfg, device)
     state = {}
     for name, arr in _flatten(tree):
         group, _, rest = name.partition(".")
         arr = np.asarray(arr)
-        if group in _STACKED:
-            for i in range(arr.shape[0]):
-                state[f"{group}.{i}.{rest}"] = arr[i]
+        depth = _stack_depth(cfg, group)
+        if depth:
+            state.update(_unstack(group, rest, arr, depth))
         else:
             state[name] = arr
     own = dict(model.named_parameters())
@@ -213,7 +268,10 @@ def _attn_block(p: Block, x, cos_sin, cfg, dtype, backend, cache=None,
         backend=backend)
     x = x + h
     hin = nfn(p.ln2, x, cfg.norm_eps)
-    if cfg.norm == "layernorm":
+    if cfg.family == "moe":
+        B, S, D = hin.shape
+        h2 = moe.moe_ffn(p.moe, hin.reshape(B * S, D), cfg).reshape(B, S, D)
+    elif cfg.norm == "layernorm":
         h2 = layers.gelu_mlp(p.mlp, hin)
     else:
         h2 = layers.glu_mlp(p.mlp, hin, cfg.activation)
@@ -221,7 +279,10 @@ def _attn_block(p: Block, x, cos_sin, cfg, dtype, backend, cache=None,
 
 
 def _rope(cfg, positions):
-    """positions (B, S) -> (cos, sin) (B, S, half)."""
+    """positions (B, S) or (3, B, S) for mrope -> (cos, sin) (B, S, half)."""
+    if cfg.mrope:
+        return layers.mrope_angles(positions, cfg.hd, cfg.rope_theta,
+                                   cfg.mrope_sections)
     return layers.rope_angles(positions, cfg.hd, cfg.rope_theta)
 
 
@@ -229,26 +290,74 @@ def _rope(cfg, positions):
 # Forward passes (teacher-forced / prefill)
 
 
-def _embed_inputs(params, batch):
-    """-> (x (B,S,D), positions for rope)."""
+def _embed_inputs(params, batch, cfg):
+    """-> (x (B,S,D), positions for rope). A vlm batch's vision embeddings,
+    cast to the compute dtype, go in front of the text, and its
+    ``positions3d`` (3, B, S) are the rope positions."""
     tokens = batch["tokens"]
     x = layers.embed(params.embed, tokens)
+    if cfg.family == "vlm":
+        vis = batch["vision_embeds"].to(x.dtype)          # (B, Nv, D)
+        x = torch.cat([vis, x], dim=1)
+        return x, batch["positions3d"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     return x, positions
 
 
+def _mamba_stack(lps, h, cfg, dtype, states=None):
+    """Mamba2 layers with residuals; ``states`` (ssm (n, B, h, p, n), conv
+    (n, B, K-1, C)) -> decode. Returns (hidden, (ssm, conv) stacked over
+    the layers: new tensors)."""
+    _, nfn = _norm(cfg)
+    ssm, conv = [], []
+    for i, lp in enumerate(lps):
+        st = None if states is None else (states[0][i], states[1][i])
+        out, (s1, s2) = mamba2.mamba2_forward(
+            lp.mix, nfn(lp.ln, h, cfg.norm_eps), cfg, dtype, state=st)
+        h = h + out
+        ssm.append(s1)
+        conv.append(s2)
+    return h, (torch.stack(ssm), torch.stack(conv))
+
+
 def backbone(params, x, positions, cfg, backend, caches=None, pos=None):
-    """Run the dense stack. caches=(K, V) (L, B, T, KV, hd) and pos given ->
-    decode mode, writing each layer's cache in place. Returns (hidden,
-    caches)."""
+    """Run the stack. caches and pos given -> decode mode (S == 1): the KV
+    caches are written in place, the SSM states come back as new tensors.
+    Returns (hidden, caches): the prefill of an ssm model returns its
+    stacked (ssm, conv) states, of the others None."""
     dtype = _dtype(cfg)
-    cos_sin = _rope(cfg, positions)
-    for i, lp in enumerate(params.layers):
-        cache = (caches[0][i], caches[1][i]) if caches is not None else None
-        x = _attn_block(lp, x, cos_sin, cfg, dtype, backend, cache=cache,
-                        pos=pos)
-    return x, caches
+    fam = cfg.family
+    if fam in _ATTN:
+        cos_sin = _rope(cfg, positions)
+        for i, lp in enumerate(params.layers):
+            cache = (caches[0][i], caches[1][i]) if caches is not None \
+                else None
+            x = _attn_block(lp, x, cos_sin, cfg, dtype, backend,
+                            cache=cache, pos=pos)
+        return x, caches
+    if fam == "ssm":
+        return _mamba_stack(params.layers, x, cfg, dtype, caches)
+    if fam == "hybrid":
+        cos_sin = _rope(cfg, positions)
+        x0 = x        # the original embeddings feed every shared block
+        shared = params.shared_attn
+        ssm, conv = [], []
+        for g, gp in enumerate(params.layers):
+            kv = None if caches is None else \
+                (caches[1][0][g], caches[1][1][g])
+            hin = layers.dense(shared.in_proj, torch.cat([x, x0], dim=-1))
+            x = x + _attn_block(shared, hin, cos_sin, cfg, dtype, backend,
+                                cache=kv, pos=pos)
+            st = None if caches is None else \
+                (caches[0][0][g], caches[0][1][g])
+            x, (s1, s2) = _mamba_stack(gp, x, cfg, dtype, st)
+            ssm.append(s1)
+            conv.append(s2)
+        if caches is None:
+            return x, None
+        return x, ((torch.stack(ssm), torch.stack(conv)), caches[1])
+    raise ValueError(fam)
 
 
 def _final_logits(params, h, cfg):
@@ -313,8 +422,7 @@ def _backend(params, backend):
 def prefill_fn(params, batch, cfg, backend: Optional[str] = None):
     """Teacher-forced forward for serving prefill: returns last-position
     logits (B, 1, vocab) in the compute dtype, and the encoder states for
-    encdec (None for dense)."""
-    _check_family(cfg)
+    encdec, the stacked (ssm, conv) states for ssm (None for the rest)."""
     backend = _backend(params, backend)
     with _full_fp32():
         if cfg.family == "encdec":
@@ -323,32 +431,49 @@ def prefill_fn(params, batch, cfg, backend: Optional[str] = None):
             x = x + params.pos_dec[: x.shape[1]][None]
             h, _ = _encdec_decode_stack(params, x, enc, cfg, backend)
             return _final_logits(params, h[:, -1:], cfg), enc
-        x, positions = _embed_inputs(params, batch)
-        h, _ = backbone(params, x, positions, cfg, backend)
-        return _final_logits(params, h[:, -1:], cfg), None
+        x, positions = _embed_inputs(params, batch, cfg)
+        h, states = backbone(params, x, positions, cfg, backend)
+        return _final_logits(params, h[:, -1:], cfg), states
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device,
                dtype=torch.bfloat16):
     """Zeroed decode caches, bf16 whatever ``cfg.dtype`` (the reference's
-    default): dense ``(K, V)`` of ``(L, B, T, KV, hd)``; encdec ``((K, V),
-    enc (B, T, D))``."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.hd)
-    kv = (torch.zeros(shape, dtype=dtype, device=device),
-          torch.zeros(shape, dtype=dtype, device=device))
-    if cfg.family == "encdec":
-        return kv, torch.zeros((batch_size, seq_len, cfg.d_model),
-                               dtype=dtype, device=device)
+    default): dense/moe/vlm ``(K, V)`` of ``(L, B, T, KV, hd)``; ssm
+    ``(ssm (L, B, h, p, n), conv (L, B, K-1, d_inner + 2n))``; hybrid
+    ``((ssm, conv) of (G, attn_every, ...), (K, V) of (G, B, T, KV, hd))``
+    with G = n_layers // attn_every; encdec ``((K, V), enc (B, T, D))``.
+    K and V are always two tensors."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    fam = cfg.family
+    B = batch_size
+    if fam in ("ssm", "hybrid"):
+        h, pd, st = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+        conv_ch = cfg.d_inner + 2 * st
+        lead = (cfg.n_layers,) if fam == "ssm" else \
+            (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+        m = (zeros(*lead, B, h, pd, st),
+             zeros(*lead, B, cfg.ssm_conv - 1, conv_ch))
+        if fam == "ssm":
+            return m
+        kv_shape = (lead[0], B, seq_len, cfg.n_kv_heads, cfg.hd)
+        return m, (zeros(*kv_shape), zeros(*kv_shape))
+    if fam not in _ATTN + ("encdec",):
+        raise ValueError(fam)
+    shape = (cfg.n_layers, B, seq_len, cfg.n_kv_heads, cfg.hd)
+    kv = (zeros(*shape), zeros(*shape))
+    if fam == "encdec":
+        return kv, zeros(B, seq_len, cfg.d_model)
     return kv
 
 
 @torch.no_grad()
 def decode_fn(params, cache, batch, cfg, backend: Optional[str] = None):
-    """One decode step: batch = {token (B,1), pos (B,)}. Returns (logits
-    (B,1,V), cache); the new token's K/V are written into ``cache`` in
-    place."""
-    _check_family(cfg)
+    """One decode step: batch = {token (B,1), pos (B,)} (+ positions3d (3,
+    B, 1) for vlm). Returns (logits (B,1,V), cache); the new token's K/V
+    are written into ``cache`` in place, SSM states are new tensors."""
     backend = _backend(params, backend)
     tok, pos = batch["token"], batch["pos"]
     with _full_fp32():
@@ -359,6 +484,8 @@ def decode_fn(params, cache, batch, cfg, backend: Optional[str] = None):
             h, nkv = _encdec_decode_stack(params, x, enc, cfg, backend,
                                           caches=(K, V), pos=pos)
             return _final_logits(params, h, cfg), (nkv, enc)
-        h, new = backbone(params, x, pos[:, None], cfg, backend,
-                          caches=cache, pos=pos)
+        positions = batch["positions3d"] if cfg.family == "vlm" else \
+            pos[:, None]
+        h, new = backbone(params, x, positions, cfg, backend, caches=cache,
+                          pos=pos)
         return _final_logits(params, h, cfg), new

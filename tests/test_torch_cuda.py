@@ -16,7 +16,8 @@ sync watchdog reclaiming an injected hang on a CUDA event, a lost shard
 re-homed on one card), the bitmask kernels at every tuned share count
 and a tuned engine against an untuned one, and the LM smoke configs'
 prefill and
-decode on both attention arms against the CPU. These tests need an NVIDIA card and
+decode on both attention arms against the CPU (every family; the flash
+kernels at the moe and hybrid path shapes). These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
 
@@ -1016,6 +1017,94 @@ def test_lm_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
         np.testing.assert_array_equal(
             serve.generate(cfg, on_card, prompts, 5, 16),
             serve.generate(cfg, model, prompts, 5, 16))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "granite-moe-3b-a800m",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m",
+                                  "zamba2-2.7b"])
+def test_lm_family_prefill_on_the_card_equals_the_cpu(cuda, arch):
+    """The vlm, moe, ssm and hybrid smoke configs in float32: prefill on
+    both arms of the card equal to the CPU's (the flash kernel once per
+    attention without a cache on the kernels' arm: none for the ssm, one
+    per group for the hybrid), the moe's expert choices equal on all
+    three, the ssm's prefill states too, and generate equal to the
+    CPU's."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = lm.build(cfg, cuda)
+    on_card.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(0)
+    S = 64 if cfg.family in ("ssm", "hybrid") else 75
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, S), dtype=np.int32))}
+    if cfg.family == "vlm":
+        nv = cfg.n_vision_tokens
+        batch["vision_embeds"] = torch.from_numpy(
+            rng.normal(0, 1, (2, nv, cfg.d_model)).astype(np.float32))
+        g = int(math.isqrt(nv))
+        h, w = np.divmod(np.arange(nv), g)
+        pos = np.concatenate([np.stack([0 * h, h, w]),
+                              np.tile(g + np.arange(S), (3, 1))], 1)
+        batch["positions3d"] = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(pos[:, None], (3, 2, nv + S))).astype(np.int32))
+    routed = []
+    route = moe.route
+
+    def recording(p, x, c):
+        gates, eidx = route(p, x, c)
+        routed.append(eidx.cpu())
+        return gates, eidx
+    moe.route = recording
+    try:
+        want, wstate = lm.prefill_fn(model, batch, cfg)
+        card = {k: t.to(cuda) for k, t in batch.items()}
+        before = flash_attention.LAUNCHES["flash"]
+        got, gstate = lm.prefill_fn(on_card, card, cfg)
+        torch.cuda.synchronize()
+        per_call = {"ssm": 0, "hybrid": cfg.n_layers // max(
+            cfg.attn_every, 1)}.get(cfg.family, cfg.n_layers)
+        assert flash_attention.LAUNCHES["flash"] == before + per_call
+        plain, _ = lm.prefill_fn(on_card, card, cfg, backend="torch")
+    finally:
+        moe.route = route
+    for g in (got, plain):
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-4)
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        assert len(routed) == 3 * L
+        for i in range(L):
+            assert torch.equal(routed[i], routed[L + i])
+            assert torch.equal(routed[i], routed[2 * L + i])
+    if cfg.family == "ssm":
+        for g, w in zip(gstate, wstate):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    prompts = rng.integers(0, cfg.vocab, (2, 6), dtype=np.int32)
+    np.testing.assert_array_equal(
+        serve.generate(cfg, on_card, prompts, 5, 16),
+        serve.generate(cfg, model, prompts, 5, 16))
+
+
+@pytest.mark.parametrize("config, H, KV, hd, variant", [
+    ("granite-moe-3b-a800m", 24, 8, 64, "wgmma"),
+    ("zamba2-2.7b", 32, 32, 80, "mma")])
+def test_flash_kernel_at_the_new_path_shapes(cuda, config, H, KV, hd,
+                                             variant):
+    """bf16 prefill attention of granite-moe-3b (GQA 24/8, hd 64) and
+    zamba2-2.7b (MHA 32, hd 80), causal at S 1000: the kernel the routing
+    names, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 1000, H, hd), device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn((2, 1000, KV, hd), device=cuda,
+                        generator=g).bfloat16() for _ in range(2))
+    before = dict(flash_attention.LAUNCHES)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert flash_attention.LAUNCHES[f"flash_{variant}"] == \
+        before[f"flash_{variant}"] + 1
+    torch.testing.assert_close(
+        got.float(), flash_attention.flash_attention_ref(q, k, v).float(),
+        rtol=2e-2, atol=2e-2)
 
 
 # -- fault recovery on the card (docs/DESIGN.md §12) -------------------------

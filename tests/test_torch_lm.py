@@ -2,7 +2,8 @@
 against the JAX reference on the CPU, over the four dense ``SMOKE`` configs
 and whisper's, with the reference's weights carried across
 (``lm.params_from_reference``; biases and norm parameters perturbed from
-their zero/one init so that their adds are exercised).
+their zero/one init so that their adds are exercised: ``tests/_lm_ref.py``,
+shared with the other LM families' test files).
 
 Tolerances: in float32 (``dataclasses.replace(cfg, dtype="float32")``)
 logits to ``rtol 1e-4`` and tokens equal; in the configured bf16 logits
@@ -22,7 +23,6 @@ import torch
 
 from repro import configs as rconfigs
 from repro.configs import base as rbase
-from repro.distributed.sharding import Runtime
 from repro.launch import serve as rserve
 from repro.launch import specs as rspecs
 from repro.launch import steps as rsteps
@@ -33,57 +33,11 @@ from repro_torch.configs import base
 from repro_torch.launch import serve, specs, steps
 from repro_torch.models import layers, lm
 
-RT = Runtime(mesh=None, remat="none")
+from _lm_ref import CPU, DTYPES, RT, logits_close as _logits_close, \
+    setup as _setup
+
 DENSE = ["qwen2-7b", "gemma-7b", "deepseek-7b", "command-r-35b"]
 ARCHS = DENSE + ["whisper-base"]
-DTYPES = ["float32", "bfloat16"]
-CPU = torch.device("cpu")
-
-
-def _perturb(tree, seed=1):
-    """Nonzero biases and non-unit norm gains, so that every add and scale
-    of the path is exercised."""
-    rng = np.random.default_rng(seed)
-
-    def f(path, x):
-        x = np.array(x, np.float32)
-        key = path[-1].key
-        if key in ("b", "bq", "bk", "bv"):
-            x = x + 0.1 * rng.standard_normal(x.shape).astype(np.float32)
-        elif key == "g":
-            x = x * (1 + 0.1 * rng.standard_normal(x.shape)
-                     .astype(np.float32))
-        return x
-    return jax.tree_util.tree_map_with_path(f, tree)
-
-
-_CACHE = {}
-
-
-def _setup(arch, dtype):
-    """(cfg, reference params (jax), port model) for one arch and dtype."""
-    key = (arch, dtype)
-    if key not in _CACHE:
-        cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype)
-        rcfg = dataclasses.replace(rconfigs.get_smoke_config(arch),
-                                   dtype=dtype)
-        tree = _perturb(jax.tree.map(
-            np.asarray, rlm.init_params(jax.random.PRNGKey(0), rcfg, RT)))
-        _CACHE[key] = (cfg, rcfg, tree, jax.tree.map(jnp.asarray, tree),
-                       lm.params_from_reference(tree, cfg, CPU))
-    return _CACHE[key]
-
-
-def _logits_close(got, want, dtype):
-    got = got.float().numpy()
-    want = np.asarray(want, np.float32)
-    assert got.shape == want.shape
-    if dtype == "float32":
-        np.testing.assert_allclose(got, want, rtol=1e-4,
-                                   atol=1e-4 * np.abs(want).max())
-    else:
-        np.testing.assert_allclose(got, want, rtol=2e-2,
-                                   atol=2e-2 * np.abs(want).max())
 
 
 def _batch(cfg, B, S, seed=2, frames_len=40):
@@ -388,17 +342,17 @@ def test_serve_main_smoke_on_cpu(capsys):
 
 
 def test_encdec_serve_exits_and_unported_families_raise():
+    """whisper exits from serve.main, as in the reference; every family
+    serves, and what stays unported is training: its batches raise,
+    naming the ROADMAP item."""
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--arch", "whisper-base", "--smoke"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        specs.concrete_batch(configs.get_smoke_config("qwen2-7b"),
-                             base.ShapeConfig("t", 8, 2, "train"),
-                             device="cpu")
-    for arch in ("mamba2-130m", "zamba2-2.7b", "granite-moe-3b-a800m",
-                 "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_params(configs.get_smoke_config(arch),
-                           torch.Generator().manual_seed(0), CPU)
+    for arch in configs.ARCH_IDS:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
+                                                      "item 3.4"):
+            specs.concrete_batch(configs.get_smoke_config(arch),
+                                 base.ShapeConfig("t", 8, 2, "train"),
+                                 device="cpu")
 
 
 def test_cuda_backend_on_cpu_raises():

@@ -1,23 +1,35 @@
 """Compute the JAX reference's full-width LM pins that ``chip_smoke.py``
 holds the PyTorch port to (its ``LM_PINS``).
 
-    PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py
+    PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py [NAME ...]
 
-Runs the reference on the CPU, in float32: qwen2-7b at full width cut to
-two layers (``make_prefill_step`` / ``prefill_fn`` on prompts of 2048
-tokens, the ``_sdpa_chunked`` branch, and of 100 tokens, the ``_sdpa``
-branch; ``generate`` with 16-token prompts, 8 new tokens, a 64-slot cache)
-and whisper-base whole (``prefill_fn`` on 1500 encoder frames and 64
-decoder tokens). Weights are ``chip_smoke.reference_tree(cfg, 0)``, inputs
-``chip_smoke.lm_pin_inputs``. Prints one JSON object: per pin the next
-tokens, the last position's top-5 logit ids and values, and the generated
-tokens. About 13 GB of host memory at its peak (the two-layer qwen2 tree
-in numpy and in JAX).
+Runs the reference on the CPU, in float32, for every pin of
+``chip_smoke.LM_PIN_ARCH`` (or the names given), each configuration from
+``chip_smoke.lm_pin_cfg``: qwen2-7b at full width cut to two layers
+(``make_prefill_step`` / ``prefill_fn`` on prompts of 2048 tokens, the
+``_sdpa_chunked`` branch, and of 100 tokens, the ``_sdpa`` branch);
+whisper-base whole (``prefill_fn`` on 1500 encoder frames and 64 decoder
+tokens); qwen2-vl-7b cut to two layers (256 vision tokens on a 16 x 16
+grid and 768 text tokens); granite-moe-3b cut to two layers, with its
+first layer's per-expert counts and dropped pairs (the expert choices read
+from the reference's own ``top_k`` while it runs); mamba2-130m whole;
+zamba2-2.7b cut to one group (S 2048 for the last three); and per
+configuration ``generate`` with 16-token prompts, 8 new tokens, a 64-slot
+cache. The reference's hybrid cache holds one array as both K and V, which
+its jitted step donates twice and XLA refuses, so the hybrid's generate
+gets each cache leaf as its own copy (the same values). Weights are
+``chip_smoke.reference_tree(cfg, 0)``, inputs ``chip_smoke.lm_pin_inputs``.
+Prints one JSON object: per pin the next tokens, the last position's top-5
+logit ids and values, the generated tokens, and the moe counts. Wall time
+and peak host memory go to stderr: 156.7 s and 12.9 GB peak RSS for all
+twelve pins in one CPU run, the peak at the two-layer qwen2 trees in
+numpy and in JAX.
 """
 
 from __future__ import annotations
 
 import json
+import resource
 import sys
 import time
 from pathlib import Path
@@ -31,7 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as cs  # noqa: E402
 from repro import configs  # noqa: E402
 from repro.distributed.sharding import Runtime  # noqa: E402
-from repro.launch.serve import generate  # noqa: E402
+from repro.launch import serve  # noqa: E402
 from repro.launch.steps import make_prefill_step  # noqa: E402
 from repro.models import lm  # noqa: E402
 
@@ -39,36 +51,75 @@ RT = Runtime(mesh=None, remat="none")
 
 
 def prefill_pin(params, cfg, batch):
-    logits, _ = jax.jit(lambda p, b: lm.prefill_fn(p, b, cfg, RT))(params,
-                                                                  batch)
+    """Next tokens and the last position's top-5; for a moe model also its
+    first layer's routing counts, from the expert choices the reference's
+    ``jax.lax.top_k`` returns inside ``moe_ffn`` while ``prefill_fn``
+    runs."""
+    seen = []
+    top_k = jax.lax.top_k
+
+    def recording(x, k):
+        vals, idx = top_k(x, k)
+        jax.debug.callback(lambda i: seen.append(np.asarray(i)), idx,
+                           ordered=True)
+        return vals, idx
+    if cfg.family == "moe":
+        jax.lax.top_k = recording
+    try:
+        logits, _ = jax.jit(lambda p, b: lm.prefill_fn(p, b, cfg, RT))(
+            params, batch)
+        logits = np.asarray(logits, np.float32)
+    finally:
+        jax.lax.top_k = top_k
     nxt = jax.jit(make_prefill_step(cfg, RT))(params, batch)
-    last = np.asarray(logits, np.float32)[:, -1]
+    last = logits[:, -1]
     ids = np.argsort(-last, axis=-1, kind="stable")[:, :5]
-    return {"next": np.asarray(nxt)[:, 0].tolist(),
-            "top5_ids": ids.tolist(),
-            "top5_vals": np.take_along_axis(last, ids, -1).tolist()}
+    out = {"next": np.asarray(nxt)[:, 0].tolist(),
+           "top5_ids": ids.tolist(),
+           "top5_vals": np.take_along_axis(last, ids, -1).tolist()}
+    if cfg.family == "moe":
+        assert len(seen) == cfg.n_layers, len(seen)
+        rc = cs.routing_counts(seen[0], cfg)
+        out.update(counts=rc["counts"], dropped=rc["dropped"])
+    return out
 
 
-def main() -> None:
+def generate(cfg, params, prompts):
+    init = lm.init_cache
+
+    def distinct(*a, **k):
+        return jax.tree.map(jnp.copy, init(*a, **k))
+    serve.lm.init_cache = distinct
+    try:
+        return serve.generate(cfg, RT, params, prompts, cs.LM_GEN,
+                              cs.LM_CACHE)
+    finally:
+        serve.lm.init_cache = init
+
+
+def main(names=None) -> None:
+    names = names or list(cs.LM_PIN_ARCH)
     pins = {}
     t0 = time.perf_counter()
-    cfg = cs.lm_pin_cfg(configs, "qwen2-7b")
-    params = jax.tree.map(jnp.asarray, cs.reference_tree(cfg, 0))
-    for name in ("S2048", "S100"):
-        batch = {"tokens": jnp.asarray(cs.lm_pin_inputs(cfg, name)["tokens"])}
-        pins[name] = prefill_pin(params, cfg, batch)
-    prompts = cs.lm_pin_inputs(cfg, "generate")["tokens"]
-    pins["generate"] = {"tokens": generate(cfg, RT, params, prompts,
-                                           cs.LM_GEN, cs.LM_CACHE).tolist()}
-    del params
-    cfg = cs.lm_pin_cfg(configs, "whisper-base")
-    params = jax.tree.map(jnp.asarray, cs.reference_tree(cfg, 0))
-    batch = {k: jnp.asarray(v)
-             for k, v in cs.lm_pin_inputs(cfg, "whisper").items()}
-    pins["whisper"] = prefill_pin(params, cfg, batch)
+    arch = params = None
+    for name in names:
+        if cs.LM_PIN_ARCH[name] != arch:
+            arch, params = cs.LM_PIN_ARCH[name], None
+            cfg = cs.lm_pin_cfg(configs, arch)
+            params = jax.tree.map(jnp.asarray, cs.reference_tree(cfg, 0))
+        inputs = cs.lm_pin_inputs(cfg, name)
+        if name.endswith("generate"):
+            pins[name] = {"tokens": generate(cfg, params,
+                                             inputs["tokens"]).tolist()}
+        else:
+            pins[name] = prefill_pin(params, cfg, {
+                k: jnp.asarray(v) for k, v in inputs.items()})
+        print(f"# {name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps(pins))
-    print(f"# {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"# {time.perf_counter() - t0:.1f} s, peak RSS {peak:.1f} GB",
+          file=sys.stderr)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
