@@ -196,6 +196,24 @@ Phases, one JSON line each:
      ``flash_fwd_mma``, mamba2 none), the arms' logits within
      ``LM_ARM_TOL``, granite's flipped expert choices between the arms
      per layer, walls, tokens/s and the peak device memory.
+ 12. LM training: (a) the JAX reference's float32 training pins
+     (``LM_TRAIN_PINS``) on both arms: deepseek-7b at full width cut to two
+     layers, three ``make_train_step`` calls (AdamW on float32 masters)
+     each step's loss, grad norm and lr within ``TRAIN_PIN_TOL``, with and
+     without the chunked cross entropy, 2 ``flash_fwd_mma`` launches a
+     step on the kernels' arm (the backward is plain torch); (b)
+     deepseek-7b at full width, ``TRAIN_LAYERS`` layers, bf16, through
+     ``launch.train.main`` at B 4, S 2048: 8 steps, then the same with a
+     checkpoint every 5 and a fault injected at step 6, the last losses
+     within the reference's 1e-5, 4 ``flash_fwd_wgmma`` launches a step;
+     ``flash_fwd_wgmma`` and the Function's gradient at the step's
+     attention shape against the plain version and its autograd; every
+     gradient of one step finite and nonzero on the kernels' arm, the
+     arms' step-0 loss, grad norm and each attention weight's gradient
+     norm within ``TRAIN_ARM_TOL``; step time, tokens/s, peak memory, the
+     checkpoint's walls, the attention backward's share and a profile of
+     one step; (c) mamba2-130m whole as ``examples/train_lm.py`` trains
+     it, 20 steps: the loss falls.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
 limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
@@ -438,6 +456,35 @@ LM_FAMILY_PINS = ("vl", "vl_generate", "granite", "granite_generate",
                   "mamba2", "mamba2_generate", "zamba2", "zamba2_generate")
 LM_GEN, LM_CACHE = 8, 64
 WHISPER_FRAMES = 1500        # whisper-base's encoder length (30 s of audio)
+# phase 12a's float32 training pins: deepseek-7b (the reference trainer's
+# default arch) at full width cut to two layers (lm_pin_cfg), weights
+# reference_tree(cfg, 0), TRAIN_PIN_STEPS make_train_step calls on the
+# batches of train_pin_batches, AdamW TRAIN_PIN_OPT; name -> the loss
+# chunk ("train_chunked": the chunked cross entropy branch, which must give
+# the unchunked loss)
+LM_TRAIN_PINS = {"train": 0, "train_chunked": 128}
+TRAIN_PIN_ARCH = "deepseek-7b"
+TRAIN_PIN_B, TRAIN_PIN_S, TRAIN_PIN_STEPS, TRAIN_PIN_SEED = 1, 256, 3, 13
+TRAIN_PIN_OPT = {"lr": 3e-4, "warmup_steps": 1, "total_steps": 3}
+# train_batch_digests on the CPU that computed the pins (numpy 2.0.2)
+TRAIN_BATCH_SHA256 = {
+    "pins": "bcb31b7573f137b221de38e534e00b962770329cae66821f49331d4342d78325",
+    "synthetic":
+        "d3177b5e5c781e60deca54bac7323cecd6a6d096d82fa34e544ba9026ec1d801"}
+# the training pins' tolerances (relative): on the CPU the port's float32
+# steps met the reference's within 8.1e-8 (loss) and 9.3e-7 (grad norm),
+# summation order alone (tools/lm_pins.py --port); on the card cuBLAS and
+# the mma kernel's 3xTF32 (within 2e-5 of the plain version) sum in other
+# orders again, so about 100x that; the lr is one float32 formula
+TRAIN_PIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "lr": 1e-6}
+# phase 12b's two arms at step 0, bf16 (relative): the loss, the global
+# grad norm, and the gradient norm of each layer's wq, wk, wv and wo
+# ("attn_grad_norm", the largest gap of the 16). The arms share the
+# backward (layers.sdpa_backward) and differ in the forward's attention:
+# the kernel rounds P to bf16 per key tile where _sdpa rounds the
+# normalised probabilities. Measured on an H100: 5.9e-6, 1.9e-6 and
+# 6.2e-5; each tolerance is 16-53x that
+TRAIN_ARM_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "attn_grad_norm": 1e-3}
 # The JAX reference's LM pins: next tokens and the last position's top-5
 # logit ids and values of prefill_fn / make_prefill_step, the tokens of
 # generate, and for granite its first layer's per-expert pair counts and
@@ -590,6 +637,21 @@ LM_PINS = {
             [14515, 14515, 14515, 14515, 14515, 14515, 14515,
              14515],
         ],
+    },
+    # phase 12a: each step's loss, grad norm and lr (LM_TRAIN_PINS; both
+    # pins 182.7 s and 29.8 GB peak RSS on a CPU, with --port)
+    "train": {
+        "loss": [11.872570037841797, 11.877230644226074, 11.847610473632812],
+        "grad_norm": [6.7292351722717285, 6.73253870010376, 6.716893672943115],
+        "lr": [0.0003000000142492354,
+               0.0001649999903747812, 3.000000106112566e-05],
+    },
+    "train_chunked": {
+        "loss": [11.872570037841797, 11.87723159790039, 11.847609519958496],
+        "grad_norm": [6.7292351722717285,
+                      6.732539176940918, 6.716893672943115],
+        "lr": [0.0003000000142492354,
+               0.0001649999903747812, 3.000000106112566e-05],
     },
 }
 # the bf16 prefill logits of the two attention arms at full depth: the
@@ -807,14 +869,48 @@ def lm_pin_inputs(cfg, name: str):
     return out
 
 
+def train_pin_batches(vocab: int):
+    """The training pins' TRAIN_PIN_STEPS batches: ``tokens`` (B, S) int32
+    and ``labels``, the next tokens, drawn by ``Generator.integers`` as the
+    other LM pins' inputs are. ``SyntheticTokens`` draws its tokens from
+    ``Generator.zipf``, and its batches on the card gave other losses than
+    the pins computed from it on a CPU (both arms; phase 12a's first run);
+    ``train_batch_sha256`` prints their digest beside the numpy version."""
+    import numpy as np
+    rng = np.random.default_rng(TRAIN_PIN_SEED)
+    out = []
+    for _ in range(TRAIN_PIN_STEPS):
+        a = rng.integers(0, vocab, (TRAIN_PIN_B, TRAIN_PIN_S + 1),
+                         dtype=np.int32)
+        out.append({"tokens": a[:, :-1].copy(), "labels": a[:, 1:].copy()})
+    return out
+
+
+def train_batch_digests(vocab: int, synthetic) -> dict:
+    """SHA-256 of the training pins' batches, and of batch 0 of
+    ``synthetic(vocab, seed=0)`` (a ``SyntheticTokens`` class) at their
+    shape: the inputs a pin's machine and the card each drew."""
+    out = {}
+    for key, batches in (("pins", train_pin_batches(vocab)),
+                         ("synthetic", [synthetic(vocab, seed=0).batch(
+                             0, TRAIN_PIN_B, TRAIN_PIN_S)])):
+        h = hashlib.sha256()
+        for b in batches:
+            h.update(b["tokens"].tobytes() + b["labels"].tobytes())
+        out[key] = h.hexdigest()
+    return out
+
+
 def lm_pin_cfg(configs, arch: str):
-    """The configuration a pin runs, in float32: qwen2-7b, qwen2-vl-7b and
-    granite-moe-3b at full width cut to two layers, zamba2-2.7b to one
+    """The configuration a pin runs, in float32: qwen2-7b, qwen2-vl-7b,
+    granite-moe-3b and deepseek-7b at full width cut to two layers,
+    zamba2-2.7b to one
     group (6 Mamba2 layers and the shared block), whisper-base and
     mamba2-130m whole. ``configs`` is either package's ``configs``
     module."""
     cfg = configs.get_config(arch)
-    if arch in ("qwen2-7b", "qwen2-vl-7b", "granite-moe-3b-a800m"):
+    if arch in ("qwen2-7b", "qwen2-vl-7b", "granite-moe-3b-a800m",
+                "deepseek-7b"):
         cfg = dataclasses.replace(cfg, n_layers=2)
     elif arch == "zamba2-2.7b":
         cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every)
@@ -1673,6 +1769,336 @@ def lm_family_phases(torch, dev, launches) -> None:
         del model, logits, routed
     emit({"phase": "lm_families_total",
           "wall_s": round(time.perf_counter() - t11, 3)})
+
+
+# phase 12b: deepseek-7b at full width cut to this depth (float32 masters,
+# weights, gradients and two moments at ~16 bytes a parameter, 1.65 B
+# parameters: ~27 GB; the full 30 layers, 6.91 B, would take ~110 GB), bf16
+# compute, trained by launch.train.main: B x S tokens a step, TRAIN_STEPS
+# steps, then again with a checkpoint every TRAIN_CKPT and a fault at
+# TRAIN_FAULT (one save of ~20 GB, the one the restart reads; the clean
+# run's checkpoints would be written and never read); mamba2-130m
+# (examples/train_lm.py's model) for phase 12c
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAULT = 4, 2048, 8, 5, 6
+SSM_TRAIN = ["--arch", "mamba2-130m", "--steps", "20", "--batch", "8",
+             "--seq", "256", "--lr", "1e-3", "--ckpt-every", "100"]
+
+
+def train_pin_run(torch, dev, backend, name, tree):
+    """The port's training pin ``name`` on ``dev`` through ``backend``:
+    ``TRAIN_PIN_STEPS`` ``make_train_step`` calls from ``tree`` (the
+    reference layout) as float32 masters, on the pin's batches. Returns
+    each step's loss, grad norm and lr, and each step's flash launches
+    per kernel (counters zeroed just before the step, read just after).
+    ``tools/lm_pins.py --port`` runs it on the CPU."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = lm_pin_cfg(configs, TRAIN_PIN_ARCH)
+    model = lm.params_from_reference(tree, cfg, dev, torch.float32)
+    opt = adamw.AdamWConfig(**TRAIN_PIN_OPT)
+    state = adamw.init_state(dict(model.named_parameters()), opt)
+    step = steps.make_train_step(cfg, opt, backend,
+                                 loss_chunk=LM_TRAIN_PINS[name])
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    out, flash = {"loss": [], "grad_norm": [], "lr": []}, []
+    for b in train_pin_batches(cfg.vocab):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        sync()
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        model, state, m = step(model, state, batch)
+        sync()
+        flash.append({k: fa.LAUNCHES[k] for k in
+                      ("flash_mma", "flash_simt", "flash_wgmma")})
+        for k in out:
+            out[k].append(float(m[k]))
+    return out, flash
+
+
+def lm_train_phases(torch, dev, max_err, launches) -> None:
+    """Phase 12: LM training on the card. (a) the JAX reference's float32
+    training pins on both arms; (b) deepseek-7b at full width, TRAIN_LAYERS
+    layers, bf16, through ``launch.train.main``: a clean run and one with
+    an injected fault, their last losses within the reference's 1e-5, the
+    flash launches of every forward; the wgmma kernel and the Function's
+    gradient at the step's attention shape against the plain version and
+    its autograd; every gradient finite and nonzero on the kernels' arm,
+    the arms' step-0 loss, grad norm and attention weights' gradient norms
+    within ``TRAIN_ARM_TOL``, step time, tokens/s, peak memory, the
+    attention backward's share and a profile of one step; (c) mamba2-130m
+    whole as ``examples/train_lm.py`` trains it: the loss falls. Adds the
+    kernels' arm's flash launches to ``launches`` and the training shape's
+    error to ``max_err``."""
+    import contextlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps, train
+    from repro_torch.models import layers, lm
+    from repro_torch.optim import adamw
+
+    t12 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- a. the float32 training pins, both arms ---------------------------
+    import numpy as np
+    cfg = lm_pin_cfg(configs, TRAIN_PIN_ARCH)
+    tree = reference_tree(cfg, 0)
+    digests = train_batch_digests(cfg.vocab, SyntheticTokens)
+    emit({"phase": "train_batch_sha256", "numpy": np.__version__,
+          "sha256": digests, "want": TRAIN_BATCH_SHA256})
+    check(digests["pins"] == TRAIN_BATCH_SHA256["pins"],
+          "the training pins' batches differ from those they were computed "
+          "on")
+    failed = []
+    for backend in ("cuda", "torch"):
+        for name in LM_TRAIN_PINS:
+            t0 = time.perf_counter()
+            got, flash = train_pin_run(torch, dev, backend, name, tree)
+            emit({"phase": "lm_train_pins", "pin": name, "backend": backend,
+                  "results": got, "want": LM_PINS[name],
+                  "flash_launches_per_step": flash,
+                  "wall_s": round(time.perf_counter() - t0, 3)})
+            for key, tol in TRAIN_PIN_TOL.items():
+                if any(abs(g - w) > tol * abs(w) for g, w in
+                       zip(got[key], LM_PINS[name][key])):
+                    failed.append(f"{backend} {name}: {key} {got[key]} != "
+                                  f"reference {LM_PINS[name][key]} (rtol "
+                                  f"{tol})")
+            per = 2 if backend == "cuda" else 0
+            want = [{"flash_mma": per, "flash_simt": 0, "flash_wgmma": 0}] \
+                * TRAIN_PIN_STEPS
+            if flash != want:
+                failed.append(f"{backend} {name}: flash launches per step "
+                              f"{flash} != {want}")
+            if backend == "cuda":
+                launches["flash_mma"] += sum(f["flash_mma"] for f in flash)
+            gc.collect()
+            torch.cuda.empty_cache()
+    del tree
+    check(not failed, "; ".join(failed))
+
+    # -- b. deepseek-7b, full width, TRAIN_LAYERS layers, bf16 -------------
+    cfg = dataclasses.replace(configs.get_config(TRAIN_PIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, ckpt_root, True)
+    args = ["--arch", TRAIN_PIN_ARCH, "--layers", str(TRAIN_LAYERS),
+            "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_S)]
+    runs = {}
+    # each checkpoint's save and restore wall (host clock), per run
+    io_s = {}
+    save, restore = ckpt.save, ckpt.restore
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                io_s.setdefault(key, []).append(time.perf_counter() - t0)
+        return run
+    ckpt.save, ckpt.restore = timed(save, "save_s"), timed(restore,
+                                                           "restore_s")
+    for label, extra in (("clean", ["--ckpt-every", str(TRAIN_STEPS + 1)]),
+                         ("fault", ["--ckpt-every", str(TRAIN_CKPT),
+                                    "--inject-fault-at", str(TRAIN_FAULT)])):
+        io_s.clear()
+        ckpt_dir = os.path.join(ckpt_root, label)
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            hist = train.main(args + extra + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd = len(hist)
+        runs[label] = {"wall_s": round(wall, 3), "steps_run": n_fwd,
+                       "losses": [h["loss"] for h in hist],
+                       "grad_norms": [h["grad_norm"] for h in hist],
+                       "lines": out.getvalue().strip().splitlines(),
+                       "flash_launches": dict(fa.LAUNCHES),
+                       "free_disk_gb": shutil.disk_usage(ckpt_root).free
+                       / 1e9, **io_s}
+        want = {"flash": TRAIN_LAYERS * n_fwd,
+                "flash_wgmma": TRAIN_LAYERS * n_fwd, "flash_mma": 0,
+                "flash_simt": 0}
+        check(fa.LAUNCHES == want, f"train.main ({label}) launched the "
+                                   f"flash kernels {fa.LAUNCHES}, not "
+                                   f"{want}")
+        launches["flash_wgmma"] += fa.LAUNCHES["flash_wgmma"]
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ckpt.save, ckpt.restore = save, restore
+    last = {k: r["losses"][-1] for k, r in runs.items()}
+    emit({"phase": "lm_train_replay", "arch": cfg.name, "B": TRAIN_B,
+          "S": TRAIN_S, **runs, "step7_gap": abs(last["clean"]
+                                                   - last["fault"])})
+    check(runs["fault"]["steps_run"] == TRAIN_STEPS + TRAIN_FAULT
+          - TRAIN_CKPT, f"the faulted run ran {runs['fault']['steps_run']} "
+                        f"steps")
+    check(abs(last["clean"] - last["fault"]) < 1e-5,
+          f"the faulted run's last loss {last['fault']} != the clean run's "
+          f"{last['clean']}")
+    check(len(runs["fault"].get("save_s", [])) == 1
+          and "save_s" not in runs["clean"],
+          f"checkpoint saves: clean {runs['clean'].get('save_s')}, faulted "
+          f"{runs['fault'].get('save_s')}; want none and one")
+
+    # the wgmma kernel and the Function's gradient at the step's attention
+    # shape (B, S, heads 32/32, hd 128, causal, bf16), against the plain
+    # version and autograd through it: bf16 2e-2, of each gradient's
+    # largest entry for (dq, dk, dv), as tests/test_torch_cuda.py holds them
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, dout = (torch.randn((TRAIN_B, TRAIN_S, n, cfg.hd), device=dev,
+                                 generator=gen).to(torch.bfloat16)
+                     for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads,
+                               cfg.n_heads))
+    tol = 2e-2
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ran = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    fwd_err = float((got.float() - want.float()).abs().max())
+    fwd_ok = got.dtype == torch.bfloat16 and bool(torch.allclose(
+        got.float(), want.float(), rtol=tol, atol=tol))
+    del got, want
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(layers.flash_attention_trainable(
+        q, k, v, causal=True), (q, k, v), dout)
+    want = torch.autograd.grad(fa.flash_attention_ref(q, k, v, causal=True),
+                               (q, k, v), dout)
+    grad_err, grad_ok = {}, True
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        grad_err[name] = float((a.float() - b.float()).abs().max()) / scale
+        grad_ok &= a.dtype == torch.bfloat16 and bool(torch.allclose(
+            a.float(), b.float(), rtol=tol, atol=tol * scale))
+    del q, k, v, dout, got, want
+    max_err["flash_wgmma"] = max(max_err["flash_wgmma"], fwd_err)
+    emit({"phase": "kernel_case", "case": "train step attention",
+          "relation": "flash", "launches": ran, "B": TRAIN_B, "S": TRAIN_S,
+          "T": TRAIN_S, "H": cfg.n_heads, "KV": cfg.n_kv_heads, "hd": cfg.hd,
+          "causal": True, "dtype": "bfloat16", "max_abs_err": fwd_err,
+          "grad_err_of_max": grad_err, "tol": tol, "close": fwd_ok,
+          "grad_close": grad_ok})
+    check(ran["flash_wgmma"] == ran["flash"] == 1,
+          f"the training shape ran {ran}, not one flash_fwd_wgmma")
+    check(fwd_ok, "flash_fwd_wgmma disagrees with its plain version at the "
+                  "training shape")
+    check(grad_ok, f"the Function's gradient disagrees with autograd of the "
+                   f"plain version at the training shape: {grad_err}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the gradients of one step on both arms, from one seeded model
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, torch.float32)
+    batch = train.train_batch(cfg, SyntheticTokens(cfg.vocab, seed=0).batch(
+        0, TRAIN_B, TRAIN_S), dev)
+    arm, leaf_norms = {}, {}
+    for backend in ("cuda", "torch"):
+        loss, grads = steps.loss_and_grads(model, batch, cfg, backend)
+        arm[backend] = {"loss": float(loss),
+                        "grad_norm": float(adamw.global_norm(grads))}
+        leaf_norms[backend] = {n: float(g.float().norm())
+                               for n, g in grads.items()}
+        if backend == "cuda":
+            bad = [n for n, g in grads.items()
+                   if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+            check(not bad, f"kernels' arm: gradients zero or not finite: "
+                           f"{bad[:5]}")
+        del grads
+    leaf_gap = {n: abs(leaf_norms["cuda"][n] - w) / w
+                for n, w in leaf_norms["torch"].items()}
+    attn = [n for n in leaf_gap if ".attn.w" in n]
+    check(len(attn) == 4 * TRAIN_LAYERS, f"attention weights found: {attn}")
+    gaps = {k: abs(arm["cuda"][k] - arm["torch"][k]) / abs(arm["torch"][k])
+            for k in ("loss", "grad_norm")}
+    gaps["attn_grad_norm"] = max(leaf_gap[n] for n in attn)
+    emit({"phase": "lm_train_arms", "arch": cfg.name, **arm,
+          "rel_gap": gaps, "tol": TRAIN_ARM_TOL,
+          "leaf_grad_norm_gap": leaf_gap, "params": lm.param_count(model)})
+    for k, tol in TRAIN_ARM_TOL.items():
+        check(gaps[k] <= tol, f"the arms' step-0 {k} differ by {gaps[k]} "
+                              f"(rtol {tol}): {arm}")
+
+    # step time, tokens/s, peak memory, where a step's time goes
+    opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+    state = adamw.init_state(dict(model.named_parameters()), opt)
+    step = steps.make_train_step(cfg, opt, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step(model, state, batch)                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, _, m = step(model, state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((TRAIN_B, TRAIN_S, cfg.n_heads, cfg.hd), device=dev,
+                    generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn((TRAIN_B, TRAIN_S, cfg.n_kv_heads, cfg.hd),
+                        device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    bwd_ms = time_ms(torch, lambda: layers.sdpa_backward(q, k, v, q, True),
+                     reps=3, rounds=3)
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                            causal=True),
+                     reps=10)
+    del q, k, v
+    emit({"phase": "lm_train_step", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "B": TRAIN_B, "S": TRAIN_S,
+          "params": lm.param_count(model), "step_s": step_s,
+          "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+          "peak_allocated_gib": peak, "loss": float(m["loss"]),
+          "attention_backward_ms": bwd_ms, "attention_forward_ms": fwd_ms,
+          "attention_backward_share": cfg.n_layers * bwd_ms / 1e3 / step_s,
+          "attention_forward_share": cfg.n_layers * fwd_ms / 1e3 / step_s,
+          "profile": device_breakdown(torch, lambda: step(model, state,
+                                                           batch))})
+    del model, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- c. mamba2-130m, examples/train_lm.py's model ----------------------
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        hist = train.main(SSM_TRAIN + ["--ckpt-dir",
+                                       os.path.join(ckpt_root, "ssm")])
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in hist]
+    emit({"phase": "lm_train_ssm", "lines": out.getvalue().strip()
+          .splitlines(), "losses": losses,
+          "wall_s": round(time.perf_counter() - t0, 3),
+          "flash_launches": dict(fa.LAUNCHES)})
+    check(all(n == 0 for n in fa.LAUNCHES.values()),
+          f"mamba2-130m launched the flash kernels {fa.LAUNCHES}")
+    check(len(losses) == 20 and losses[-1] < losses[0],
+          f"mamba2-130m's loss did not fall: {losses}")
+    emit({"phase": "lm_train_total",
+          "wall_s": round(time.perf_counter() - t12, 3)})
 
 
 def main() -> int:
@@ -3682,8 +4108,9 @@ def main() -> int:
 
     lm_phases(torch, dev, max_err, timing, launches)
     lm_family_phases(torch, dev, launches)
+    lm_train_phases(torch, dev, max_err, launches)
 
-    # -- 12. summary ---------------------------------------------------------
+    # -- summary -------------------------------------------------------------
     check(all(launches[arm] > 0 for arm in KERNELS if arm not in FORCED),
           f"a kernel was launched no time on its path: {launches}")
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,

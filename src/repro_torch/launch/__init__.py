@@ -1,2 +1,2 @@
-"""Step functions, the serving loop and the smoke-batch helper of the LM
-substrate."""
+"""Step functions, the serving loop, the trainer and the smoke-batch helper
+of the LM substrate."""

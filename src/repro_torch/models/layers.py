@@ -4,30 +4,35 @@ attention with a KV cache, GLU and GELU MLPs, the embedding and its
 transpose.
 
 Parameters live in small ``nn.Module``s with the reference's names and
-head-shaped layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``), in the config's
-compute dtype: the reference keeps float32 masters and casts them with
-``.astype(dtype)`` at every use, and rounding once at load gives the same
-values. Norm gains and biases stay float32, as the reference applies them
+head-shaped layouts (``wq (D, H, hd)``, ``wo (H, hd, D)``), in a storage
+dtype the model is built with: the config's compute dtype for serving
+(rounding once at load gives the values the reference's casts give), or
+float32 masters for training, as the reference keeps them. Every use casts
+a weight to the compute dtype, as the reference's ``.astype(dtype)`` does
+(``Tensor.to`` returns the weight itself where the dtypes agree), so a
+weight used several times gets one gradient per use in the compute dtype,
+summed in its own. Norm gains stay float32, as the reference applies them
 in float32. The functions take a module, as the reference's take a dict.
 
 Attention without a KV cache forks on ``backend``: ``"cuda"`` runs the
 hand-written flash-attention kernel (:mod:`repro_torch.kernels.
-flash_attention`), ``"torch"`` the reference's ``_sdpa`` /
-``_sdpa_chunked``. Attention against a KV cache is plain torch on both
-arms: each request is masked at its own position, a function the TPU
-kernel never computed.
+flash_attention`) inside :func:`flash_attention_trainable`, whose backward
+is the ``"torch"`` arm's, the reference's ``_sdpa`` / ``_sdpa_chunked``.
+Attention against a KV cache is plain torch on both arms: each request is
+masked at its own position, a function the TPU kernel never computed.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention_cuda
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -59,9 +64,10 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    """``x @ w (+ b)`` in x's dtype, the compute dtype."""
+    y = x @ p.w.to(x.dtype)
     if p.b is not None:
-        y = y + p.b
+        y = y + p.b.to(x.dtype)
     return y
 
 
@@ -213,9 +219,13 @@ ATTN_Q_CHUNK = 1024
 
 def _sdpa_chunked(q, k, v, causal, dtype, chunk=ATTN_Q_CHUNK):
     """Query chunks of ``chunk`` rows, each attending to the full K/V with a
-    positionwise causal mask; the peak score buffer is (B, H, chunk, T)."""
+    positionwise causal mask; the peak score buffer is (B, H, chunk, T).
+    Under autograd each chunk is checkpointed, as the reference's
+    ``jax.checkpoint`` does: the backward recomputes a chunk's scores
+    instead of keeping every chunk's probabilities."""
     S, T = q.shape[1], k.shape[1]
     t_pos = torch.arange(T, device=q.device)
+    remat = torch.is_grad_enabled()
     outs = []
     for i in range(S // chunk):
         pos_q = i * chunk + torch.arange(chunk, device=q.device)
@@ -224,9 +234,82 @@ def _sdpa_chunked(q, k, v, causal, dtype, chunk=ATTN_Q_CHUNK):
         else:
             mask = torch.ones((1, 1, chunk, T), dtype=torch.bool,
                               device=q.device)
-        outs.append(_sdpa(q[:, i * chunk:(i + 1) * chunk], k, v, mask,
-                          dtype))
+        qc = q[:, i * chunk:(i + 1) * chunk]
+        if remat:
+            outs.append(checkpoint(_sdpa, qc, k, v, mask, dtype,
+                                   use_reentrant=False))
+        else:
+            outs.append(_sdpa(qc, k, v, mask, dtype))
     return torch.cat(outs, dim=1)
+
+
+def sdpa_backward(q, k, v, dout, causal):
+    """``(dq, dk, dv)`` of the ``"torch"`` arm's attention (``_sdpa`` in
+    q's dtype, keys ``repeat_kv``'d to the query heads) at q ``(B, S, H,
+    hd)``, k/v ``(B, T, KV, hd)`` for the output gradient ``dout``. Each
+    chunk of ``ATTN_Q_CHUNK`` query rows is recomputed under autograd and
+    differentiated alone, so one chunk's (B, H, chunk, T) buffers are the
+    peak, as in the reference's ``jax.checkpoint`` of each
+    ``_sdpa_chunked`` step; the causal mask is aligned top-left from
+    position 0, and a causal chunk reads only the keys its rows can see
+    (the others' probabilities are exactly 0). dk and dv sum the chunks in
+    float32."""
+    S, H, T = q.shape[1], q.shape[2], k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    with torch.enable_grad():
+        for s0 in range(0, S, ATTN_Q_CHUNK):
+            s1 = min(S, s0 + ATTN_Q_CHUNK)
+            t1 = min(T, s1) if causal else T
+            if causal:
+                pos_q = torch.arange(s0, s1, device=q.device)
+                mask = (torch.arange(t1, device=q.device)[None, :]
+                        <= pos_q[:, None])[None, None]
+            else:
+                mask = torch.ones((1, 1, s1 - s0, t1), dtype=torch.bool,
+                                  device=q.device)
+            qc = q[:, s0:s1].detach().requires_grad_()
+            kc = k[:, :t1].detach().requires_grad_()
+            vc = v[:, :t1].detach().requires_grad_()
+            out = _sdpa(qc, repeat_kv(kc, H), repeat_kv(vc, H), mask,
+                        q.dtype)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             dout[:, s0:s1])
+            dq[:, s0:s1] = gq
+            dk[:, :t1] += gk
+            dv[:, :t1] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with the ``"torch"`` arm's backward
+    (:func:`sdpa_backward` on the saved q, k, v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, forward):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return forward(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        return (*sdpa_backward(q, k, v, dout, ctx.causal), None, None)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              forward: Callable = flash_attention_cuda
+                              ) -> torch.Tensor:
+    """:func:`~repro_torch.kernels.flash_attention.flash_attention_cuda`
+    with a gradient: the forward is the kernel the wrapper routes to (it
+    raises where no kernel takes q, k, v: nothing falls back), the backward
+    the ``"torch"`` arm's (:func:`sdpa_backward`). The reference's TPU
+    kernel has no backward kernel (its model differentiates the plain
+    ``_sdpa_chunked``), so neither has the port. ``forward`` replaces the
+    kernel, for a test of the backward on the CPU."""
+    return _FlashAttention.apply(q, k, v, causal, forward)
 
 
 def attention(
@@ -250,18 +333,23 @@ def attention(
       - cross:   kv = encoder states (no cache logic, no causal mask)
 
     ``backend`` forks the modes without a cache: ``"cuda"`` -> the flash
-    kernel, ``"torch"`` -> ``_sdpa`` / ``_sdpa_chunked``.
+    kernel (with the ``"torch"`` arm's backward,
+    :func:`flash_attention_trainable`), ``"torch"`` -> ``_sdpa`` /
+    ``_sdpa_chunked``.
     """
     B, S, D = x.shape
     src = x if kv is None else kv.to(dtype)
     Ts = src.shape[1]
-    q = (x @ p.wq.reshape(D, -1)).view(B, S, n_heads, head_dim)
-    k = (src @ p.wk.reshape(D, -1)).view(B, Ts, n_kv, head_dim)
-    v = (src @ p.wv.reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+
+    def w(t):
+        return t.to(dtype)
+    q = (x @ w(p.wq).reshape(D, -1)).view(B, S, n_heads, head_dim)
+    k = (src @ w(p.wk).reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+    v = (src @ w(p.wv).reshape(D, -1)).view(B, Ts, n_kv, head_dim)
     if p.bq is not None:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
+        q = q + w(p.bq)
+        k = k + w(p.bk)
+        v = v + w(p.bv)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         if kv is None:
@@ -283,7 +371,7 @@ def attention(
     else:
         is_causal = causal and kv is None
         if backend == "cuda":
-            out = flash_attention(q, k, v, causal=is_causal, backend="cuda")
+            out = flash_attention_trainable(q, k, v, causal=is_causal)
         else:
             kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
             if S >= ATTN_CHUNK_THRESHOLD and S % ATTN_Q_CHUNK == 0:
@@ -296,7 +384,7 @@ def attention(
                     mask = torch.ones((1, 1, S, Ts), dtype=torch.bool,
                                       device=x.device)
                 out = _sdpa(q, kf, vf, mask, dtype)
-    out = out.reshape(B, S, n_heads * head_dim) @ p.wo.reshape(-1, D)
+    out = out.reshape(B, S, n_heads * head_dim) @ w(p.wo).reshape(-1, D)
     return out, new_cache
 
 
@@ -345,10 +433,29 @@ class Embed(nn.Module):
         trunc_normal_(self.table, 1.0, generator)
 
 
-def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.table[tokens.long()]
+def embed(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return p.table.to(dtype)[tokens.long()]
 
 
 def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:
     """Logits via the (possibly tied) embedding table."""
-    return x @ p.table.T
+    return x @ p.table.to(x.dtype).T
+
+
+def xent_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position cross entropy in float32: the logsumexp less the gold
+    logit (read by a gather, the number the reference's one-hot dot
+    gives)."""
+    lf = logits.float()
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - gold
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross entropy (:func:`xent_nll`), over ``mask`` where one is
+    given (at least one position)."""
+    nll = xent_nll(logits, labels)
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return nll.mean()

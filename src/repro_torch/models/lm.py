@@ -15,14 +15,21 @@ Parameter names follow the reference's tree (``layers.<l>.attn.wq``,
 :func:`params_from_reference` loads a reference parameter tree as it is.
 There is no ``Runtime``: with ``mesh=None`` every sharding hint of the
 reference is the identity and ``moe_apply`` is the local ``moe_ffn``
-(sharding the LM is ROADMAP queue 1 item 3.5).
+(sharding the LM is ROADMAP queue 1 item 3.5); the two knobs a single
+device uses, ``loss_chunk`` and ``remat``, are keyword arguments of
+:func:`loss_fn`.
 
-Entry points (used by ``launch/{steps,serve}.py``):
+Entry points (used by ``launch/{steps,serve,train}.py``):
   init_params(cfg, generator, device)        -> model (random weights)
   params_from_reference(tree, cfg, device)   -> model (the reference's)
+  loss_fn(params, batch, cfg, backend)       -> scalar loss (train batches)
   prefill_fn(params, batch, cfg, backend)    -> (last_logits, state)
   init_cache(cfg, batch, seq, device)        -> zeroed cache
   decode_fn(params, cache, batch, cfg, backend) -> (logits, cache)
+
+A model's parameters are stored in ``param_dtype``: the compute dtype by
+default (serving), float32 masters for training (the reference's). Every
+use casts them to the compute dtype (:mod:`.layers`).
 
 ``backend`` (``None``, ``"cuda"`` or ``"torch"``) picks the attention arm
 for the modes without a KV cache (:func:`layers.attention`); ``None`` is
@@ -33,11 +40,14 @@ off, so float32 configs compute in full float32.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.ops import resolve_backend
 from . import layers, mamba2, moe
@@ -97,45 +107,45 @@ class Block(nn.Module):
 
 class _LM(nn.Module):
     """The embedding, final norm and (untied) unembedding every family
-    shares."""
+    shares; ``dtype`` is the storage dtype of the weights."""
 
-    def __init__(self, cfg, *, device):
+    def __init__(self, cfg, *, dtype, device):
         super().__init__()
         self.cfg = cfg
-        dt = _dtype(cfg)
         norm, _ = _norm(cfg)
-        self.embed = layers.Embed(cfg.vocab, cfg.d_model, dtype=dt,
+        self.embed = layers.Embed(cfg.vocab, cfg.d_model, dtype=dtype,
                                   device=device)
         self.ln_f = norm(cfg.d_model, device=device)
         if not cfg.tie_embeddings:
-            self.unembed = layers.Dense(cfg.d_model, cfg.vocab, dtype=dt,
+            self.unembed = layers.Dense(cfg.d_model, cfg.vocab, dtype=dtype,
                                         device=device)
 
 
 class DenseLM(_LM):
     """The attention stack of the dense, moe and vlm families."""
 
-    def __init__(self, cfg, *, device):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(cfg, dtype=dtype, device=device)
         self.layers = nn.ModuleList(
-            Block(cfg, dtype=_dtype(cfg), device=device)
+            Block(cfg, dtype=dtype, device=device)
             for _ in range(cfg.n_layers))
 
 
 class MambaLayer(nn.Module):
     """ln -> Mamba2 mixer, with a residual."""
 
-    def __init__(self, cfg, *, device):
+    def __init__(self, cfg, *, dtype, device):
         super().__init__()
         norm, _ = _norm(cfg)
         self.ln = norm(cfg.d_model, device=device)
-        self.mix = mamba2.Mamba2(cfg, dtype=_dtype(cfg), device=device)
+        self.mix = mamba2.Mamba2(cfg, dtype=dtype, device=device)
 
 
 class SSMLM(_LM):
-    def __init__(self, cfg, *, device):
-        super().__init__(cfg, device=device)
-        self.layers = nn.ModuleList(MambaLayer(cfg, device=device)
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(cfg, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(MambaLayer(cfg, dtype=dtype,
+                                               device=device)
                                     for _ in range(cfg.n_layers))
 
 
@@ -145,32 +155,32 @@ class HybridLM(_LM):
     applied before every group, with ``in_proj (2D, D)`` taking the hidden
     state concatenated with the original embeddings."""
 
-    def __init__(self, cfg, *, device):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(cfg, dtype=dtype, device=device)
         groups = cfg.n_layers // cfg.attn_every
         self.layers = nn.ModuleList(
-            nn.ModuleList(MambaLayer(cfg, device=device)
+            nn.ModuleList(MambaLayer(cfg, dtype=dtype, device=device)
                           for _ in range(cfg.attn_every))
             for _ in range(groups))
-        dt = _dtype(cfg)
-        self.shared_attn = Block(cfg, dtype=dt, device=device)
+        self.shared_attn = Block(cfg, dtype=dtype, device=device)
         self.shared_attn.in_proj = layers.Dense(2 * cfg.d_model, cfg.d_model,
-                                                dtype=dt, device=device)
+                                                dtype=dtype, device=device)
 
 
 class EncDecLM(_LM):
-    def __init__(self, cfg, *, device):
-        super().__init__(cfg, device=device)
-        dt = _dtype(cfg)
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(cfg, dtype=dtype, device=device)
         norm, _ = _norm(cfg)
         self.enc_layers = nn.ModuleList(
-            Block(cfg, dtype=dt, device=device)
+            Block(cfg, dtype=dtype, device=device)
             for _ in range(cfg.enc_layers))
         self.dec_layers = nn.ModuleList(
-            Block(cfg, cross=True, dtype=dt, device=device)
+            Block(cfg, cross=True, dtype=dtype, device=device)
             for _ in range(cfg.n_layers))
-        self.pos_enc = layers._param((cfg.max_pos, cfg.d_model), dt, device)
-        self.pos_dec = layers._param((cfg.max_pos, cfg.d_model), dt, device)
+        self.pos_enc = layers._param((cfg.max_pos, cfg.d_model), dtype,
+                                     device)
+        self.pos_dec = layers._param((cfg.max_pos, cfg.d_model), dtype,
+                                     device)
         self.ln_enc = norm(cfg.d_model, device=device)
 
 
@@ -178,22 +188,28 @@ _MODELS = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM,
            "ssm": SSMLM, "hybrid": HybridLM, "encdec": EncDecLM}
 
 
-def build(cfg, device) -> _LM:
-    """The family's module with uninitialised weights on ``device``."""
+def build(cfg, device, param_dtype: Optional[torch.dtype] = None) -> _LM:
+    """The family's module with uninitialised weights on ``device``, stored
+    in ``param_dtype`` (default: the compute dtype; float32 masters for
+    training). Parameters do not require gradients until the caller asks
+    (``model.requires_grad_()``)."""
     if cfg.family not in _MODELS:
         raise ValueError(cfg.family)
-    return _MODELS[cfg.family](cfg, device=torch.device(device))
+    return _MODELS[cfg.family](cfg, dtype=param_dtype or _dtype(cfg),
+                               device=torch.device(device))
 
 
-def init_params(cfg, generator: torch.Generator, device) -> _LM:
+def init_params(cfg, generator: torch.Generator, device,
+                param_dtype: Optional[torch.dtype] = None) -> _LM:
     """Random weights at the reference's scales: truncated normals in
     [-2, 2] x 1/sqrt(fan-in) for projections (1/sqrt(H*hd) for wo, 1/sqrt
     (F) for an expert's wo, 1/sqrt(K) for the conv taps), x 1 for the
     embedding, x 0.02 for the encdec position tables; norm gains 1, biases
     0; Mamba2's ``A_log = log(linspace(1, 16, heads))``, ``D = 1``,
-    ``dt_bias = conv_b = 0``. Drawn from ``generator`` (on ``device``) in
-    module order; the numbers differ from the reference's JAX PRNG."""
-    model = build(cfg, device)
+    ``dt_bias = conv_b = 0``. Drawn in float32 from ``generator`` (on
+    ``device``) in module order, then stored in ``param_dtype`` (see
+    :func:`build`); the numbers differ from the reference's JAX PRNG."""
+    model = build(cfg, device, param_dtype)
     for m in model.modules():
         if hasattr(m, "reset"):
             m.reset(generator)
@@ -220,23 +236,49 @@ def _unstack(prefix, rest, arr, depth):
         yield from _unstack(f"{prefix}.{i}", rest, arr[i], depth - 1)
 
 
-def params_from_reference(tree: Dict[str, Any], cfg, device) -> _LM:
-    """Load the reference's parameter tree (nested dicts of numpy arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``): the stacked arrays of
-    ``layers`` / ``enc_layers`` / ``dec_layers`` are unstacked into the
-    blocks (both leading axes of the hybrid's ``layers``), every array is
-    cast to its parameter's dtype. Every parameter must be given, with the
-    reference's shape."""
-    model = build(cfg, device)
-    state = {}
+def unstacked(tree: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
+    """A tree in the reference's parameter layout (nested dicts of arrays)
+    as the port's parameter names -> numpy arrays: the stacked arrays of
+    ``layers`` / ``enc_layers`` / ``dec_layers`` split into their blocks
+    (both leading axes of the hybrid's ``layers``). Serves the weights and
+    anything laid out like them (AdamW's moments)."""
+    out = {}
     for name, arr in _flatten(tree):
         group, _, rest = name.partition(".")
         arr = np.asarray(arr)
         depth = _stack_depth(cfg, group)
         if depth:
-            state.update(_unstack(group, rest, arr, depth))
+            out.update(_unstack(group, rest, arr, depth))
         else:
-            state[name] = arr
+            out[name] = arr
+    return out
+
+
+def reference_layout(model: _LM) -> Dict[str, Tuple[str, int]]:
+    """Each parameter's leaf in the reference's tree and that leaf's rank:
+    a block's tensor is a slice of its group's stacked leaf
+    (``layers.3.ln1.g`` of ``layers.ln1.g``, ``(L, D)``: rank 2 there, 1
+    here). AdamW decays, and compresses gradients, by these leaves."""
+    cfg = model.cfg
+    out = {}
+    for name, p in model.named_parameters():
+        group, _, rest = name.partition(".")
+        depth = _stack_depth(cfg, group)
+        leaf = ".".join([group] + rest.split(".")[depth:]) if depth \
+            else name
+        out[name] = (leaf, p.dim() + depth)
+    return out
+
+
+def params_from_reference(tree: Dict[str, Any], cfg, device,
+                          param_dtype: Optional[torch.dtype] = None) -> _LM:
+    """Load the reference's parameter tree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``), unstacked by
+    :func:`unstacked`, every array cast to its parameter's dtype (see
+    :func:`build` for ``param_dtype``). Every parameter must be given, with
+    the reference's shape."""
+    model = build(cfg, device, param_dtype)
+    state = unstacked(tree, cfg)
     own = dict(model.named_parameters())
     if set(state) != set(own):
         raise ValueError(
@@ -251,6 +293,10 @@ def params_from_reference(tree: Dict[str, Any], cfg, device) -> _LM:
                                  f"model's is {tuple(p.shape)}")
             p.copy_(src.to(p.dtype))
     return model
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())
 
 
 # ===========================================================================
@@ -286,6 +332,30 @@ def _rope(cfg, positions):
     return layers.rope_angles(positions, cfg.hd, cfg.rope_theta)
 
 
+# the reference's ``Runtime.remat`` knob
+REMATS = ("none", "dots", "full")
+# the matrix products without a batch dimension (the projections and MLPs;
+# ``x @ w`` of a 3-d x runs as ``mm``): what the reference's
+# ``dots_with_no_batch_dims_saveable`` policy saves
+_save_dots = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _remat(fn, remat: str):
+    """``fn``, one block of a stack, under the reference's remat knob
+    (``_maybe_remat``): ``"none"`` keeps its activations for the backward,
+    ``"full"`` checkpoints it (recomputed in the backward), ``"dots"``
+    checkpoints it but keeps its ``mm`` outputs. Outside autograd every
+    knob runs ``fn`` as it is."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": _save_dots} if remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 # ===========================================================================
 # Forward passes (teacher-forced / prefill)
 
@@ -294,10 +364,11 @@ def _embed_inputs(params, batch, cfg):
     """-> (x (B,S,D), positions for rope). A vlm batch's vision embeddings,
     cast to the compute dtype, go in front of the text, and its
     ``positions3d`` (3, B, S) are the rope positions."""
+    dtype = _dtype(cfg)
     tokens = batch["tokens"]
-    x = layers.embed(params.embed, tokens)
+    x = layers.embed(params.embed, tokens, dtype)
     if cfg.family == "vlm":
-        vis = batch["vision_embeds"].to(x.dtype)          # (B, Nv, D)
+        vis = batch["vision_embeds"].to(dtype)            # (B, Nv, D)
         x = torch.cat([vis, x], dim=1)
         return x, batch["positions3d"]
     B, S = tokens.shape
@@ -305,53 +376,72 @@ def _embed_inputs(params, batch, cfg):
     return x, positions
 
 
-def _mamba_stack(lps, h, cfg, dtype, states=None):
+def _mamba_layer(lp: MambaLayer, h, cfg, dtype, state=None):
+    _, nfn = _norm(cfg)
+    out, new = mamba2.mamba2_forward(lp.mix, nfn(lp.ln, h, cfg.norm_eps),
+                                     cfg, dtype, state=state)
+    return h + out, new
+
+
+def _mamba_stack(lps, h, cfg, dtype, states=None, remat="none"):
     """Mamba2 layers with residuals; ``states`` (ssm (n, B, h, p, n), conv
     (n, B, K-1, C)) -> decode. Returns (hidden, (ssm, conv) stacked over
     the layers: new tensors)."""
-    _, nfn = _norm(cfg)
+    layer = _remat(_mamba_layer, remat)
     ssm, conv = [], []
     for i, lp in enumerate(lps):
         st = None if states is None else (states[0][i], states[1][i])
-        out, (s1, s2) = mamba2.mamba2_forward(
-            lp.mix, nfn(lp.ln, h, cfg.norm_eps), cfg, dtype, state=st)
-        h = h + out
+        h, (s1, s2) = layer(lp, h, cfg, dtype, st)
         ssm.append(s1)
         conv.append(s2)
     return h, (torch.stack(ssm), torch.stack(conv))
 
 
-def backbone(params, x, positions, cfg, backend, caches=None, pos=None):
+def _hybrid_group(params, gp, x, x0, cos_sin, cfg, dtype, backend, kv=None,
+                  states=None, pos=None):
+    """The shared attention block on (hidden, original embeddings), then
+    one group's Mamba2 layers."""
+    shared = params.shared_attn
+    hin = layers.dense(shared.in_proj, torch.cat([x, x0], dim=-1))
+    x = x + _attn_block(shared, hin, cos_sin, cfg, dtype, backend,
+                        cache=kv, pos=pos)
+    return _mamba_stack(gp, x, cfg, dtype, states)
+
+
+def backbone(params, x, positions, cfg, backend, caches=None, pos=None,
+             remat="none"):
     """Run the stack. caches and pos given -> decode mode (S == 1): the KV
     caches are written in place, the SSM states come back as new tensors.
     Returns (hidden, caches): the prefill of an ssm model returns its
-    stacked (ssm, conv) states, of the others None."""
+    stacked (ssm, conv) states, of the others None. ``remat`` applies to
+    each block (a group for the hybrid) of a forward without caches."""
     dtype = _dtype(cfg)
     fam = cfg.family
+    if caches is not None:
+        remat = "none"
     if fam in _ATTN:
         cos_sin = _rope(cfg, positions)
+        block = _remat(_attn_block, remat)
         for i, lp in enumerate(params.layers):
             cache = (caches[0][i], caches[1][i]) if caches is not None \
                 else None
-            x = _attn_block(lp, x, cos_sin, cfg, dtype, backend,
-                            cache=cache, pos=pos)
+            x = block(lp, x, cos_sin, cfg, dtype, backend, cache=cache,
+                      pos=pos)
         return x, caches
     if fam == "ssm":
-        return _mamba_stack(params.layers, x, cfg, dtype, caches)
+        return _mamba_stack(params.layers, x, cfg, dtype, caches, remat)
     if fam == "hybrid":
         cos_sin = _rope(cfg, positions)
         x0 = x        # the original embeddings feed every shared block
-        shared = params.shared_attn
+        group = _remat(_hybrid_group, remat)
         ssm, conv = [], []
         for g, gp in enumerate(params.layers):
-            kv = None if caches is None else \
-                (caches[1][0][g], caches[1][1][g])
-            hin = layers.dense(shared.in_proj, torch.cat([x, x0], dim=-1))
-            x = x + _attn_block(shared, hin, cos_sin, cfg, dtype, backend,
-                                cache=kv, pos=pos)
-            st = None if caches is None else \
-                (caches[0][0][g], caches[0][1][g])
-            x, (s1, s2) = _mamba_stack(gp, x, cfg, dtype, st)
+            kv = st = None
+            if caches is not None:
+                kv = (caches[1][0][g], caches[1][1][g])
+                st = (caches[0][0][g], caches[0][1][g])
+            x, (s1, s2) = group(params, gp, x, x0, cos_sin, cfg, dtype,
+                                backend, kv, st, pos)
             ssm.append(s1)
             conv.append(s2)
         if caches is None:
@@ -372,29 +462,35 @@ def _final_logits(params, h, cfg):
 # Encoder-decoder (whisper)
 
 
-def _encdec_encode(params, frames, cfg, backend):
+def _encdec_encode(params, frames, cfg, backend, remat="none"):
     dtype = _dtype(cfg)
     _, nfn = _norm(cfg)
     x = frames.to(dtype)
-    x = x + params.pos_enc[: x.shape[1]][None]
+    x = x + params.pos_enc[: x.shape[1]].to(dtype)[None]
+    block = _remat(_attn_block, remat)
     for lp in params.enc_layers:
-        x = _attn_block(lp, x, None, cfg, dtype, backend, causal=False)
+        x = block(lp, x, None, cfg, dtype, backend, causal=False)
     return nfn(params.ln_enc, x, cfg.norm_eps)
 
 
-def _encdec_decode_stack(params, x, enc, cfg, backend, caches=None,
-                         pos=None):
-    dtype = _dtype(cfg)
+def _dec_block(lp: Block, x, enc, cfg, dtype, backend, cache=None,
+               pos=None):
     _, nfn = _norm(cfg)
+    x = _attn_block(lp, x, None, cfg, dtype, backend, cache=cache, pos=pos)
+    xh, _ = layers.attention(
+        lp.xattn, nfn(lp.ln_x, x, cfg.norm_eps), None, None,
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+        dtype=dtype, kv=enc, backend=backend)
+    return x + xh
+
+
+def _encdec_decode_stack(params, x, enc, cfg, backend, caches=None,
+                         pos=None, remat="none"):
+    dtype = _dtype(cfg)
+    block = _remat(_dec_block, "none" if caches is not None else remat)
     for i, lp in enumerate(params.dec_layers):
         cache = (caches[0][i], caches[1][i]) if caches is not None else None
-        x = _attn_block(lp, x, None, cfg, dtype, backend, cache=cache,
-                        pos=pos)
-        xh, _ = layers.attention(
-            lp.xattn, nfn(lp.ln_x, x, cfg.norm_eps), None, None,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            dtype=dtype, kv=enc, backend=backend)
-        x = x + xh
+        x = block(lp, x, enc, cfg, dtype, backend, cache, pos)
     return x, caches
 
 
@@ -403,9 +499,9 @@ def _encdec_decode_stack(params, x, enc, cfg, backend, caches=None,
 
 
 @contextlib.contextmanager
-def _full_fp32():
+def full_fp32():
     """Products in full float32 (TF32 off) for the call; bf16 products do
-    not use TF32 either way."""
+    not use TF32 either way. A train step holds it over the backward too."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -418,17 +514,78 @@ def _backend(params, backend):
     return resolve_backend(backend, params.embed.table.device)
 
 
+def loss_fn(params, batch, cfg, backend: Optional[str] = None, *,
+            loss_chunk: int = 0, remat: str = "none") -> torch.Tensor:
+    """Teacher-forced mean cross entropy of a train batch (``tokens``,
+    ``labels`` (B, S); a vlm batch's ``vision_embeds`` and ``positions3d``,
+    an encdec batch's ``frames``), a float32 scalar under autograd. The
+    vlm's vision positions are cut off before the loss. ``loss_chunk`` C
+    (the reference's ``Runtime.loss_chunk``; 0: off) takes the loss over
+    sequence chunks of C positions where C divides S and is smaller
+    (:func:`_chunked_xent`); ``remat`` is the reference's knob for each
+    block (:data:`REMATS`)."""
+    backend = _backend(params, backend)
+    dtype = _dtype(cfg)
+    with full_fp32():
+        if cfg.family == "encdec":
+            enc = _encdec_encode(params, batch["frames"], cfg, backend,
+                                 remat)
+            x = layers.embed(params.embed, batch["tokens"], dtype)
+            x = x + params.pos_dec[: x.shape[1]].to(dtype)[None]
+            h, _ = _encdec_decode_stack(params, x, enc, cfg, backend,
+                                        remat=remat)
+            return layers.softmax_xent(_final_logits(params, h, cfg),
+                                       batch["labels"])
+        x, positions = _embed_inputs(params, batch, cfg)
+        h, _ = backbone(params, x, positions, cfg, backend, remat=remat)
+        if cfg.family == "vlm":
+            h = h[:, batch["vision_embeds"].shape[1]:]
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+        C = loss_chunk
+        if C and h.shape[1] % C == 0 and h.shape[1] > C:
+            return _chunked_xent(params, h, labels, mask, cfg, C)
+        return layers.softmax_xent(_final_logits(params, h, cfg), labels,
+                                   mask)
+
+
+def _xent_sum(params, h, labels, mask, cfg):
+    return (layers.xent_nll(_final_logits(params, h, cfg), labels)
+            * mask).sum()
+
+
+def _chunked_xent(params, h, labels, mask, cfg, C):
+    """The masked mean cross entropy over sequence chunks of C positions,
+    each chunk's logits checkpointed (recomputed in the backward): one
+    (B, C, V) float32 chunk is the peak, never the (B, S, V) logits. The
+    chunks' sums add up in order, as the reference's scan carries them."""
+    chunk_sum = _xent_sum
+    if torch.is_grad_enabled():
+        chunk_sum = functools.partial(checkpoint, _xent_sum,
+                                      use_reentrant=False)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(h.shape[1] // C):
+        sl = slice(i * C, (i + 1) * C)
+        tot = tot + chunk_sum(params, h[:, sl], labels[:, sl], mask[:, sl],
+                              cfg)
+        cnt = cnt + mask[:, sl].sum()
+    return tot / cnt.clamp_min(1)
+
+
 @torch.no_grad()
 def prefill_fn(params, batch, cfg, backend: Optional[str] = None):
     """Teacher-forced forward for serving prefill: returns last-position
     logits (B, 1, vocab) in the compute dtype, and the encoder states for
     encdec, the stacked (ssm, conv) states for ssm (None for the rest)."""
     backend = _backend(params, backend)
-    with _full_fp32():
+    dtype = _dtype(cfg)
+    with full_fp32():
         if cfg.family == "encdec":
             enc = _encdec_encode(params, batch["frames"], cfg, backend)
-            x = layers.embed(params.embed, batch["tokens"])
-            x = x + params.pos_dec[: x.shape[1]][None]
+            x = layers.embed(params.embed, batch["tokens"], dtype)
+            x = x + params.pos_dec[: x.shape[1]].to(dtype)[None]
             h, _ = _encdec_decode_stack(params, x, enc, cfg, backend)
             return _final_logits(params, h[:, -1:], cfg), enc
         x, positions = _embed_inputs(params, batch, cfg)
@@ -476,11 +633,12 @@ def decode_fn(params, cache, batch, cfg, backend: Optional[str] = None):
     are written into ``cache`` in place, SSM states are new tensors."""
     backend = _backend(params, backend)
     tok, pos = batch["token"], batch["pos"]
-    with _full_fp32():
-        x = layers.embed(params.embed, tok)
+    dtype = _dtype(cfg)
+    with full_fp32():
+        x = layers.embed(params.embed, tok, dtype)
         if cfg.family == "encdec":
             (K, V), enc = cache
-            x = x + params.pos_dec[pos.long()][:, None, :]
+            x = x + params.pos_dec[pos.long()].to(dtype)[:, None, :]
             h, nkv = _encdec_decode_stack(params, x, enc, cfg, backend,
                                           caches=(K, V), pos=pos)
             return _final_logits(params, h, cfg), (nkv, enc)

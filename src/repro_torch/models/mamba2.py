@@ -32,7 +32,8 @@ class Mamba2(nn.Module):
     A_log/D/dt_bias (heads,), norm (d_inner), out_proj (d_inner, D), with
     C = d_inner + 2 state: the reference's names (``mamba2_init``).
     ``A_log`` and ``dt_bias`` stay float32, as the reference applies them
-    in float32; the rest is in the compute dtype, as it casts them."""
+    in float32; the rest is in the storage dtype, cast to the compute dtype
+    at every use, as the reference casts them."""
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()

@@ -40,7 +40,8 @@ def padded_experts(n_experts: int, ep: int) -> int:
 
 class MoE(nn.Module):
     """router (D, E_pad), wi/wg (E_pad, D, F), wo (E_pad, F, D): raw
-    parameters with the reference's names (``moe_init``)."""
+    parameters with the reference's names (``moe_init``), in the storage
+    dtype; every use casts them to the compute dtype."""
 
     def __init__(self, cfg, *, dtype, device, ep: int = 1):
         super().__init__()
@@ -63,7 +64,7 @@ def route(p: MoE, x: torch.Tensor, cfg):
     each token's experts in descending probability, the lower expert first
     on a tie)."""
     e_pad = p.router.shape[1]
-    logits = (x @ p.router).float()
+    logits = (x @ p.router.to(x.dtype)).float()
     emask = torch.arange(e_pad, device=x.device) < cfg.n_experts
     logits = logits.masked_fill(~emask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
@@ -144,11 +145,28 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
         masked(send_x[plan.order2], plan.keep2)).view(e_pad, plan.c_loc, d)
 
     act = _ACT[cfg.activation]
-    h = act(torch.bmm(buf, p.wg)) * torch.bmm(buf, p.wi)
-    y = torch.bmm(h, p.wo)
+    h = act(torch.bmm(buf, p.wg.to(dtype))) * torch.bmm(buf, p.wi.to(dtype))
+    y = torch.bmm(h, p.wo.to(dtype))
 
     y_rows = x.new_zeros((R, d)).index_add_(
         0, plan.order2, masked(y[plan.erow, plan.crow], plan.keep2))
     # the return trip's sort by destination is the identity at ep = 1
     y_pairs = masked(y_rows[plan.slot], plan.keep)
     return (y_pairs.reshape(T, k, d) * gates.to(dtype)[..., None]).sum(1)
+
+
+def aux_load_balance_loss(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style auxiliary loss of x (T, D) in the compute dtype: ``E *
+    sum_e f_e P_e``, the share of (token, slot) pairs routed to expert e
+    times its mean router probability, in float32 (the reference's ``moe.
+    aux_load_balance_loss``; its ``loss_fn`` does not add it, nor does the
+    port's)."""
+    e_pad = p.router.shape[1]
+    logits = (x @ p.router.to(x.dtype)).float()
+    emask = torch.arange(e_pad, device=x.device) < cfg.n_experts
+    probs = torch.softmax(logits.masked_fill(~emask, float("-inf")), dim=-1)
+    _, eidx = route(p, x, cfg)
+    f = torch.zeros(e_pad, dtype=torch.float32, device=x.device).index_add_(
+        0, eidx.reshape(-1), torch.ones(eidx.numel(), device=x.device)) \
+        / eidx.numel()
+    return cfg.n_experts * (f * probs.mean(0)).sum()

@@ -17,7 +17,9 @@ re-homed on one card), the bitmask kernels at every tuned share count
 and a tuned engine against an untuned one, and the LM smoke configs'
 prefill and
 decode on both attention arms against the CPU (every family; the flash
-kernels at the moe and hybrid path shapes). These tests need an NVIDIA card and
+kernels at the moe and hybrid path shapes), and training: the flash
+kernels' autograd Function against the plain gradient, a train step on
+both arms. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
 they run where JAX is not installed:
 
@@ -47,7 +49,7 @@ from repro_torch.data.meshgen import structured_grid
 from repro_torch.kernels import completion_gather, flash_attention, ops, \
     segment_relations
 from repro_torch.launch import serve
-from repro_torch.models import lm
+from repro_torch.models import layers, lm
 from repro_torch.quickstart import run
 
 pytestmark = pytest.mark.gpu
@@ -1105,6 +1107,91 @@ def test_flash_kernel_at_the_new_path_shapes(cuda, config, H, KV, hd,
     torch.testing.assert_close(
         got.float(), flash_attention.flash_attention_ref(q, k, v).float(),
         rtol=2e-2, atol=2e-2)
+
+
+# -- training: the flash kernels' gradient, a train step -------------------
+
+_TRAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H, KV, hd, dtype, variant", [
+    (28, 4, 128, torch.bfloat16, "wgmma"),
+    (32, 32, 80, torch.bfloat16, "mma"),
+    (8, 2, 80, torch.float32, "mma")])
+def test_flash_trainable_gradient_equals_the_plain_one(cuda, causal, H, KV,
+                                                       hd, dtype, variant):
+    """The autograd Function with the kernel as its forward: the kernel
+    the routing names runs once, its output matches the plain version's,
+    and (dq, dk, dv) equal autograd through the plain version (float32
+    2e-5, bf16 2e-2 of each gradient's largest entry); GQA and MHA, S past
+    one 1024-row chunk of the backward."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 1100, H, hd), device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn((2, 1100, KV, hd), device=cuda, generator=g)
+            .to(dtype) for _ in range(2))
+    dout = torch.randn((2, 1100, H, hd), device=cuda, generator=g).to(dtype)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(flash_attention.LAUNCHES)
+    out = layers.flash_attention_trainable(q, k, v, causal=causal)
+    assert flash_attention.LAUNCHES[f"flash_{variant}"] == \
+        before[f"flash_{variant}"] + 1
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert flash_attention.LAUNCHES["flash"] == before["flash"] + 1
+    ref = flash_attention.flash_attention_ref(q, k, v, causal=causal)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    tol = _TRAIN_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_the_card_equals_the_torch_arm(cuda, dtype):
+    """One make_train_step of a smoke config on the kernels' arm and on
+    the plain arm of the card from the same float32 masters: the flash
+    kernel once per layer, the loss and every gradient within float32
+    2e-5 / bf16 2e-2 of the plain arm's, every updated parameter too, plus
+    2 lr: AdamW's first step moves a weight by lr * sign(g), so a gradient
+    entry near zero whose sign differs between the arms moves its weight
+    2 lr apart."""
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    from repro_torch.data.tokens import SyntheticTokens
+    cfg = dataclasses.replace(configs.get_smoke_config("deepseek-7b"),
+                              dtype=dtype)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                           torch.float32)
+    batch = train.train_batch(cfg, SyntheticTokens(cfg.vocab).batch(
+        0, 2, 128), cuda)
+    tol = _TRAIN_TOL[getattr(torch, dtype)]
+    out = {}
+    for backend in ("cuda", "torch"):
+        on_card = lm.build(cfg, cuda, torch.float32)
+        on_card.load_state_dict(model.state_dict())
+        before = flash_attention.LAUNCHES["flash"]
+        loss, grads = steps.loss_and_grads(on_card, batch, cfg, backend)
+        torch.cuda.synchronize()
+        assert flash_attention.LAUNCHES["flash"] - before == \
+            (cfg.n_layers if backend == "cuda" else 0)
+        opt = adamw.AdamWConfig(total_steps=4)
+        step = steps.make_train_step(cfg, opt, backend)
+        state = adamw.init_state(dict(on_card.named_parameters()), opt)
+        step(on_card, state, batch)
+        out[backend] = (loss, grads, dict(on_card.named_parameters()))
+    lr = float(adamw.schedule(1, adamw.AdamWConfig(total_steps=4)))
+    (lc, gc, pc), (lt, gt, pt) = out["cuda"], out["torch"]
+    assert abs(float(lc) - float(lt)) <= tol * abs(float(lt))
+    for name, g in gt.items():
+        assert bool(gc[name].any()), name
+        torch.testing.assert_close(gc[name], g, rtol=tol,
+                                   atol=tol * float(g.abs().max()))
+        torch.testing.assert_close(
+            pc[name], pt[name], rtol=tol,
+            atol=tol * float(pt[name].abs().max()) + 2 * lr)
 
 
 # -- fault recovery on the card (docs/DESIGN.md §12) -------------------------

@@ -313,7 +313,7 @@ def test_cache_write_clamps_past_the_end():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "whisper-base"])
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_concrete_batch_equals_reference(arch, kind):
     cfg = configs.get_smoke_config(arch)
     shape = base.ShapeConfig("smoke", seq_len=32, global_batch=2, kind=kind)
@@ -343,16 +343,20 @@ def test_serve_main_smoke_on_cpu(capsys):
 
 def test_encdec_serve_exits_and_unported_families_raise():
     """whisper exits from serve.main, as in the reference; every family
-    serves, and what stays unported is training: its batches raise,
-    naming the ROADMAP item."""
+    serves, and since training is ported every family's train batch
+    builds, with the reference's keys, shapes and dtypes."""
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--arch", "whisper-base", "--smoke"])
     for arch in configs.ARCH_IDS:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 3.4"):
-            specs.concrete_batch(configs.get_smoke_config(arch),
-                                 base.ShapeConfig("t", 8, 2, "train"),
-                                 device="cpu")
+        got = specs.concrete_batch(configs.get_smoke_config(arch),
+                                   base.ShapeConfig("t", 32, 2, "train"),
+                                   device="cpu")
+        want = rspecs.concrete_batch(rconfigs.get_smoke_config(arch),
+                                     rbase.ShapeConfig("t", 32, 2, "train"))
+        assert list(got) == list(want)
+        for k in want:
+            assert tuple(got[k].shape) == tuple(want[k].shape), (arch, k)
+            assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
 
 
 def test_cuda_backend_on_cpu_raises():

@@ -2,6 +2,7 @@
 holds the PyTorch port to (its ``LM_PINS``).
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py [NAME ...]
+        [--port]
 
 Runs the reference on the CPU, in float32, for every pin of
 ``chip_smoke.LM_PIN_ARCH`` (or the names given), each configuration from
@@ -24,6 +25,17 @@ logit ids and values, the generated tokens, and the moe counts. Wall time
 and peak host memory go to stderr: 156.7 s and 12.9 GB peak RSS for all
 twelve pins in one CPU run, the peak at the two-layer qwen2 trees in
 numpy and in JAX.
+
+The training pins (``chip_smoke.LM_TRAIN_PINS``, run only when named:
+``train``, ``train_chunked``) run the reference's ``make_train_step``
+(jitted, parameters and state donated, as its trainer runs it) on
+deepseek-7b at full width cut to two layers, float32, for
+``TRAIN_PIN_STEPS`` steps on ``chip_smoke.train_pin_batches``, and pin
+each step's loss, grad norm and learning rate, and print the batches'
+digest (``TRAIN_BATCH_SHA256``). With ``--port`` the port's
+``make_train_step`` runs the same steps on the CPU from the same tree
+afterwards and its numbers are printed beside the pins (stderr): the gap
+of two float32 implementations that differ only in summation order.
 """
 
 from __future__ import annotations
@@ -44,8 +56,9 @@ import chip_smoke as cs  # noqa: E402
 from repro import configs  # noqa: E402
 from repro.distributed.sharding import Runtime  # noqa: E402
 from repro.launch import serve  # noqa: E402
-from repro.launch.steps import make_prefill_step  # noqa: E402
+from repro.launch.steps import make_prefill_step, make_train_step  # noqa
 from repro.models import lm  # noqa: E402
+from repro.optim import adamw  # noqa: E402
 
 RT = Runtime(mesh=None, remat="none")
 
@@ -97,12 +110,53 @@ def generate(cfg, params, prompts):
         serve.lm.init_cache = init
 
 
+def train_pin(name):
+    """Each step's loss, grad norm and lr of the reference's train step;
+    the parameter tree is drawn for the pin and donated to the steps."""
+    cfg = cs.lm_pin_cfg(configs, cs.TRAIN_PIN_ARCH)
+    rt = Runtime(mesh=None, remat="none", loss_chunk=cs.LM_TRAIN_PINS[name])
+    opt = adamw.AdamWConfig(**cs.TRAIN_PIN_OPT)
+    params = jax.tree.map(jnp.asarray, cs.reference_tree(cfg, 0))
+    state = adamw.init_state(params, opt)
+    step = jax.jit(make_train_step(cfg, rt, opt), donate_argnums=(0, 1))
+    out = {"loss": [], "grad_norm": [], "lr": []}
+    for b in cs.train_pin_batches(cfg.vocab):
+        params, state, m = step(params, state,
+                                {k: jnp.asarray(v) for k, v in b.items()})
+        for k in out:
+            out[k].append(float(m[k]))
+    return out
+
+
 def main(names=None) -> None:
-    names = names or list(cs.LM_PIN_ARCH)
+    port = "--port" in (names or [])
+    names = [n for n in names or [] if n != "--port"] or list(cs.LM_PIN_ARCH)
     pins = {}
     t0 = time.perf_counter()
-    arch = params = None
+    if any(n in cs.LM_TRAIN_PINS for n in names):
+        from repro.data.tokens import SyntheticTokens
+        vocab = cs.lm_pin_cfg(configs, cs.TRAIN_PIN_ARCH).vocab
+        print(f"# TRAIN_BATCH_SHA256 = "
+              f"{cs.train_batch_digests(vocab, SyntheticTokens)} (numpy "
+              f"{np.__version__})", file=sys.stderr)
     for name in names:
+        if name in cs.LM_TRAIN_PINS:
+            pins[name] = train_pin(name)
+            print(f"# {name}: {time.perf_counter() - t0:.1f} s",
+                  file=sys.stderr)
+            if port:
+                import torch
+                tree = cs.reference_tree(
+                    cs.lm_pin_cfg(configs, cs.TRAIN_PIN_ARCH), 0)
+                got, _ = cs.train_pin_run(torch, torch.device("cpu"),
+                                          "torch", name, tree)
+                del tree
+                gap = {k: [abs(a - b) / abs(b) for a, b in
+                           zip(got[k], pins[name][k])] for k in got}
+                print(f"# {name} port {json.dumps(got)} rel gap "
+                      f"{json.dumps(gap)}", file=sys.stderr)
+    arch = params = None
+    for name in [n for n in names if n not in cs.LM_TRAIN_PINS]:
         if cs.LM_PIN_ARCH[name] != arch:
             arch, params = cs.LM_PIN_ARCH[name], None
             cfg = cs.lm_pin_cfg(configs, arch)
