@@ -2,7 +2,9 @@
 
     PYTHONPATH=src python3 chip_smoke.py        # from the repository root
 
-Phases, one JSON line each:
+Phases, one JSON line each, in the order 1, 9-13, 2-8e: the LM phases run
+on the card while a host process of the script's own (``--meshes``) builds
+phase 2's meshes, which phases 2-8e then read:
 
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
@@ -11,7 +13,9 @@ Phases, one JSON line each:
      flash kernels by entry function.
   2. mesh: ``structured_grid(96, 96, 96)`` with the quickstart's Gaussian
      field -> ``segment_mesh(capacity=64)`` -> ``precondition`` for
-     VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it.
+     VV/VE/VF/VT/FT/TT, once; the 96^3 phases below share it. The mesh
+     process builds it, and phase 4b's two 48^3 segmentations, beside the
+     LM phases; phase 2 waits for it and loads its pickle.
   3. kernels: each relation-entry kernel arm (VV, member for VE/VF/VT
      and sub-join for FT/EF/ET on both routes, the bitmask kernels and the
      sort kernels; TT) held bit for bit against its plain torch version on
@@ -68,11 +72,9 @@ Phases, one JSON line each:
      synthetic maps with empty segments, the last segment, segments past
      the table and below 0, runs of 1 to 3000 gids, maps cut to an odd K
      inside a run, and a combined key that wraps int32; timed like phase 3.
-  8. the audit of a corrupted field and the completed FF rows of a seeded
-     face sample on the kernels at 96^3, equal to the plain arm's result
-     (``PLAIN_BAD_AUDIT_96``, recorded from its runs on the card); then
-     the whole audit + persistence path on both arms at 48^3, corrupted
-     audit and FF rows included, against the 48^3 pins.
+  8. the whole audit + persistence path on both arms at 48^3, with the
+     audit of a corrupted field (every double claim found) and the
+     completed FF rows of a seeded face sample, against the 48^3 pins.
  8b. the compared data structures on phase 2's mesh: ``critical_points``
      through ``ExplicitTriangulation``, ``TopoClusterDS``, ``ActopoDS``
      (one segment a launch, each synced at dispatch) and the GALE engine,
@@ -105,13 +107,13 @@ Phases, one JSON line each:
      four shards and four workers against phase 8's 48^3 pins.
   8d. fault recovery (the engine's §12 ladder) on the card: first, that no
      phase before it ran the numpy host arm; then ``critical_points(...,
-     batch_segments=8, workers=2)`` (device pools of 4096 segments)
-     under six explicit ``FaultPolicy`` schedules: none (at 96^3 and at
-     48^3); 6 transient VV launch faults and one 5 s sync hang against a
-     0.05 s watchdog polling the launch's CUDA event, at 96^3; 6
-     permanent VV faults behind a breaker of 2 at ``batch_max=1``, shard
-     0's device lost at ``shards=2``, and two block-pool upload faults
-     with pools of one launch, at 48^3. Each ``types`` equal to its pin,
+     batch_segments=8, workers=2)`` at 48^3 (device pools of 4096
+     segments) under six explicit ``FaultPolicy`` schedules: none; 6
+     transient VV launch faults; one 5 s sync hang against a 0.05 s
+     watchdog polling the launch's CUDA event; 6 permanent VV faults
+     behind a breaker of 2 at ``batch_max=1``; shard 0's device lost at
+     ``shards=2``; two block-pool upload faults with pools of one
+     launch. Each ``types`` equal to its pin,
      each run's recovery counters checked, every schedule with no
      permanent fault kept off the host arm (``degraded_launches`` 0),
      the launch identity (kernel wrapper launches = ``kernel_launches``
@@ -188,11 +190,12 @@ Phases, one JSON line each:
      with ``moe.dispatch`` dropping as many), mamba2-130m whole, zamba2-
      2.7b cut to one group (6 Mamba2 layers and the shared block), each
      prefill's flash launches counted (float32: the mma kernel; 2, 2, 0,
-     1), and ``generate``; (b) each family at full width and depth in
+     1), and ``generate``; (b) each family at full width, cut to about
+     half its depth (``FAMILY_FLASH``: 14, 16, 12 and 30 layers), in
      bf16 with seeded weights: ``serve.main`` and ``generate`` (4 x 32 +
      16 tokens, no flash launch in decode), ``make_prefill_step`` at B 4,
      S 4096 on both arms in turns with the kernels' launches asserted per
-     call (qwen2-vl 28 and granite 32 ``flash_fwd_wgmma``, zamba2 9
+     call (qwen2-vl 14 and granite 16 ``flash_fwd_wgmma``, zamba2 5
      ``flash_fwd_mma``, mamba2 none), the arms' logits within
      ``LM_ARM_TOL``, granite's flipped expert choices between the arms
      per layer, walls, tokens/s and the peak device memory.
@@ -214,9 +217,28 @@ Phases, one JSON line each:
      checkpoint's walls, the attention backward's share and a profile of
      one step; (c) mamba2-130m whole as ``examples/train_lm.py`` trains
      it, 20 steps: the loss falls.
+ 13. the sharded LM on the card: a world-size-1 NCCL group on a
+     ``FileStore`` in a temporary directory and a (1, 1) ``("data",
+     "model")`` mesh, destroyed at the end: (a) qwen2-7b at full width cut
+     to ``MESH_LAYERS`` layers, bf16, seeded: one prefill at B 4, S 4096
+     with ``Runtime(mesh)`` and without, the next tokens equal and the
+     logits within ``LM_ARM_TOL``, 4 ``flash_fwd_wgmma`` launches a sharded
+     prefill (run per rank through ``rt.local``), both arms timed in turns
+     through ``make_prefill_step``; ``generate`` (4 x 32 + 16 tokens) on
+     both, the tokens equal; (b) deepseek-7b at full width, 2 layers,
+     float32 masters, bf16 compute, 3 ``make_train_step(rt=)`` steps at B
+     4, S 2048 against the same without a mesh, losses and grad norms
+     within ``TRAIN_ARM_TOL``; (c) ``Runtime.flash_decode`` on a one-shard
+     cache against the plain attention; (d) ``ckpt.save`` of DTensors and
+     ``restore(shardings=)`` onto the mesh; (e) the dry run
+     (``repro_torch.launch.dryrun``, each cell a process of its own,
+     started first): phase 12b's training on one device, its peak beside
+     the one phase 12 measured, then deepseek-7b's full 30 layers on (N,
+     1) meshes, N = 1, 2, 4, 8, as the per-device need.
 
-Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` name and power
-limit, and the final ``{"ok": true, ...}`` line. Any failure exits non-zero
+Then the ``phase_walls`` line (each phase's seconds), the ``{"kernels":
+[...]}`` summary, the ``nvidia-smi`` name and power limit, and the final
+``{"ok": true, ...}`` line. Any failure exits non-zero
 before that line; without a card it exits non-zero and prints no result.
 """
 
@@ -230,6 +252,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -329,8 +352,7 @@ FUSED_BATCH = 8              # fused_extrema's segments a loop step
 # give the gradient / complex digests of REF_MS. The reference's dense FF
 # production took 398 s on the CPU at 48^3 (454 launches); the 96^3 audit
 # needs it for 8x as many segments, about an hour at that rate, so the
-# corrupted audit and the FF rows are pinned at 48^3, and at 96^3 the two
-# arms are held against each other.
+# corrupted audit and the FF rows are pinned, and run, at 48^3.
 REF_PATH = {
     96: {"persistence": {"pairs0": 321, "pairs2": 5, "essential0": 1,
                          "essential2": 0, "unpaired1": 342,
@@ -358,19 +380,9 @@ REF_PATH = {
          "ff_sha256": ("a12a7fb9069853e4a125d1d65ccfe8f1"
                        "33bfebd299b38b8210ac4af0f6d1fe96")},
 }
-# the plain torch arm of phase 5, and both arms of phase 7's pinned
-# corrupted audit and FF rows, run at this size
+# the plain torch arm of phase 5, both arms of phase 8's pinned corrupted
+# audit and FF rows, and phase 8d's fault schedules run at this size
 SMALL_N = 48
-# the plain torch arm's corrupted audit and FF-row digest at N=96 on the
-# card (an H100), equal in each of four earlier runs of this script, as
-# the kernels' were; the kernels are held to it at 96^3, where the plain
-# arm took about 125 s a run, and both arms run at SMALL_N against the
-# reference's pins
-PLAIN_BAD_AUDIT_96 = {
-    "bad_audit": {"tt_conflicts": 8, "ff_conflicts": 8,
-                  "reverse_mismatch": 9},
-    "ff_sha256":
-        "2e88ca62824c6089c6923cad4089b691e51ec8cb9c3c8a2529737aaea2c45923"}
 # the row-share path: the SMALL_N mesh in segments of this many vertices
 # (NV 2048, NT 8576: whole VV and VT masks past the opt-in limit, so the
 # bitmask kernels split each segment's rows over 4 and 11 blocks)
@@ -429,6 +441,10 @@ _ARITY = {"E": 2, "F": 3, "T": 4}
 PATH_RELS = ["VE", "VF", "VT", "FT", "TT", "FF"]
 THRESHOLD = 0.05             # simplify_ms persistence threshold
 SITES = 8                    # double claims of each kind in the bad field
+# the longest phase 2 waits for the mesh process once the LM phases end
+# (its 96^3 precondition took 80.7 s in-line on an H100 80GB HBM3
+# machine's host)
+MESH_WAIT_S = 600
 FF_SAMPLE = 512              # faces whose completed FF rows are digested
 
 # the LM pins: name -> (B, S, input seed); weights from reference_tree(cfg,
@@ -661,6 +677,57 @@ LM_PINS = {
 # this share of the largest logit (on an H100 80GB HBM3 the arms differed
 # by 0.022 of it at S=4096 and 0.018 at S=1000)
 LM_ARM_TOL = 0.05
+
+
+def quickstart_mesh(n: int):
+    """The quickstart's Gaussian field on an ``n``^3 structured grid."""
+    from repro_torch.algorithms import fields
+    from repro_torch.data.meshgen import structured_grid
+    return structured_grid(n, n, n, scalar_fn=fields.gaussians(
+        0, k=4, sigma=3.0, scale=n))
+
+
+def build_meshes(out_path: str) -> int:
+    """Phase 2's 96^3 mesh and phase 4b's two 48^3 segmentations, built and
+    preconditioned on the host by ``chip_smoke.py --meshes PATH``: the
+    parent starts this process before its kernel build and reads the
+    pickle at ``PATH`` after the LM phases, so that the host numpy of the
+    set-up runs beside the card's work instead of after it. The process's
+    seconds by step go to ``PATH.json``, written last."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.algorithms.consume import degree_cols
+    from repro_torch.core.mesh import segment_mesh
+    from repro_torch.core.segtables import precondition
+
+    t0 = time.perf_counter()
+    mesh = quickstart_mesh(N)
+    sm = segment_mesh(mesh, capacity=64)
+    t1 = time.perf_counter()
+    pre = precondition(sm, relations=RELS)
+    t2 = time.perf_counter()
+    # the consumers' exact column widths: one-time host work cached on
+    # ``pre``, done here so that it lands in no path wall
+    degree_cols(pre, ("VV", "VE", "VF", "VT"))
+    t3 = time.perf_counter()
+    psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
+    ppre = precondition(psm, RELS)
+    t4 = time.perf_counter()
+    bsm = segment_mesh(quickstart_mesh(SMALL_N), capacity=BIG_CAPACITY)
+    bpre = precondition(bsm, relations=["VV", "VT"])
+    t5 = time.perf_counter()
+    with open(out_path, "wb") as f:
+        pickle.dump({"mesh": mesh, "sm": sm, "pre": pre, "psm": psm,
+                     "ppre": ppre, "bsm": bsm, "bpre": bpre}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    t6 = time.perf_counter()
+    times = {"segment_s": t1 - t0, "precondition_s": t2 - t1,
+             "degree_bound_s": t3 - t2, "small_s": t4 - t3,
+             "big_capacity_s": t5 - t4, "dump_s": t6 - t5,
+             "process_s": t6 - t0}
+    with open(out_path + ".json", "w") as f:
+        json.dump({k: round(v, 3) for k, v in times.items()}, f)
+    return 0
 
 
 def ff_sample(n_faces: int):
@@ -1021,6 +1088,21 @@ def check_lm_pins(got, what: str, names) -> None:
                       f"{what} {name}: top-5 logit {g} != reference {w}")
 
 
+# each phase's start on the host clock, in order (``mark``); the
+# ``phase_walls`` line gives each phase's seconds
+_MARKS: dict = {}
+
+
+def mark(phase: str) -> None:
+    _MARKS[phase] = time.perf_counter()
+
+
+def phase_walls() -> dict:
+    names = list(_MARKS)
+    ends = [_MARKS[n] for n in names[1:]] + [time.perf_counter()]
+    return {n: round(e - _MARKS[n], 3) for n, e in zip(names, ends)}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1155,6 +1237,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     from repro_torch.models import lm
 
     # -- 9. the flash-attention kernels against their plain version ---------
+    mark("9")
     t_lm = time.perf_counter()
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1435,6 +1518,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
         del q, k, v, qt, kt, vt
 
     # -- 10. the full-width LM pins of the JAX reference, on both arms -----
+    mark("10")
     for backend in ("cuda", "torch"):
         t0 = time.perf_counter()
         got, pin_launches = lm_pin_run(torch, dev, backend, LM_DENSE_PINS)
@@ -1457,6 +1541,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     torch.cuda.empty_cache()
 
     # -- 11. qwen2-7b served at full width and depth, bf16 -----------------
+    mark("11")
     cfg = configs.get_config("qwen2-7b")
     # the mesh phases' engines sit in reference cycles (their block store
     # holds a closure over the engine) with their tables and pools on the
@@ -1545,11 +1630,14 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
     del model, logits
 
 
-# phase 11b: the four families served at full width and depth, bf16: the
+# phase 11b: the four families served at full width, bf16, cut to about
+# half their depth (28, 32, 24 and 54 layers; zamba2 in whole groups of
+# six) so that the script keeps inside its time limit: the depth, the
 # flash kernel each prefill's attention takes and its launches per call
-FAMILY_FLASH = {"qwen2-vl-7b": ("flash_wgmma", 28),
-                "granite-moe-3b-a800m": ("flash_wgmma", 32),
-                "mamba2-130m": (None, 0), "zamba2-2.7b": ("flash_mma", 9)}
+FAMILY_FLASH = {"qwen2-vl-7b": (14, "flash_wgmma", 14),
+                "granite-moe-3b-a800m": (16, "flash_wgmma", 16),
+                "mamba2-130m": (12, None, 0),
+                "zamba2-2.7b": (30, "flash_mma", 5)}
 # flash launches of each float32 pin's prefill on the kernels' arm (every
 # one the mma kernel's): two attention layers, none, one shared block
 FAMILY_PIN_FLASH = {"vl": 2, "granite": 2, "mamba2": 0, "zamba2": 1}
@@ -1599,7 +1687,8 @@ def device_breakdown(torch, fn, top: int = 6) -> dict:
 def lm_family_phases(torch, dev, launches) -> None:
     """Phase 11b: the vlm, moe, ssm and hybrid families on the card. (a)
     their float32 pins of the JAX reference on both arms; (b) each family
-    at full width and depth in bf16 with seeded weights: ``serve.main``
+    at full width, cut to ``FAMILY_FLASH``'s depth, in bf16 with seeded
+    weights: ``serve.main``
     and ``generate`` (4 prompts of 32 tokens, 16 generated, a 128-slot
     cache), then ``make_prefill_step`` at B 4, S 4096 (qwen2-vl: 256
     vision tokens on a 16 x 16 grid and 3840 text tokens) on both arms in
@@ -1618,6 +1707,7 @@ def lm_family_phases(torch, dev, launches) -> None:
     from repro_torch.launch import serve, specs, steps
     from repro_torch.models import lm, moe
 
+    mark("11b")
     t11 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1640,10 +1730,10 @@ def lm_family_phases(torch, dev, launches) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- b. full width and depth, bf16 ---------------------------------------
+    # -- b. full width, about half depth, bf16 ------------------------------
     S, Bp = 4096, 4
-    for arch, (kernel, per) in FAMILY_FLASH.items():
-        cfg = configs.get_config(arch)
+    for arch, (depth, kernel, per) in FAMILY_FLASH.items():
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=depth)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1655,7 +1745,8 @@ def lm_family_phases(torch, dev, launches) -> None:
         with contextlib.redirect_stdout(out):
             toks = serve.main(["--arch", arch, "--batch", "4",
                                "--prompt-len", "32", "--gen", "16",
-                               "--cache-len", "128"])
+                               "--cache-len", "128", "--layers",
+                               str(depth)])
         main_wall = time.perf_counter() - t0
         check(toks.shape == (4, 16) and toks.min() >= 0
               and toks.max() < cfg.vocab, f"{arch}: serve.main gave {toks}")
@@ -1822,7 +1913,7 @@ def train_pin_run(torch, dev, backend, name, tree):
     return out, flash
 
 
-def lm_train_phases(torch, dev, max_err, launches) -> None:
+def lm_train_phases(torch, dev, max_err, launches) -> float:
     """Phase 12: LM training on the card. (a) the JAX reference's float32
     training pins on both arms; (b) deepseek-7b at full width, TRAIN_LAYERS
     layers, bf16, through ``launch.train.main``: a clean run and one with
@@ -1835,7 +1926,7 @@ def lm_train_phases(torch, dev, max_err, launches) -> None:
     attention backward's share and a profile of one step; (c) mamba2-130m
     whole as ``examples/train_lm.py`` trains it: the loss falls. Adds the
     kernels' arm's flash launches to ``launches`` and the training shape's
-    error to ``max_err``."""
+    error to ``max_err``. Returns (b)'s peak device memory, GiB."""
     import contextlib
     import io
 
@@ -1847,6 +1938,7 @@ def lm_train_phases(torch, dev, max_err, launches) -> None:
     from repro_torch.models import layers, lm
     from repro_torch.optim import adamw
 
+    mark("12")
     t12 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2099,6 +2191,310 @@ def lm_train_phases(torch, dev, max_err, launches) -> None:
           f"mamba2-130m's loss did not fall: {losses}")
     emit({"phase": "lm_train_total",
           "wall_s": round(time.perf_counter() - t12, 3)})
+    return peak
+
+
+# phase 13: the sharded LM on the one card, through a world-size-1 NCCL
+# group and a (1, 1) ("data", "model") mesh: qwen2-7b served and
+# deepseek-7b trained at full width, cut to these depths, against the same
+# models without a mesh; then the dry run's per-device need of deepseek-7b
+MESH_LAYERS = {"qwen2-7b": 4, "deepseek-7b": 2}
+MESH_B, MESH_S, MESH_TRAIN_S, MESH_TRAIN_STEPS = 4, 4096, 2048, 3
+# the dry run of phase 12b's training (4 layers, B 4, S 2048, remat none,
+# as train.main runs it) on one device, then the full 30 layers on (N, 1)
+# meshes at 4 rows a device (global batch 4 N), remat full (the dry run's
+# default, the reference's)
+DRYRUN_NS = (1, 2, 4, 8)
+
+
+def dryrun_cmds():
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            "deepseek-7b", "--shape", "train_4k", "--seq", str(TRAIN_S)]
+    out = [("4 layers, (1, 1), remat none",
+            base + ["--layers", str(TRAIN_LAYERS), "--batch", str(TRAIN_B),
+                    "--mesh-shape", "1,1", "--remat", "none"])]
+    for n in DRYRUN_NS:
+        out.append((f"30 layers, ({n}, 1)",
+                    base + ["--layers", "30", "--batch", str(TRAIN_B * n),
+                            "--mesh-shape", f"{n},1"]))
+    return out
+
+
+def lm_mesh_phases(torch, dev, max_err, launches, measured_peak_gib) -> None:
+    """Phase 13: the sharded LM on the card (a world-size-1 NCCL group on a
+    ``FileStore``, a (1, 1) ``("data", "model")`` mesh, destroyed at the
+    end). (a) qwen2-7b at full width, ``MESH_LAYERS`` layers, bf16: one
+    prefill at B 4, S 4096 with ``Runtime(mesh)`` and without, the next
+    tokens equal and the logits within ``LM_ARM_TOL``, 4 ``flash_fwd_wgmma``
+    launches a sharded prefill (counters zeroed just before each call,
+    read just after), both arms timed in turns; ``generate`` (4 x 32 + 16
+    tokens) on both, the tokens equal. (b) deepseek-7b at full width, 2
+    layers, float32 masters, bf16 compute: 3 ``make_train_step(rt=)``
+    steps at B 4, S 2048 against the same without a mesh, each step's loss
+    and grad norm within ``TRAIN_ARM_TOL``. (c) ``Runtime.flash_decode`` on
+    a one-shard cache against the plain attention (float32 1e-5, bf16
+    2e-2). (d) ``ckpt.save`` on the mesh and ``restore(shardings=)``: the
+    values equal, the placements asked for. (e) the dry run (its own
+    processes, started first): phase 12b's training on one device beside
+    the peak phase 12 measured, then the full depth's per-device need on
+    (N, 1) meshes. Adds the sharded prefills' and steps' flash launches to
+    ``launches``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import serve, specs, steps, train
+    from repro_torch.models import layers, lm
+    from repro_torch.optim import adamw
+
+    mark("13")
+    t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- e. the dry runs start first, each a process of its own ------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = [(label, subprocess.Popen(argv, cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+            for label, argv in dryrun_cmds()]
+    for _, proc in runs:
+        atexit.register(proc.kill)
+
+    def zero():
+        for key in fa.LAUNCHES:
+            fa.LAUNCHES[key] = 0
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    atexit.register(shutil.rmtree, store, True)
+    torch.cuda.set_device(0)
+    meshes.init_group("nccl", 0, 1, store)
+    try:
+        mesh = meshes.make_mesh((1, 1), ("data", "model"), "cuda")
+        rt = shd.Runtime(mesh=mesh, batch_axes=meshes.batch_axes(mesh),
+                         remat="none")
+
+        # -- a. qwen2-7b served, full width, bf16 --------------------------
+        cfg = dataclasses.replace(configs.get_config("qwen2-7b"),
+                                  n_layers=MESH_LAYERS["qwen2-7b"])
+        models = {}
+        for arm in ("plain", "mesh"):
+            models[arm] = lm.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        shd.distribute_params(models["mesh"], shd.make_param_shardings(
+            mesh, models["mesh"]))
+        runtimes = {"plain": None, "mesh": rt}
+        batch = specs.concrete_batch(cfg, ShapeConfig(
+            "prefill_4096", MESH_S, MESH_B, "prefill"), rng=MESH_S,
+            device=dev)
+        logits, ran = {}, {}
+        for arm in ("plain", "mesh"):
+            r = runtimes[arm]
+            b = r.shard_batch(batch, "prefill", cfg) if r else batch
+            torch.cuda.synchronize()
+            zero()
+            lg = lm.prefill_fn(models[arm], b, cfg, "cuda", r)[0]
+            torch.cuda.synchronize()
+            ran[arm] = dict(fa.LAUNCHES)
+            lg = lg.full_tensor() if r else lg
+            logits[arm] = lg[:, -1].float()
+        per = cfg.n_layers
+        want = {"flash": per, "flash_wgmma": per, "flash_mma": 0,
+                "flash_simt": 0}
+        walls = {"plain": [], "mesh": []}
+        nxt = {}
+        for arm in ("plain", "mesh", "mesh", "plain"):
+            step = steps.make_prefill_step(cfg, "cuda", runtimes[arm])
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            nxt[arm] = step(models[arm], batch)
+            torch.cuda.synchronize()
+            walls[arm].append(time.perf_counter() - t0)
+            check(fa.LAUNCHES == want, f"the {arm} prefill launched the "
+                                       f"flash kernels {fa.LAUNCHES}, not "
+                                       f"{want}")
+            if arm == "mesh":
+                launches["flash_wgmma"] += fa.LAUNCHES["flash_wgmma"]
+        diff = float((logits["mesh"] - logits["plain"]).abs().max())
+        scale = float(logits["plain"].abs().max())
+        same_next = bool(torch.equal(nxt["mesh"], nxt["plain"]))
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                    (MESH_B, 32),
+                                                    dtype=np.int32)
+        toks, gen_s = {}, {}
+        for arm in ("plain", "mesh"):
+            torch.cuda.synchronize()
+            zero()
+            t0 = time.perf_counter()
+            toks[arm] = serve.generate(cfg, models[arm], prompts, 16, 128,
+                                       backend="cuda", rt=runtimes[arm])
+            torch.cuda.synchronize()
+            gen_s[arm] = time.perf_counter() - t0
+            check(fa.LAUNCHES["flash"] == 0,
+                  f"{arm} decode launched the flash kernels {fa.LAUNCHES}")
+        emit({"phase": "lm_mesh_serve", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "B": MESH_B, "S": MESH_S,
+              "mesh": [1, 1], "flash_launches_first_call": ran,
+              "prefill_walls_s": walls, "logit_max_abs_diff": diff,
+              "logit_max_abs": scale, "equal_next_tokens": same_next,
+              "generate_s": gen_s, "equal_generated": bool(
+                  np.array_equal(toks["mesh"], toks["plain"])),
+              "generated_sample": toks["mesh"][0][:8].tolist()})
+        check(ran["mesh"] == want, f"the sharded prefill launched the flash "
+                                   f"kernels {ran['mesh']}, not {want}")
+        check(torch.isfinite(logits["mesh"]).all(), "non-finite logits")
+        check(diff <= LM_ARM_TOL * scale,
+              f"the sharded prefill's logits differ by {diff} (max |logit| "
+              f"{scale})")
+        check(same_next, "the sharded prefill's next tokens differ")
+        check(np.array_equal(toks["mesh"], toks["plain"]),
+              f"sharded decode gave {toks['mesh']}, without a mesh "
+              f"{toks['plain']}")
+        del models, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- b. deepseek-7b trained, full width, 2 layers -------------------
+        cfg = dataclasses.replace(configs.get_config("deepseek-7b"),
+                                  n_layers=MESH_LAYERS["deepseek-7b"])
+        opt = adamw.AdamWConfig(total_steps=MESH_TRAIN_STEPS)
+        source = SyntheticTokens(cfg.vocab, seed=0)
+        batches = [train.train_batch(cfg, source.batch(
+            i, TRAIN_B, MESH_TRAIN_S), dev) for i in range(MESH_TRAIN_STEPS)]
+        hist = {}
+        for arm in ("plain", "mesh"):
+            r = runtimes[arm]
+            model = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev, torch.float32)
+            if r is not None:
+                shd.distribute_params(model, shd.make_param_shardings(
+                    mesh, model))
+            state = adamw.init_state(dict(model.named_parameters()), opt)
+            step = steps.make_train_step(cfg, opt, "cuda", rt=r)
+            rows = []
+            for b in batches:
+                torch.cuda.synchronize()
+                zero()
+                t0 = time.perf_counter()
+                _, _, m = step(model, state, b)
+                torch.cuda.synchronize()
+                rows.append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "lr": float(m["lr"]),
+                             "step_s": time.perf_counter() - t0,
+                             "flash": dict(fa.LAUNCHES)})
+                check(fa.LAUNCHES["flash_wgmma"] == fa.LAUNCHES["flash"]
+                      == cfg.n_layers,
+                      f"{arm} train step launched {fa.LAUNCHES}")
+                if r is not None:
+                    launches["flash_wgmma"] += fa.LAUNCHES["flash_wgmma"]
+            hist[arm] = rows
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        gaps = [{k: abs(m[k] - p[k]) / abs(p[k]) for k in ("loss",
+                                                              "grad_norm")}
+                for m, p in zip(hist["mesh"], hist["plain"])]
+        emit({"phase": "lm_mesh_train", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "B": TRAIN_B, "S": MESH_TRAIN_S,
+              "mesh": [1, 1], "steps": hist, "rel_gap": gaps,
+              "tol": TRAIN_ARM_TOL})
+        for i, g in enumerate(gaps):
+            for k, v in g.items():
+                check(v <= TRAIN_ARM_TOL[k],
+                      f"step {i}: the sharded step's {k} is {v} apart")
+
+        # -- c. flash_decode on a one-shard cache --------------------------
+        gen = torch.Generator(device=dev).manual_seed(5)
+        B, T, H, KV, hd = MESH_B, MESH_S, 28, 4, 128
+        pos = torch.randint(0, T, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dec = {}
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q = torch.randn((B, 1, H, hd), generator=gen, device=dev)
+            K, V = (torch.randn((B, T, KV, hd), generator=gen, device=dev)
+                    for _ in range(2))
+            q, K, V = (t.to(dtype) for t in (q, K, V))
+            got = rt.flash_decode(q, K, V, pos).full_tensor()
+            mask = (torch.arange(T, device=dev)[None, :]
+                    <= pos.long()[:, None])[:, None, None, :]
+            ref = layers._sdpa(q, layers.repeat_kv(K, H),
+                               layers.repeat_kv(V, H), mask, dtype)
+            err = float((got.float() - ref.float()).abs().max())
+            dec[str(dtype)] = {"max_abs_err": err, "tol": tol}
+            check(got.dtype == dtype and bool(torch.allclose(
+                got.float(), ref.float(), rtol=tol, atol=tol)),
+                f"flash_decode ({dtype}) is {err} from the plain attention")
+        emit({"phase": "lm_mesh_flash_decode", "B": B, "T": T, "H": H,
+              "KV": KV, "hd": hd, "cases": dec})
+
+        # -- d. a checkpoint of DTensors, restored onto the mesh ------------
+        from torch.distributed.tensor import distribute_tensor
+        x = torch.randn((1024, 1024), generator=gen, device=dev)
+        y = x.to(torch.bfloat16)
+        tree = {"w": distribute_tensor(x, mesh, shd.placements(
+            mesh, ("data", "model"))), "b": distribute_tensor(
+            y, mesh, shd.placements(mesh, ()))}
+        cdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+        atexit.register(shutil.rmtree, cdir, True)
+        ckpt.save(cdir, tree, 1)
+        sh = {"w": shd.NamedSharding(mesh, ("model", "data")),
+              "b": shd.NamedSharding(mesh, (None, None))}
+        back, step_no = ckpt.restore(cdir, {"w": x, "b": y}, shardings=sh)
+        ok = (step_no == 1 and all(
+            torch.equal(back[k].full_tensor(), v) for k, v in
+            (("w", x), ("b", y)))
+              and all(tuple(back[k].placements) == sh[k].placements
+                      and back[k].device_mesh == mesh for k in sh))
+        emit({"phase": "lm_mesh_checkpoint", "equal_and_placed": ok,
+              "placements": {k: [str(p) for p in back[k].placements]
+                             for k in back}})
+        check(ok, "the checkpoint restored onto the mesh differs")
+    finally:
+        dist.destroy_process_group()
+
+    # -- e. the dry runs' records ------------------------------------------
+    recs = {}
+    for label, proc in runs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        recs[label] = json.loads(lines[-1]) if lines else \
+            {"status": "no record", "stderr": err[-2000:]}
+    bad = {k: r for k, r in recs.items() if r.get("status") != "ok"}
+    check(not bad, f"dry runs failed: {bad}")
+    first = recs[dryrun_cmds()[0][0]]
+    dry_gib = first["memory"]["peak_bytes_per_dev"] / 2 ** 30
+    emit({"phase": "lm_mesh_dryrun", "arch": "deepseek-7b",
+          "cell": dryrun_cmds()[0][0], "B": TRAIN_B, "S": TRAIN_S,
+          "dryrun_peak_gib": dry_gib, "measured_peak_gib": measured_peak_gib,
+          "ratio": dry_gib / measured_peak_gib,
+          "flops_per_dev": first["flops_per_dev"],
+          "t_trace_s": first["t_trace_s"]})
+    need = {label: {"devices": r["n_devices"], "batch": r["global_batch"],
+                    "peak_gib": r["memory"]["peak_bytes_per_dev"] / 2 ** 30,
+                    "params_gib": r["memory"]["param_bytes_per_dev"]
+                    / 2 ** 30,
+                    "opt_state_gib": r["memory"]["opt_state_bytes_per_dev"]
+                    / 2 ** 30,
+                    "flops_per_dev": r["flops_per_dev"],
+                    "useful_flops_ratio": r["useful_flops_ratio"],
+                    "fits_80gb": r["memory"]["peak_bytes_per_dev"] < 80e9,
+                    "t_trace_s": r["t_trace_s"]}
+            for label, r in recs.items() if label.startswith("30 layers")}
+    emit({"phase": "lm_mesh_dryrun_full_depth", "arch": "deepseek-7b",
+          "S": TRAIN_S, "rows_per_device": TRAIN_B, "per_device": need})
+    emit({"phase": "lm_mesh_total",
+          "wall_s": round(time.perf_counter() - t13, 3)})
 
 
 def main() -> int:
@@ -2112,8 +2508,6 @@ def main() -> int:
         raise Failed(f"no src/repro_torch beside {Path(__file__).name}: run "
                      f"it from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.algorithms import fields
-    from repro_torch.algorithms.consume import degree_cols
     from repro_torch.algorithms.critical_points import MAXIMUM, MINIMUM, \
         critical_points, total_order
     from repro_torch.algorithms.discrete_gradient import audit_gradient, \
@@ -2134,7 +2528,6 @@ def main() -> int:
         stage_fused
     from repro_torch.core.scheduler import segment_batches
     from repro_torch.core.segtables import precondition
-    from repro_torch.data.meshgen import structured_grid
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import completion_gather as cg
     from repro_torch.kernels import segment_relations as sr
@@ -2162,7 +2555,19 @@ def main() -> int:
 
     ops.relation_block_host = counted_host_arm
 
+    # phase 2's meshes are built by a host process of their own from here
+    # on, beside the build and the LM phases (``build_meshes``)
+    mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    atexit.register(shutil.rmtree, mesh_dir, True)
+    mesh_file = os.path.join(mesh_dir, "meshes.pkl")
+    mesh_proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--meshes",
+         mesh_file], cwd=ROOT, env=dict(os.environ,
+                                        PYTHONPATH=str(ROOT / "src")))
+    atexit.register(mesh_proc.kill)
+
     # -- 1. device and build -------------------------------------------------
+    mark("1")
     t0 = time.perf_counter()
     libs = _build.build(["segment_relations", "completion_gather", "counts",
                          "flash_attention", "flash_attention_wgmma",
@@ -2195,35 +2600,45 @@ def main() -> int:
           "gather": ptxas_of("completion_gather", "resolve_gather_kernel"),
           "flash_mma": ptxas_of("flash_attention_mma", "flash_fwd_mma")})
 
-    # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
-    def quickstart_mesh(n):
-        return structured_grid(n, n, n, scalar_fn=fields.gaussians(
-            0, k=4, sigma=3.0, scale=n))
+    # -- 9-13. the LM phases, while the host process builds the meshes -----
+    max_err = {k: 0 for k in KERNELS}
+    timing, launches = {}, {}
+    lm_phases(torch, dev, max_err, timing, launches)
+    lm_family_phases(torch, dev, launches)
+    train_peak = lm_train_phases(torch, dev, max_err, launches)
+    lm_mesh_phases(torch, dev, max_err, launches, train_peak)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    # -- 2. the 96^3 mesh, preconditioned once for both paths ---------------
+    mark("2")
     t0 = time.perf_counter()
-    mesh = quickstart_mesh(N)
-    sm = segment_mesh(mesh, capacity=64)
+    try:
+        rc = mesh_proc.wait(timeout=MESH_WAIT_S)
+    except subprocess.TimeoutExpired:
+        raise Failed(f"the mesh process ran past {MESH_WAIT_S} s") from None
+    check(rc == 0, f"the mesh process exited with {rc}")
     t1 = time.perf_counter()
-    pre = precondition(sm, relations=RELS)
+    with open(mesh_file + ".json") as f:
+        built_times = json.load(f)
+    with open(mesh_file, "rb") as f:
+        built = pickle.load(f)
+    os.remove(mesh_file)
+    mesh, sm, pre = built["mesh"], built["sm"], built["pre"]
     t2 = time.perf_counter()
-    # the consumers' exact column widths: one-time host work cached on
-    # ``pre``, done here so that it lands in no path wall below
-    degree_cols(pre, ("VV", "VE", "VF", "VT"))
-    t3 = time.perf_counter()
     tabs = pre.tables
     chi = sm.n_vertices - pre.n_edges + pre.n_faces - sm.n_tets
     rank = total_order(sm.scalars)
     emit({"phase": "mesh", "vertices": mesh.n_vertices,
           "edges": pre.n_edges, "faces": pre.n_faces, "tets": mesh.n_tets,
           "chi": chi, "segments": sm.n_segments, "NV": tabs.NV,
-          "NE": tabs.NE, "NF": tabs.NF, "NT": tabs.NT,
-          "segment_s": round(t1 - t0, 3), "precondition_s": round(t2 - t1, 3),
-          "degree_bound_s": round(t3 - t2, 3)})
+          "NE": tabs.NE, "NF": tabs.NF, "NT": tabs.NT, **built_times,
+          "waited_s": round(t1 - t0, 3), "load_s": round(t2 - t1, 3)})
 
     # -- 3. each relation-entry kernel arm against its plain version --------
+    mark("3")
     rng = np.random.default_rng(0)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    max_err = {k: 0 for k in KERNELS}
     arm_of = roofline.ENTRY_ARM
 
     def plain(relation, tx, ty, colg, nvl, deg):
@@ -2513,8 +2928,6 @@ def main() -> int:
     check(ok and tie, "the sub-join bitmask kernel gives two blocks, or "
                       "breaks its tie rule, past its precondition")
 
-    timing = {}
-
     def time_arm(key, relation, tx, ty, colg, deg, work, nv=nvl,
                  route=None):
         kw = {"route": route} if route else {}
@@ -2622,6 +3035,7 @@ def main() -> int:
                  entry_work(relation, tx, ty, colg, nvl, deg), route="bits")
 
     # -- 3b. the count kernels of the dense fallback ------------------------
+    mark("3b")
     def counts_compare(case, kind, *args):
         if kind == "meet":
             got = sr.relation_counts_meet_cuda(*args)
@@ -2748,6 +3162,7 @@ def main() -> int:
     del Ax, At, A8, C, T8, Tpad
 
     # -- 4. the critical-points path -----------------------------------------
+    mark("4")
     # warm the arms up on a small mesh first (module loading, allocator
     # pools), so that the walls below compare like with like
     wsm = segment_mesh(quickstart_mesh(16), capacity=64)
@@ -2835,14 +3250,15 @@ def main() -> int:
           "the dense assembly launched a sparse entry kernel")
 
     # -- 4b. segments whose whole masks do not fit: the row-share path ----
-    psm = segment_mesh(quickstart_mesh(SMALL_N), capacity=64)
-    ppre, prank = precondition(psm, RELS), total_order(psm.scalars)
-    t0 = time.perf_counter()
-    bsm = segment_mesh(quickstart_mesh(SMALL_N), capacity=BIG_CAPACITY)
-    bpre = precondition(bsm, relations=["VV", "VT"])
+    mark("4b")
+    psm, ppre = built["psm"], built["ppre"]
+    prank = total_order(psm.scalars)
+    bsm, bpre = built["bsm"], built["bpre"]
+    del built
     brank = total_order(bsm.scalars)
     bt = bpre.tables
-    setup_s = time.perf_counter() - t0
+    # built beside the LM phases by the mesh process (phase 2)
+    setup_s = built_times["big_capacity_s"]
     for relation in ("VV", "VT"):
         O = bt.NV if relation == "VV" else bt.NT
         check(sr.bits_smem_bytes(bt.NV, O) > limit
@@ -2910,6 +3326,7 @@ def main() -> int:
     del bT, bV, bpre, bsm
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
+    mark("5")
     def ms_path(p, r, backend, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2971,8 +3388,8 @@ def main() -> int:
     all_bits("the gradient -> Morse-Smale path", ms_launches)
     # the critical-points paths at 96^3 and at capacity 1024, then the
     # gradient -> Morse-Smale path
-    launches = {k: cp_launches[k] + big_launches[k] for k in
-                ("VV_bits", "VV_sort", "member_bits", "member_sort")}
+    launches.update({k: cp_launches[k] + big_launches[k] for k in
+                     ("VV_bits", "VV_sort", "member_bits", "member_sort")})
     launches["member_bits"] += ms_launches["member_bits"]
     launches["member_sort"] += ms_launches["member_sort"]
     launches.update({
@@ -3000,6 +3417,7 @@ def main() -> int:
     del eng, g
 
     # -- 6. the audit + persistence path at 96^3 (its engine serves phase 7)
+    mark("6")
     def audit_path(p, r, backend, n, shards=1, workers=1, policy=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3083,6 +3501,7 @@ def main() -> int:
     launches["vv_counts"] = dense_launches["vv_counts"]
 
     # -- 7. the completion gather kernel against its plain version, on a
+    mark("7")
     # real 96^3 completion chunk of phase 6's engine
     paired = np.nonzero(g.pair_t2f >= 0)[0]
     ids = paired[len(paired) // 2:len(paired) // 2 + CHUNK]
@@ -3252,25 +3671,19 @@ def main() -> int:
           "K": int(inv_seg.shape[0]), "pool": list(pool_M.shape),
           **timing["gather"]})
 
-    # -- 8. the corrupted audit and the FF rows, at 96^3 and 48^3 -----------
-    # the corrupted field's audit and a face sample's FF rows at 96^3 on
-    # the kernels, against the plain arm's (their reference pins are at
-    # 48^3, where both arms run, below)
-    big = bad_audit(eng, pre, g)
+    # -- 8. the corrupted audit and the FF rows, at 48^3 --------------------
+    mark("8")
+    # the corrupted field's audit and a face sample's FF rows on both arms
+    # at 48^3, against the reference's pins (the 96^3 audit is phase 6's)
     del eng
-    emit({"phase": "bad_audit", "n": N, "cuda": big,
-          "torch": PLAIN_BAD_AUDIT_96})
-    check(big["bad_audit"] == PLAIN_BAD_AUDIT_96["bad_audit"]
-          and big["ff_sha256"] == PLAIN_BAD_AUDIT_96["ff_sha256"],
-          "the corrupted audit or the FF rows differ from the plain arm's")
-    check(big["bad_audit"]["tt_conflicts"] >= SITES
-          and big["bad_audit"]["ff_conflicts"] >= SITES,
-          f"the corrupted audit missed a double claim: {big['bad_audit']}")
-
     for backend in ("cuda", "torch"):
         seng, sg, sout = audit_path(ppre, prank, backend, SMALL_N)
         small = bad_audit(seng, ppre, sg)
         emit({**sout, **small})
+        check(small["bad_audit"]["tt_conflicts"] >= SITES
+              and small["bad_audit"]["ff_conflicts"] >= SITES,
+              f"{backend}: the corrupted audit missed a double claim: "
+              f"{small['bad_audit']}")
         for key in ("bad_audit", "ff_sha256"):
             check(small[key] == REF_PATH[SMALL_N][key],
                   f"{backend} {SMALL_N}^3: {key} {small[key]} != reference "
@@ -3278,6 +3691,7 @@ def main() -> int:
         del seng
 
     # -- 8b. the compared data structures, the fused loop, analyze_mesh ----
+    mark("8b")
     def zero_counts():
         for k in sr.LAUNCHES:
             sr.LAUNCHES[k] = 0
@@ -3455,6 +3869,7 @@ def main() -> int:
     del rows
 
     # -- 8c. segment shards on the one card ----------------------------------
+    mark("8c")
     # a. critical points at 96^3 through four logical shards on cuda:0,
     # against the pin, beside phase 8b's one-shard GALE wall (same call)
     SHARDS = 4
@@ -3708,6 +4123,7 @@ def main() -> int:
           "wall_s": round(time.perf_counter() - t8c, 3)})
 
     # -- 8d. fault recovery on the card -------------------------------------
+    mark("8d")
     t8d = time.perf_counter()
     emit({"phase": "host_arm_before_faults", "calls": host_calls[0]})
     check(host_calls[0] == 0,
@@ -3734,17 +4150,15 @@ def main() -> int:
               f"{label}: merged_worker_stats() != stats")
         return wrapped
 
-    def fault_cp(label, policy, n=N, **kw):
-        """critical_points in consumer batches of 8 on two workers under
-        ``policy`` (at 96^3, or at 48^3 with ``n=SMALL_N``), launch
-        counters zeroed just before and read just after; ``types`` against
-        the pin. The device pool holds 4096 segments a shard, as the audit
-        path's: at the default 256 two workers thrash it (on an H100 80GB
-        HBM3: 27,376 uploads of 27,648 reads, 22.4 s against one
-        worker's 7.1 s)."""
-        p, r, ref_counts, ref_sha = (
-            (pre, rank, REF_COUNTS, REF_TYPES_SHA256) if n == N else
-            (ppre, prank, REF_CP_48["counts"], REF_CP_48["types_sha256"]))
+    def fault_cp(label, policy, **kw):
+        """critical_points at 48^3 in consumer batches of 8 on two workers
+        under ``policy``, launch counters zeroed just before and read just
+        after; ``types`` against the pin. The device pool holds 4096
+        segments a shard, as the audit path's: at the default 256 two
+        workers thrash it (at 96^3 on an H100 80GB HBM3: 27,376 uploads of
+        27,648 reads, 22.4 s against one worker's 7.1 s)."""
+        p, r = ppre, prank
+        ref_counts, ref_sha = REF_CP_48["counts"], REF_CP_48["types_sha256"]
         kw.setdefault("dev_pool_segments", 4096)
         zero_counts()
         host0 = host_calls[0]
@@ -3759,7 +4173,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         c = read_counts()
         st = eng.stats
-        out = {"phase": "fault_scenario", "scenario": label, "n": n,
+        out = {"phase": "fault_scenario", "scenario": label, "n": SMALL_N,
                "wall_s": round(wall, 3), "init_s": round(init_s, 3),
                **{k: getattr(st, k) for k in FAULT_COUNTERS},
                "kernel_launches": st.kernel_launches,
@@ -3795,17 +4209,11 @@ def main() -> int:
         check(out["degraded_launches"] == 0 and out["host_arm_calls"] == 0,
               f"{label}: production left the card: {out}")
 
-    # the 96^3 schedules beside the 96^3 baseline; the breaker, device-lost
-    # and upload-oom ones at 48^3 beside a 48^3 baseline (at 96^3 they took
-    # 3.8, 11.9 and 20.8 s on an H100 80GB HBM3, 33.1 s for the breaker's
-    # one segment a launch; the 96^3 re-home is held below, on the gather)
-    eng, out = fault_cp("baseline", FaultPolicy())
-    base_wall = out["wall_s"]
-    emit(out)
-    check(all(out[k] == 0 for k in FAULT_COUNTERS),
-          f"the fault-free run moved a fault counter: {out}")
-    on_card("baseline", out)
-    eng, out = fault_cp("baseline-48", FaultPolicy(), n=SMALL_N)
+    # every schedule at 48^3 beside a 48^3 baseline (at 96^3 the
+    # baseline, transient-launch and hung-sync runs took 16.8, 15.1 and
+    # 15.5 s on an H100 80GB HBM3, the breaker's one segment a launch 33.1
+    # s; the 96^3 re-home is held below, on the gather)
+    eng, out = fault_cp("baseline-48", FaultPolicy())
     base48_wall = out["wall_s"]
     emit(out)
     check(all(out[k] == 0 for k in FAULT_COUNTERS),
@@ -3816,7 +4224,7 @@ def main() -> int:
                                    count=6)])
     eng, out = fault_cp("transient-launch",
                         FaultPolicy(injector=inj, backoff_s=0.001))
-    emit({**out, "baseline_wall_s": base_wall})
+    emit({**out, "baseline_wall_s": base48_wall})
     check(out["injected"] == 6 and out["retries"] >= 6
           and out["failed_launches"] == 0, f"transient-launch: {out}")
     on_card("transient-launch", out)
@@ -3826,7 +4234,7 @@ def main() -> int:
     eng, out = fault_cp("degraded-breaker",
                         FaultPolicy(injector=inj, breaker_threshold=2,
                                     breaker_cooldown_s=0.01),
-                        n=SMALL_N, batch_max=1, lookahead=0)
+                        batch_max=1, lookahead=0)
     emit({**out, "baseline_wall_s": base48_wall})
     check(out["breaker_trips"] >= 1 and out["breaker_recoveries"] >= 1
           and out["degraded_launches"] >= 1, f"degraded-breaker: {out}")
@@ -3835,14 +4243,14 @@ def main() -> int:
     eng, out = fault_cp("hung-sync",
                         FaultPolicy(injector=inj, sync_timeout_s=0.05,
                                     sync_poll_s=0.005))
-    emit({**out, "baseline_wall_s": base_wall})
+    emit({**out, "baseline_wall_s": base48_wall})
     check(out["sync_timeouts"] >= 1 and out["failed_launches"] >= 1
-          and out["wall_s"] < base_wall + 5.0, f"hung-sync: {out}")
+          and out["wall_s"] < base48_wall + 5.0, f"hung-sync: {out}")
     on_card("hung-sync", out)
 
     inj = FaultInjector([FaultSpec(kind="device-lost", shard=0, count=1)])
     eng, out = fault_cp("device-lost", FaultPolicy(injector=inj),
-                        n=SMALL_N, shards=2)
+                        shards=2)
     lo, hi = eng.shard_plan.shard_bounds(0)
     out["shard0_segments"] = hi - lo
     out["pool_route"] = list(eng.store._route)
@@ -3855,7 +4263,7 @@ def main() -> int:
     inj = FaultInjector([FaultSpec(kind="upload", count=2)])
     # one launch a shard pool, so that reads find evicted blocks and upload
     eng, out = fault_cp("upload-oom", FaultPolicy(injector=inj),
-                        n=SMALL_N, dev_pool_segments=BATCH)
+                        dev_pool_segments=BATCH)
     emit({**out, "baseline_wall_s": base48_wall})
     check(out["injected"] == 2 and out["degraded_reads"] >= 1
           and out["devpool_uploads"] >= 1, f"upload-oom: {out}")
@@ -3952,6 +4360,7 @@ def main() -> int:
           "wall_s": round(time.perf_counter() - t8d, 3)})
 
     # -- 8e. kernel-parameter autotuning -------------------------------------
+    mark("8e")
     t8e = time.perf_counter()
     check(not os.path.exists(tune_path),
           "a tuning table existed before phase 8e")
@@ -4106,15 +4515,13 @@ def main() -> int:
     check(same, "the tuned engine's blocks differ from the untuned one's")
     del teng, oeng
 
-    lm_phases(torch, dev, max_err, timing, launches)
-    lm_family_phases(torch, dev, launches)
-    lm_train_phases(torch, dev, max_err, launches)
-
     # -- summary -------------------------------------------------------------
+    mark("summary")
     check(all(launches[arm] > 0 for arm in KERNELS if arm not in FORCED),
           f"a kernel was launched no time on its path: {launches}")
     emit({"phase": "total", "wall_s": round(time.perf_counter() - t_start,
                                             3)})
+    emit({"phase": "phase_walls", "walls_s": phase_walls()})
     emit({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[arm],
@@ -4132,6 +4539,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--meshes"]:
+        sys.exit(build_meshes(sys.argv[2]))
     try:
         sys.exit(main())
     except Failed as exc:

@@ -11,8 +11,13 @@ writes one ``.npz``; separate files spare the zip archive's checksum pass
 over what is tens of GB at full width. bf16 leaves, which numpy lacks,
 are stored as their raw 16-bit words. ``restore`` reads
 a step into the structure of a tree like the one saved, each leaf on that
-tree's device in its dtype. Resharding on restore (the reference's
-``shardings=``) waits for the sharded LM, ROADMAP queue 1 item 3.5.
+tree's device in its dtype, or, given ``shardings=``, onto any mesh
+(elastic restore: the saved layout is the global one, whatever mesh wrote
+it).
+
+A tree of DTensors (the sharded LM's) is saved whole: each leaf gathered
+once (``full_tensor``, a collective every rank joins), written by rank 0,
+then a barrier.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def flatten(tree, prefix="") -> Dict[str, torch.Tensor]:
@@ -57,8 +64,15 @@ def save(path: str, tree, step: int, keep: int = 3) -> str:
     base = os.path.abspath(path)
     os.makedirs(base, exist_ok=True)
     final = os.path.join(base, f"step_{step:08d}")
-    tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=base)
     flat = flatten(tree)
+    sharded = any(isinstance(t, DTensor) for t in flat.values())
+    if sharded:
+        flat = {n: t.full_tensor() if isinstance(t, DTensor) else t
+                for n, t in flat.items()}
+        if dist.get_rank() != 0:
+            dist.barrier()                 # rank 0 writes
+            return final
+    tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=base)
     for i, t in enumerate(flat.values()):
         np.save(os.path.join(tmp, f"a{i}.npy"), _to_numpy(t))
     manifest = {
@@ -76,6 +90,8 @@ def save(path: str, tree, step: int, keep: int = 3) -> str:
         shutil.rmtree(final)
     os.rename(tmp, final)
     _gc(base, keep)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -96,11 +112,19 @@ def restore(path: str, tree_like, step: Optional[int] = None,
             shardings=None) -> Tuple[dict, int]:
     """The tensors of ``step`` (default: the latest) in the structure of
     ``tree_like``, each leaf a new tensor on its ``tree_like`` leaf's
-    device and in its dtype. Returns (tree, step)."""
+    device and in its dtype. ``shardings``: a tree with the same names
+    whose leaves have ``mesh`` and ``placements``
+    (``distributed.sharding.NamedSharding``): each leaf is then a DTensor
+    on them, in its ``tree_like`` leaf's dtype (``distribute_tensor``, from
+    rank 0's read). Returns (tree, step)."""
+    like = flatten(tree_like)
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto other shardings needs the sharded LM: ROADMAP "
-            "queue 1 item 3.5")
+        shardings = flatten(shardings)
+        if list(shardings) != list(like):
+            raise ValueError(
+                f"shardings name other tensors than the tree: missing "
+                f"{sorted(set(like) - set(shardings))[:5]}, unexpected "
+                f"{sorted(set(shardings) - set(like))[:5]}")
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -108,7 +132,6 @@ def restore(path: str, tree_like, step: Optional[int] = None,
     d = os.path.join(os.path.abspath(path), f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    like = flatten(tree_like)
     if manifest["names"] != list(like):
         raise ValueError(f"checkpoint {d} holds other tensors than the tree "
                          f"given ({manifest['n_leaves']} against "
@@ -118,5 +141,11 @@ def restore(path: str, tree_like, step: Optional[int] = None,
         t = torch.from_numpy(np.load(os.path.join(d, f"a{i}.npy")))
         if manifest["dtypes"][i] == "bfloat16":
             t = t.view(torch.bfloat16)
-        flat[name] = t.to(device=ref.device, dtype=ref.dtype)
+        if shardings is None:
+            flat[name] = t.to(device=ref.device, dtype=ref.dtype)
+        else:
+            sh = shardings[name]
+            flat[name] = distribute_tensor(
+                t.to(device=sh.mesh.device_type, dtype=ref.dtype), sh.mesh,
+                sh.placements)
     return _unflatten(flat, tree_like), step

@@ -198,3 +198,15 @@ def flash_work(B: int, S: int, T: int, H: int, KV: int, hd: int,
     moved = (2 * B * S * H + 2 * B * T * KV) * hd * es
     flops = 4 * B * H * hd * attention_pairs(S, T, causal)
     return Work(moved, float(flops), FLOPS_PER_S[dtype])
+
+
+def model_flops(cfg, shape) -> float:
+    """The reference's MODEL_FLOPS (``launch/roofline.py``): 6 N D for a
+    train step, 2 N D for inference, N the active parameters (a MoE's
+    routed experts only), D the tokens of the global batch a step (one per
+    row in decode). The dry run divides it by the mesh's devices."""
+    n = cfg.active_param_count()
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    mult = 6 if shape.kind == "train" else 2
+    return mult * n * tokens

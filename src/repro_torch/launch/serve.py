@@ -13,6 +13,7 @@ kernels on a card). Weights are random, drawn from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -26,14 +27,16 @@ from ..models import lm
 
 
 def generate(cfg, params, prompts: np.ndarray, gen: int, cache_len: int,
-             *, backend: Optional[str] = None) -> np.ndarray:
+             *, backend: Optional[str] = None, rt=None) -> np.ndarray:
     """prompts (B, P) -> generated tokens (B, gen). Greedy. The prompt is
     consumed through the decode path token-by-token (prefill-by-decode),
-    as in the reference; a vlm step's rope positions are (t, t, t)."""
+    as in the reference; a vlm step's rope positions are (t, t, t).
+    ``rt``: the runtime whose mesh the parameters are distributed on (the
+    cache is laid out on it)."""
     B, P = prompts.shape
     dev = params.embed.table.device
-    cache = lm.init_cache(cfg, B, cache_len, dev)
-    step = make_serve_step(cfg, backend)
+    cache = lm.init_cache(cfg, B, cache_len, dev, rt=rt)
+    step = make_serve_step(cfg, backend, rt)
     prompts_d = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
     tok = prompts_d[:, :1]
     out = []
@@ -60,12 +63,17 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default=None, choices=ops.BACKENDS)
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.family == "encdec":
         raise SystemExit("encdec is served through prefill_fn / decode_fn, "
                          "not this prompt loop")

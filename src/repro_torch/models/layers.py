@@ -320,6 +320,7 @@ def attention(
     cache_pos: Optional[torch.Tensor] = None,
     kv: Optional[torch.Tensor] = None,     # cross-attention source
     backend: str = "torch",
+    rt=None,
 ):
     """Returns (out (B,S,D), the KV cache or None).
 
@@ -336,7 +337,15 @@ def attention(
     kernel (with the ``"torch"`` arm's backward,
     :func:`flash_attention_trainable`), ``"torch"`` -> ``_sdpa`` /
     ``_sdpa_chunked``.
+
+    ``rt`` (a :class:`~repro_torch.distributed.sharding.Runtime` with a
+    mesh) runs :func:`_attention_sharded` instead.
     """
+    if rt is not None and rt.mesh is not None:
+        return _attention_sharded(
+            p, x, cos, sin, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+            dtype=dtype, causal=causal, kv_cache=kv_cache,
+            cache_pos=cache_pos, kv=kv, backend=backend, rt=rt)
     B, S, D = x.shape
     src = x if kv is None else kv.to(dtype)
     Ts = src.shape[1]
@@ -369,23 +378,127 @@ def attention(
         out = _sdpa(q, repeat_kv(K.to(dtype), n_heads),
                     repeat_kv(V.to(dtype), n_heads), mask, dtype)
     else:
-        is_causal = causal and kv is None
-        if backend == "cuda":
-            out = flash_attention_trainable(q, k, v, causal=is_causal)
-        else:
-            kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
-            if S >= ATTN_CHUNK_THRESHOLD and S % ATTN_Q_CHUNK == 0:
-                out = _sdpa_chunked(q, kf, vf, is_causal, dtype)
-            else:
-                if is_causal:
-                    mask = torch.ones((S, Ts), dtype=torch.bool,
-                                      device=x.device).tril()[None, None]
-                else:
-                    mask = torch.ones((1, 1, S, Ts), dtype=torch.bool,
-                                      device=x.device)
-                out = _sdpa(q, kf, vf, mask, dtype)
+        out = _attend(q, k, v, causal and kv is None, backend, dtype)
     out = out.reshape(B, S, n_heads * head_dim) @ w(p.wo).reshape(-1, D)
     return out, new_cache
+
+
+def _attend(q, k, v, is_causal: bool, backend: str, dtype):
+    """Attention without a cache: q (B, S, H, hd), k/v (B, T, KV, hd)."""
+    S, Ts, n_heads = q.shape[1], k.shape[1], q.shape[2]
+    if backend == "cuda":
+        return flash_attention_trainable(q, k, v, causal=is_causal)
+    kf, vf = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
+    if S >= ATTN_CHUNK_THRESHOLD and S % ATTN_Q_CHUNK == 0:
+        return _sdpa_chunked(q, kf, vf, is_causal, dtype)
+    if is_causal:
+        mask = torch.ones((S, Ts), dtype=torch.bool,
+                          device=q.device).tril()[None, None]
+    else:
+        mask = torch.ones((1, 1, S, Ts), dtype=torch.bool, device=q.device)
+    return _sdpa(q, kf, vf, mask, dtype)
+
+
+def _attention_sharded(p: Attention, x, cos, sin, *, n_heads, n_kv,
+                       head_dim, dtype, causal, kv_cache, cache_pos, kv,
+                       backend, rt):
+    """:func:`attention` under ``rt``'s mesh. The projections are DTensor
+    products on the sharded weights; the rest runs on each rank's shards
+    (``rt.local``), as the reference's GSPMD and ``shard_map`` place it.
+
+    Without a cache, q, k and v go to their heads over the TP axis
+    (``hint_heads``; k and v stay whole where the KV heads do not divide,
+    and each rank repeats them to its own query heads), and each rank
+    applies rope and runs :func:`_attend` (the flash kernel on the
+    ``"cuda"`` arm: a ctypes kernel takes no DTensor) on its batch rows
+    and heads. In decode (one token), the cache must lie as
+    ``rt.kv_seq_spec()`` says: each rank writes the new K and V only where
+    the position falls in its own slice of the sequence (DTensor has no
+    rule for that indexed write), then ``rt.flash_decode`` attends over
+    the slices, their max and sums reduced across them."""
+    from ..distributed.sharding import Shard
+    B, S, D = x.shape
+    src = x if kv is None else kv.to(dtype)
+    Ts = src.shape[1]
+
+    def w(t):
+        return t.to(dtype)
+    q = (x @ w(p.wq).reshape(D, -1)).view(B, S, n_heads, head_dim)
+    k = (src @ w(p.wk).reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+    v = (src @ w(p.wv).reshape(D, -1)).view(B, Ts, n_kv, head_dim)
+    if p.bq is not None:
+        q = q + w(p.bq)
+        k = k + w(p.bk)
+        v = v + w(p.bv)
+    rope_k = cos is not None and kv is None
+    b4 = rt.batch_spec(B, 4)
+    b3 = rt.batch_spec(B, 3)
+
+    if kv_cache is None:
+        q = rt.hint_heads(q)
+        heads = isinstance(q.placements[rt.mesh.mesh_dim_names.index(
+            rt.tp_axis)], Shard)
+        kv_spec = (b4[0], None, rt.tp_axis, None) \
+            if heads and n_kv % rt.size(rt.tp_axis) == 0 else b4
+        is_causal = causal and kv is None
+        tp_rank = rt.mesh.get_local_rank(rt.tp_axis)
+
+        def body(q_, k_, v_, cos_, sin_):
+            if cos_ is not None:
+                q_ = apply_rope(q_, cos_, sin_)
+                if rope_k:
+                    k_ = apply_rope(k_, cos_, sin_)
+            h_loc = q_.shape[2]
+            if h_loc < n_heads and k_.shape[2] == n_kv:
+                # whole KV heads here: this rank's query heads' share
+                h0 = tp_rank * h_loc
+                k_ = repeat_kv(k_, n_heads)[:, :, h0:h0 + h_loc]
+                v_ = repeat_kv(v_, n_heads)[:, :, h0:h0 + h_loc]
+            return _attend(q_, k_, v_, is_causal, backend, dtype)
+        out = rt.local(body, (q, k, v, cos, sin),
+                       ((b4[0], None, rt.tp_axis, None), kv_spec, kv_spec,
+                        b3, b3), q.placements)
+    else:
+        if S != 1:
+            raise ValueError(f"sharded decode writes one token a step, got "
+                             f"{S}")
+        K, V = kv_cache
+        want = rt.placements_for(K.shape, rt.kv_seq_spec())
+        for name, t in (("K", K), ("V", V)):
+            if tuple(t.placements) != want:
+                raise ValueError(f"the {name} cache lies as {t.placements}, "
+                                 f"not as the runtime's kv_seq_spec {want} "
+                                 f"(lm.init_cache(..., rt=rt))")
+        T = K.shape[1]
+        K_l, V_l = K.to_local(), V.to_local()
+        t_loc = K_l.shape[1]
+        # the sequence is split where the cache's spec kept its axes
+        split = any(isinstance(pl, Shard) and pl.dim == 1 for pl in want)
+        off = rt.seq_offset(t_loc) if split else 0
+        # the cache's own batch split (none for a long context's)
+        b = rt.batch_axes if any(isinstance(pl, Shard) and pl.dim == 0
+                                 for pl in want) else None
+
+        def write(q_, k_, v_, cos_, sin_, pos_):
+            if cos_ is not None:
+                q_ = apply_rope(q_, cos_, sin_)
+                k_ = apply_rope(k_, cos_, sin_)
+            rows = pos_.long().clamp(0, T - 1) - off
+            mine = ((rows >= 0) & (rows < t_loc))[:, None, None]
+            r = rows.clamp(0, t_loc - 1)
+            bidx = torch.arange(q_.shape[0], device=q_.device)
+            for C, new in ((K_l, k_), (V_l, v_)):
+                C[bidx, r] = torch.where(mine, new[:, 0].to(C.dtype),
+                                         C[bidx, r])
+            return q_
+        bq = (b, None, None, None)
+        q = rt.local(write, (q, k, v, cos, sin, cache_pos),
+                     (bq, bq, bq, (b, None, None), (b, None, None), (b,)),
+                     rt.placements_for(q.shape, bq))
+        out = rt.flash_decode(q, K, V, cache_pos)
+    out = rt.hint_heads(out)
+    out = out.reshape(B, S, n_heads * head_dim) @ w(p.wo).reshape(-1, D)
+    return out, kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -431,10 +544,6 @@ class Embed(nn.Module):
 
     def reset(self, generator):
         trunc_normal_(self.table, 1.0, generator)
-
-
-def embed(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p.table.to(dtype)[tokens.long()]
 
 
 def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:

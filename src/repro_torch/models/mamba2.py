@@ -17,6 +17,7 @@ step, as in the reference), never written into the cache in place.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -90,15 +91,6 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out, xp[:, -(K - 1):, :].clone()
 
 
-def _split(p: Mamba2, u: torch.Tensor, cfg):
-    di, st = cfg.d_inner, cfg.ssm_state
-    zxbcdt = dense(p.in_proj, u)
-    z = zxbcdt[..., :di]
-    xBC = zxbcdt[..., di:di + di + 2 * st]
-    dt = zxbcdt[..., di + di + 2 * st:]
-    return z, xBC, dt
-
-
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
                 init_state: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
@@ -154,23 +146,57 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
 
 
 def mamba2_forward(p: Mamba2, u: torch.Tensor, cfg, dtype,
-                   state: Optional[Tuple] = None):
+                   state: Optional[Tuple] = None, rt=None):
     """u (B,S,d). state = (ssm_state (B,h,p,n), conv_state (B,K-1,C)) for
     streaming. Returns (out (B,S,d), new_state): one token against a state
-    takes the recurrent update, anything else the chunked scan."""
+    takes the recurrent update, anything else the chunked scan.
+
+    Under ``rt``'s mesh the projections are DTensor products and the mixer
+    between them (:func:`_mixer`: the conv, the scan's cumsums and the
+    gated norm, which DTensor has no rules for) runs on each rank's batch
+    rows, its input redistributed to the TP axis replicated."""
+    if rt is not None and rt.mesh is not None:
+        zxbcdt = dense(p.in_proj, u)
+        B = u.shape[0]
+        b3, b4, b5 = (rt.batch_spec(B, n) for n in (3, 4, 5))
+        ssm_in, conv_in = (None, None) if state is None else state
+        params = (p.conv_w, p.conv_b, p.A_log, p.D, p.dt_bias, p.norm.g)
+        pl = [rt.placements_for(zxbcdt.shape, b3)]
+        pl.append(rt.placements_for((B, 1, 1, 1), b4))
+        pl.append(pl[0])
+        y, final, conv_out = rt.local(
+            lambda z, ssm, conv, *w: _mixer(z, *w, cfg, dtype,
+                                            None if ssm is None
+                                            else (ssm, conv)),
+            (zxbcdt, ssm_in, conv_in) + params,
+            (b3, b4, b3) + ((),) * len(params), pl)
+        return dense(p.out_proj, y), (final, conv_out)
+    y, final, conv_out = _mixer(dense(p.in_proj, u), p.conv_w, p.conv_b,
+                                p.A_log, p.D, p.dt_bias, p.norm.g, cfg,
+                                dtype, state)
+    return dense(p.out_proj, y), (final, conv_out)
+
+
+def _mixer(zxbcdt, conv_w, conv_b, A_log, Dp, dt_bias, norm_g, cfg, dtype,
+           state):
+    """The mixer between the two projections: the causal conv, the scan
+    (or the recurrent step) and the gated norm. Returns (y (B,S,d_inner),
+    the ssm state, the conv state)."""
     di, st, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     pdim = cfg.ssm_headdim
-    B, S = u.shape[:2]
-    z, xBC, dt = _split(p, u, cfg)
+    B, S = zxbcdt.shape[:2]
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + di + 2 * st]
+    dt = zxbcdt[..., di + di + 2 * st:]
     conv_in = None if state is None else state[1]
-    xBC, conv_out = _causal_conv(xBC, p.conv_w, p.conv_b, conv_in)
+    xBC, conv_out = _causal_conv(xBC, conv_w, conv_b, conv_in)
     xBC = F.silu(xBC)
     x = xBC[..., :di].reshape(B, S, h, pdim)
     Bm = xBC[..., di:di + st]
     Cm = xBC[..., di + st:]
-    dtf = dt.float() + p.dt_bias
+    dtf = dt.float() + dt_bias
     dtv = torch.logaddexp(dtf, dtf.new_zeros(()))     # jax.nn.softplus
-    A = -torch.exp(p.A_log)
+    A = -torch.exp(A_log)
     ssm_in = None if state is None else state[0]
 
     if S == 1 and state is not None:
@@ -185,8 +211,7 @@ def mamba2_forward(p: Mamba2, u: torch.Tensor, cfg, dtype,
         final = new_ssm
     else:
         y, final = ssd_chunked(x, dtv, A, Bm, Cm, cfg.ssm_chunk, ssm_in)
-    y = y + x * p.D.to(dtype)[None, None, :, None]
+    y = y + x * Dp.to(dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
-    y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = dense(p.out_proj, y)
-    return out, (final, conv_out)
+    y = rmsnorm(SimpleNamespace(g=norm_g), y * F.silu(z), cfg.norm_eps)
+    return y, final, conv_out

@@ -47,7 +47,10 @@ class AdamWConfig:
 
 
 def _zeros(params: Named) -> Named:
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """float32 zeros laid out as each parameter (a DTensor's on its
+    placements)."""
+    return {n: torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
             for n, p in params.items()}
 
 

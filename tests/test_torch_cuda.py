@@ -1149,34 +1149,72 @@ def test_flash_trainable_gradient_equals_the_plain_one(cuda, causal, H, KV,
                                    atol=tol * scale)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_train_step_on_the_card_equals_the_torch_arm(cuda, dtype):
+def _flash_calls(cfg) -> int:
+    """Flash-attention calls in one forward of ``cfg``'s model: each
+    attention without a cache (the hybrid's shared block once a group;
+    encdec's encoder, decoder and cross attention)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+# one smoke arch per family (deepseek-7b: dense), each in the dtypes its
+# kernels serve: gemma-7b's at hd 256 in bf16 is flash_fwd_wgmma's. The moe
+# in float32 only: in bf16 the arms' attention outputs differ in the last
+# bits, enough to flip a token's expert choice. The tolerances are
+# tests/_train_tol.py's: the dtype's, the hybrid's scaled by its measured
+# conditioning (float32) or by the spread of two correct arms (bf16).
+_TRAIN_ARCHS = [("deepseek-7b", "float32"), ("deepseek-7b", "bfloat16"),
+                ("qwen2-vl-7b", "float32"), ("qwen2-vl-7b", "bfloat16"),
+                ("granite-moe-3b-a800m", "float32"),
+                ("zamba2-2.7b", "float32"), ("zamba2-2.7b", "bfloat16"),
+                ("whisper-base", "float32"), ("whisper-base", "bfloat16"),
+                ("gemma-7b", "bfloat16")]
+
+
+@pytest.mark.parametrize("arch, dtype", _TRAIN_ARCHS)
+def test_train_step_on_the_card_equals_the_torch_arm(cuda, arch, dtype):
     """One make_train_step of a smoke config on the kernels' arm and on
     the plain arm of the card from the same float32 masters: the flash
-    kernel once per layer, the loss and every gradient within float32
-    2e-5 / bf16 2e-2 of the plain arm's, every updated parameter too, plus
-    2 lr: AdamW's first step moves a weight by lr * sign(g), so a gradient
-    entry near zero whose sign differs between the arms moves its weight
-    2 lr apart."""
+    kernel once per attention call, the loss and every gradient within
+    float32 2e-5 / bf16 2e-2 of the plain arm's, every updated parameter
+    too, plus 2 lr: AdamW's first step moves a weight by lr * sign(g), so
+    a gradient entry near zero whose sign differs between the arms moves
+    its weight 2 lr apart. The vlm trains through M-RoPE, the moe through
+    the index_add_ backward, the hybrid through its shared block's summed
+    gradient (at ``_train_tol.tolerance``: its recurrence amplifies the
+    attention's rounding), encdec through non-causal cross attention, and
+    gemma-7b (its head dim set to the full config's 256) through
+    flash_fwd_wgmma."""
+    from _train_tol import tolerance
     from repro_torch.launch import steps, train
     from repro_torch.optim import adamw
     from repro_torch.data.tokens import SyntheticTokens
-    cfg = dataclasses.replace(configs.get_smoke_config("deepseek-7b"),
-                              dtype=dtype)
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=dtype)
+    if arch == "gemma-7b":
+        cfg = dataclasses.replace(cfg, head_dim=256)
     model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
                            torch.float32)
     batch = train.train_batch(cfg, SyntheticTokens(cfg.vocab).batch(
         0, 2, 128), cuda)
-    tol = _TRAIN_TOL[getattr(torch, dtype)]
+    tol = tolerance(arch, dtype)
     out = {}
     for backend in ("cuda", "torch"):
         on_card = lm.build(cfg, cuda, torch.float32)
         on_card.load_state_dict(model.state_dict())
-        before = flash_attention.LAUNCHES["flash"]
+        before = dict(flash_attention.LAUNCHES)
         loss, grads = steps.loss_and_grads(on_card, batch, cfg, backend)
         torch.cuda.synchronize()
-        assert flash_attention.LAUNCHES["flash"] - before == \
-            (cfg.n_layers if backend == "cuda" else 0)
+        ran = {k: flash_attention.LAUNCHES[k] - before[k]
+               for k in before}
+        assert ran["flash"] == (_flash_calls(cfg) if backend == "cuda"
+                                else 0), ran
+        if arch == "gemma-7b" and backend == "cuda":
+            assert ran["flash_wgmma"] == ran["flash"], ran
         opt = adamw.AdamWConfig(total_steps=4)
         step = steps.make_train_step(cfg, opt, backend)
         state = adamw.init_state(dict(on_card.named_parameters()), opt)

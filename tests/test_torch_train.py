@@ -39,6 +39,7 @@ from repro_torch.launch import specs, steps, train
 from repro_torch.models import layers, lm, moe
 from repro_torch.optim import adamw
 
+import _train_tol
 from _lm_ref import CPU, RT, setup
 
 B, S = 2, 64
@@ -299,3 +300,57 @@ def test_trainer_runs_every_family_on_the_cpu(arch, tmp_path):
                        "--ckpt-dir", str(tmp_path)])
     assert len(hist) == 2
     assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist)
+
+
+def test_the_hybrids_gradients_amplify_attention_rounding():
+    """Why the hybrid's train step on the card is held at a wider float32
+    tolerance (``tests/_train_tol.py``): a 1e-6 relative perturbation of
+    the attention output moves zamba2's gradients over 10x as far
+    (relative to that tolerance) as the dense family's; its recurrence
+    amplifies the kernels' 3xTF32 rounding, which is of that order. The
+    ratio is the factor the card test applies."""
+    dense = _train_tol.sensitivity(_train_tol.DENSE)
+    hybrid = _train_tol.sensitivity("zamba2-2.7b")
+    print(f"sensitivity: dense {dense}, hybrid {hybrid}, ratio "
+          f"{hybrid / dense}")
+    assert dense < 0.1 and hybrid > 10 * dense, (dense, hybrid)
+    assert _train_tol.tolerance("zamba2-2.7b", "float32") == \
+        _train_tol.TRAIN_TOL[torch.float32] * hybrid / dense
+
+
+def _wrong_kernels():
+    """Forwards a broken kernel could compute: the causal mask ignored, the
+    KV heads taken in the wrong order, the scores' scale 1% off."""
+    def noncausal(q, k, v, causal=True):
+        return fa.flash_attention_ref(q, k, v, causal=False)
+
+    def kv_flipped(q, k, v, causal=True):
+        return fa.flash_attention_ref(q, k.flip(2), v.flip(2), causal=causal)
+
+    def scale_off(q, k, v, causal=True):
+        return fa.flash_attention_ref(q * 0.99, k, v, causal=causal)
+    return {"noncausal": noncausal, "kv_flipped": kv_flipped,
+            "scale_off": scale_off}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_hybrids_card_tolerance_fails_a_wrong_kernel(dtype):
+    """The control of the hybrid's card tolerance (``tests/_train_tol.
+    py``): the kernel's plain forward stays within it, and a kernel that
+    ignores the causal mask or maps the KV heads wrongly does not, on the
+    card test's own measure. In float32 a 1% error in the scores' scale
+    fails it too; in bf16 it does not (the gradients through the hybrid
+    cannot tell it from bf16 rounding: within 2 spreads)."""
+    arch = "zamba2-2.7b"
+    factor = _train_tol.tolerance(arch, dtype) / \
+        _train_tol.TRAIN_TOL[getattr(torch, dtype)]
+    plain = _train_tol.deviation(arch, dtype, fa.flash_attention_ref)
+    wrong = {name: _train_tol.deviation(arch, dtype, f)
+             for name, f in _wrong_kernels().items()}
+    print(f"{dtype}: factor {factor}, plain forward {plain}, wrong {wrong}")
+    assert factor > 1
+    assert plain < factor
+    caught = ("noncausal", "kv_flipped") + (
+        ("scale_off",) if dtype == "float32" else ())
+    for name in caught:
+        assert wrong[name] > factor, (name, wrong[name], factor)
