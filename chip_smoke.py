@@ -23,15 +23,17 @@ phase 2's meshes, which phases 2-8e then read:
      sizes, nvl 8/11/31/33/127 and row counts that are not multiples of
      32; -1 slots inside sub-join rows; a fully valid lane vector; rows
      with L > deg; tables on each side of the old whole-mask limit, now
-     row shares, and past the member and sub-join one-row limits; lanes
+     row shares, past the member one-row limit, and on each side of the
+     sub-join's old NX 8192 limit, both now on the bitmask route; lanes
      too large for shared memory, which run from a device workspace; the
      bitmask kernels, a TT table with faces of three and four cofacets and
      a sub-join table with a repeated face key run twice for equal
      blocks); then
      the two count kernels of the dense fallback (meet: the 96^3 FF, EE
      and VF tables;
-     VV counts: the 96^3 tets) the same way, on B=1, prime sizes, all -1
-     rows, nvl=257 and ids of an oversize nvl=2**11. Times from CUDA
+     VV counts: the 96^3 tets, and at each row tile of 8, 16 and 32) the
+     same way, on B=1, prime sizes, all -1 rows, nvl=257 and ids of an
+     oversize nvl=2**11. Times from CUDA
      events beside the bound, the plain version's time and, for the count
      kernels, a one-hot ``torch.bmm`` (incidence prebuilt) as yardstick;
      each kernel's own time from CUDA-graph replay (``ms``) beside the
@@ -51,7 +53,13 @@ phase 2's meshes, which phases 2-8e then read:
      both arms, counters zeroed just before the kernels' run and read just
      after, ``types`` equal to the capacity-64 segmentation's; both routes
      held and timed at its shapes (the sort kernels forced: no path
-     reaches them any more, so they count no launch on the paths).
+     reaches them any more, so they count no launch on the paths). Then
+     EF and ET over every segment of that segmentation (NE 11,520 > 8192,
+     NF 18,048: the sub-join bitmask kernel in row shares) on the kernels
+     and on the plain arm, counters zeroed just before and read just after
+     (every sub-join launch on the bitmask route, none on the sort
+     kernel), every block equal; the bitmask and the forced sort kernel
+     held and timed at those shapes (B=64).
   5. gradient -> Morse-Smale path at 48^3 (phase 6 drives it at 96^3):
      ``RelationEngine(["VE","VF","VT","FT","TT"])`` ->
      ``discrete_gradient(co_prefetch=("TT",))`` -> ``morse_smale`` on the
@@ -387,6 +395,10 @@ SMALL_N = 48
 # (NV 2048, NT 8576: whole VV and VT masks past the opt-in limit, so the
 # bitmask kernels split each segment's rows over 4 and 11 blocks)
 BIG_CAPACITY = 1024
+# the sub-join relations phase 4b produces over every segment at that
+# capacity (NE 11,520 > 8192: the bitmask kernel in row shares, 115 and 55
+# blocks a segment)
+BIG_SUB_RELS = ["EF", "ET"]
 
 # the H100 SXM peaks every bound below is priced at live in the port's
 # roofline model (``repro_torch.launch.roofline``); tools/time_flash.py
@@ -715,11 +727,13 @@ def build_meshes(out_path: str) -> int:
     t4 = time.perf_counter()
     bsm = segment_mesh(quickstart_mesh(SMALL_N), capacity=BIG_CAPACITY)
     bpre = precondition(bsm, relations=["VV", "VT"])
+    # the sub-join past NX 8192 (NE 11,520): EF and ET on the same segments
+    epre = precondition(bsm, relations=BIG_SUB_RELS)
     t5 = time.perf_counter()
     with open(out_path, "wb") as f:
         pickle.dump({"mesh": mesh, "sm": sm, "pre": pre, "psm": psm,
-                     "ppre": ppre, "bsm": bsm, "bpre": bpre}, f,
-                    protocol=pickle.HIGHEST_PROTOCOL)
+                     "ppre": ppre, "bsm": bsm, "bpre": bpre, "epre": epre},
+                    f, protocol=pickle.HIGHEST_PROTOCOL)
     t6 = time.perf_counter()
     times = {"segment_s": t1 - t0, "precondition_s": t2 - t1,
              "degree_bound_s": t3 - t2, "small_s": t4 - t3,
@@ -2890,21 +2904,24 @@ def main() -> int:
           "the FT workspace case fits shared memory")
     compare("device-workspace lanes", "FT", cu(st["F"]), cu(st["T"]),
             cu(colg_for(st["T"])), 200, 4, route="sort")
-    # each side of the sub-join's one-row limit (on an H100's 227 KB: the
-    # lookup of NX = 8192 subject keys fits beside one row, of 8193 not)
+    # each side of the sub-join's old one-row limit (NX 8192, where the
+    # lookup of the whole segment's keys filled 128 KB): both now take the
+    # bitmask kernel, whose lookup holds only a block's rows; its one-row
+    # limit is NY (on an H100's 227 KB: 1,859,232 cofaces)
     ft = rand_tets(2, 1800, 200)
     fx = sub_tables(ft, pad=0)["F"]
-    sides = []
     for nx in (8192, 8193):
         check(fx.shape[1] <= nx, "the FT limit case has too many faces")
         tx = np.full((2, nx, 3), -1, dtype=np.int32)
         tx[:, :fx.shape[1]] = fx
-        side = sr.entry_route("FT", 200, ft.shape[1], limit, nx)
-        sides.append(side)
-        compare(f"{side} side of the sub-join limit", "FT", cu(tx), cu(ft),
-                cu(colg_for(ft)), 200, 4, want_route=side)
-    check(sides == ["bits", "sort"],
-          f"the sub-join limit cases fell on {sides} at {limit} bytes")
+        compare(f"NX {nx}, each side of the old sub-join limit", "FT",
+                cu(tx), cu(ft), cu(colg_for(ft)), 200, 4, want_route="bits")
+    sides = [sr.entry_route("FT", 200, ny, limit)
+             for ny in (1859232, 1859233)]
+    emit({"phase": "route_limits", "relation": "FT", "limit": limit,
+          "NY": [1859232, 1859233], "sides": sides})
+    check(limit != 232448 or sides == ["bits", "sort"],
+          f"the sub-join's one-row limit fell on {sides} at {limit} bytes")
     # the sub-join past its precondition: one face listed three times. The
     # bitmask kernel gives every entry of the key to the largest of the
     # three rows (its tie rule): two runs give equal blocks
@@ -2929,7 +2946,10 @@ def main() -> int:
                       "breaks its tie rule, past its precondition")
 
     def time_arm(key, relation, tx, ty, colg, deg, work, nv=nvl,
-                 route=None):
+                 route=None, reps=20):
+        """The kernel's graph-replay and eager times beside the plain arm's
+        and the bound; ``reps`` launches a round (fewer for the sort
+        kernels at capacity 1024, each 4-34 ms)."""
         kw = {"route": route} if route else {}
         launch = (lambda: sr.relation_entries_cuda(
             relation, tx, ty, colg, nvl=nv, deg=deg, **kw))
@@ -2937,9 +2957,10 @@ def main() -> int:
         launch()
         ran = routed(arm_of[relation], before)
         check(ran == key, f"{relation} timed on {ran}, not {key}")
-        k_ms, e_ms = graph_ms(torch, launch), time_ms(torch, launch)
+        k_ms = graph_ms(torch, launch, reps=reps)
+        e_ms = time_ms(torch, launch, reps=reps)
         p_ms = time_ms(torch, lambda: plain(relation, tx, ty, colg, nv,
-                                            deg))
+                                            deg), reps=reps)
         b_ms, b_by = work.bound_ms()
         row = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by}
@@ -3040,9 +3061,9 @@ def main() -> int:
         if kind == "meet":
             got = sr.relation_counts_meet_cuda(*args)
             want = ops.counts_meet(*args, backend="torch")
-        else:
+        else:                            # (T, nvl[, rows of a tile])
             got = sr.relation_counts_vv_cuda(*args)
-            want = ops.counts_vv(*args, backend="torch")
+            want = ops.counts_vv(*args[:2], backend="torch")
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if got.numel() \
             else 0
@@ -3143,6 +3164,10 @@ def main() -> int:
     # when the segment count is no multiple of it
     T8 = T[:FUSED_BATCH].contiguous()
     counts_compare("fused batch", "vv_counts", T8, nvl)
+    for rows in sr.VV_COUNT_ROWS:
+        counts_compare(f"fused batch, {rows}-row tiles", "vv_counts", T8,
+                       nvl, rows)
+        counts_compare(f"main, {rows}-row tiles", "vv_counts", T, nvl, rows)
     Tpad = T8.clone()
     Tpad[FUSED_BATCH - 3:] = -1
     counts_compare("fused batch, padding segments", "vv_counts", Tpad, nvl)
@@ -3155,10 +3180,16 @@ def main() -> int:
     lib_ms = time_ms(torch, lambda: torch.bmm(A8, A8.transpose(1, 2)))
     b_ms, b_by = roofline.vv_counts_work(
         *T8.shape[:2], nvl, int((T8 >= 0).all(-1).sum())).bound_ms()
+    # the wrapper's tile (vv_count_rows) beside each forced one
+    tile_ms = {rows: graph_ms(torch, lambda rows=rows:
+                              sr.relation_counts_vv_cuda(T8, nvl, rows))
+               for rows in sr.VV_COUNT_ROWS}
     emit({"phase": "kernel_time", "arm": "vv_counts", "relation": "VV",
           "case": "fused batch", "shape": [list(T8.shape)], "nvl": nvl,
           "ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-          "bound_by": b_by, "library_ms": lib_ms, "C_bytes": nbytes(C)})
+          "bound_by": b_by, "library_ms": lib_ms, "C_bytes": nbytes(C),
+          "rows": sr.vv_count_rows(FUSED_BATCH, nvl, sms),
+          "tile_ms": tile_ms})
     del Ax, At, A8, C, T8, Tpad
 
     # -- 4. the critical-points path -----------------------------------------
@@ -3253,7 +3284,7 @@ def main() -> int:
     mark("4b")
     psm, ppre = built["psm"], built["ppre"]
     prank = total_order(psm.scalars)
-    bsm, bpre = built["bsm"], built["bpre"]
+    bsm, bpre, epre = built["bsm"], built["bpre"], built["epre"]
     del built
     brank = total_order(bsm.scalars)
     bt = bpre.tables
@@ -3312,7 +3343,8 @@ def main() -> int:
                            relation, tx, ty, colg, bt.NV, deg, route=route,
                            want_route=route)
             row = time_arm(key, relation, tx, ty, colg, deg, work,
-                           nv=bt.NV, route=route)
+                           nv=bt.NV, route=route,
+                           reps=4 if route == "sort" else 20)
             if route == "sort":
                 timing[key] = row
         # share counts given: 1 gives way to the shared-memory floor
@@ -3323,7 +3355,82 @@ def main() -> int:
                                     bt.NV, deg, k, want)
             check(blocks >= k, f"{relation}: {blocks} blocks for {k} "
                                f"shares")
-    del bT, bV, bpre, bsm
+    del bT, bV, bpre
+
+    # the sub-join past NX 8192: EF and ET over every segment (NE 11,520,
+    # NF 18,048, NT 8576), on the kernels and on the plain torch arm,
+    # counters zeroed just before the kernels' run and read just after;
+    # every launch on the bitmask route in row shares, none on the sort
+    # kernel, every block equal between the arms
+    t4s = time.perf_counter()
+    et = epre.tables
+    for relation, NY in (("EF", et.NF), ("ET", et.NT)):
+        check(et.NE > 8192 and sr.entry_route(relation, et.NV, NY, limit)
+              == "bits", f"the capacity-{BIG_CAPACITY} {relation} table is "
+                         f"not past NX 8192 on the bitmask route")
+    segs = list(range(bsm.n_segments))
+    sub_blocks = {}
+    for backend in ("cuda", "torch"):
+        if backend == "cuda":
+            for k in sr.LAUNCHES:
+                sr.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = RelationEngine(epre, BIG_SUB_RELS, lookahead=8, device="cuda",
+                             backend=backend)
+        for relation in BIG_SUB_RELS:
+            eng.request(relation, segs)
+        sub_blocks[backend] = {(relation, s): eng.get_full(relation, s)
+                               for relation in BIG_SUB_RELS for s in segs}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if backend == "cuda":
+            big_sub_launches = {k: sr.LAUNCHES[k]
+                                for k in ("sub", "sub_bits", "sub_sort")}
+        emit({"phase": "subjoin_path", "backend": backend, "n": SMALL_N,
+              "capacity": BIG_CAPACITY, "relations": BIG_SUB_RELS,
+              "segments": bsm.n_segments, "NV": et.NV, "NE": et.NE,
+              "NF": et.NF, "NT": et.NT,
+              "kernel_launches": eng.stats.kernel_launches,
+              "segments_produced": eng.stats.segments_produced,
+              "max_L": max(int(L.max()) for _, L in
+                           sub_blocks[backend].values()),
+              "wall_s": round(wall, 3),
+              **({"kernel_counters": big_sub_launches}
+                 if backend == "cuda" else {})})
+        check(eng.stats.segments_produced == len(BIG_SUB_RELS) * len(segs),
+              f"{backend}: {eng.stats.segments_produced} EF/ET blocks "
+              f"produced for {len(segs)} segments")
+        del eng
+    same = all(np.array_equal(a, b)
+               for key, got in sub_blocks["cuda"].items()
+               for a, b in zip(got, sub_blocks["torch"][key]))
+    check(same, f"the capacity-{BIG_CAPACITY} EF/ET blocks differ between "
+                f"the kernels and the plain arm")
+    check(big_sub_launches["sub_bits"] == big_sub_launches["sub"] > 0
+          and big_sub_launches["sub_sort"] == 0,
+          f"the capacity-{BIG_CAPACITY} EF/ET production took the sort "
+          f"kernel or no sub-join kernel: {big_sub_launches}")
+    del sub_blocks
+    # both routes held and timed at those shapes (B = 64): the bitmask
+    # kernel in row shares, the sort kernel forced (device workspace)
+    bE = cu(et.E_local[:BATCH])
+    for relation, ty, colg in (
+            ("EF", cu(et.F_local[:BATCH]), cu(et.LF_global[:BATCH])),
+            ("ET", cu(et.T_local[:BATCH]), cu(et.LT_global[:BATCH]))):
+        deg = ops.DEFAULT_DEG[relation]
+        work = entry_work(relation, bE, ty, colg, et.NV, deg)
+        for route in ("bits", "sort"):
+            compare(f"capacity-{BIG_CAPACITY} tables, {route} route",
+                    relation, bE, ty, colg, et.NV, deg, route=route,
+                    want_route=route)
+            time_arm(f"sub_{route}", relation, bE, ty, colg, deg, work,
+                     nv=et.NV, route=route,
+                     reps=4 if route == "sort" else 20)
+        del ty, colg
+    del bE, epre, bsm
+    emit({"phase": "subjoin_wall", "wall_s": round(time.perf_counter() - t4s,
+                                                   3)})
 
     # -- 5. the gradient -> Morse-Smale path ---------------------------------
     mark("5")
@@ -3394,6 +3501,7 @@ def main() -> int:
     launches["member_sort"] += ms_launches["member_sort"]
     launches.update({
         k: ms_launches[k] for k in ("TT", "sub_bits", "sub_sort", "gather")})
+    launches["sub_bits"] += big_sub_launches["sub_bits"]
 
     # the FT-gather route: the sub-join kernel over every segment
     t0 = time.perf_counter()

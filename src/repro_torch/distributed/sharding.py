@@ -103,7 +103,8 @@ class ShardPlan:
              devices: Optional[Sequence[Any]] = None) -> "ShardPlan":
         """Even contiguous split of ``n_segments`` into ``shards`` shards
         (clamped to the segment count), devices round-robin over the
-        visible cards, or the CPU when there is none. ``shards=1`` keeps
+        visible cards; without a card that raises, and shards on the CPU
+        take ``devices=("cpu",) * shards``. ``shards=1`` keeps
         ``devices=(None,)`` and touches no device API."""
         n_segments = int(n_segments)
         shards = max(1, min(int(shards), max(1, n_segments)))
@@ -115,11 +116,14 @@ class ShardPlan:
             if shards == 1:
                 devices = (None,)
             else:
-                n = torch.cuda.device_count() \
-                    if torch.cuda.is_available() else 0
-                devs = ([torch.device("cuda", k) for k in range(n)]
-                        or [torch.device("cpu")])
-                devices = tuple(devs[k % len(devs)] for k in range(shards))
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        f"{shards} shards on the visible cards requested but "
+                        f"torch.cuda.is_available() is False; pass "
+                        f"devices=('cpu',) * {shards} to shard on the CPU")
+                n = torch.cuda.device_count()
+                devices = tuple(torch.device("cuda", k % n)
+                                for k in range(shards))
         else:
             devices = tuple(None if d is None else torch.device(d)
                             for d in devices)

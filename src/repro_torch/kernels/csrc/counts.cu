@@ -26,15 +26,28 @@
 // vv_counts_kernel: C[b, i, j] = number of local tets of segment b that
 // contain both local vertices i and j, diagonal included (C[i, i] counts
 // the tets containing i), for i, j < nvl. The TPU kernel contracts two
-// one-hot (vertex, tet) tiles; here one block owns a tile of 32 rows of C
-// for one segment and a chunk of up to 256 columns in shared memory: it
+// one-hot (vertex, tet) tiles; here one block owns a tile of ROWS rows of
+// C for one segment and a chunk of up to 256 columns in shared memory: it
 // zeroes the tile, walks the segment's tets, and for each ordered slot
 // pair (a in the row tile, b in the column chunk, both valid) adds one
 // with a shared-memory atomic, then writes the tile out. Integer atomics
 // are exact, so the result does not depend on their order. Columns past
-// the chunk are covered by looping over chunks (nvl = 257 takes two).
-// What bounds it: the output again, 64 * 256 * 256 int32 = 16.8 MB at
-// B = 64, 5 us; each block rereads its segment's 14 KB of tets from L2.
+// the chunk are covered by looping over chunks (nvl = 257 takes two); ids
+// outside [0, nvl) count nowhere.
+// What bounds it: the output, 64 * 256 * 256 int32 = 16.8 MB at B = 64,
+// 5 us; at the fused extrema loop's batch (B = 8, NV 256, NT 896) 2.1 MB,
+// 0.66 us, below the ~3 us a graph-replayed launch takes on this card. So
+// at small B it is latency within a block and how many SMs work. What the
+// design does about it: the grid is sized by B (vv_count_rows in the
+// wrapper): the tallest tile, 32 or 16 rows, whose blocks occupy at least
+// half the SMs, else 8 rows (B = 8: 128 blocks of 16 rows, where 32-row
+// tiles gave 64 blocks on 132 SMs; on an H100 0.0046 ms against 0.0069);
+// the segment's tets are staged into shared memory once with 16-byte
+// loads (1024 at a time), issued together rather than one L2 round trip
+// per loop step; the tile is zeroed and stored with int4 accesses, each
+// warp writing 512 contiguous bytes of one row, where nvl is a multiple of
+// 4 (C's rows are then 16-byte aligned), and with scalar stores without a
+// divide otherwise.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -44,8 +57,8 @@ namespace {
 constexpr int kMeetTX = 64;       // rows of C per block
 constexpr int kMeetTY = 128;      // columns of C per block (4 per lane)
 constexpr int kMeetThreads = 256;
-constexpr int kVvRows = 32;       // rows of C per block
 constexpr int kVvCols = 256;      // columns per shared-memory chunk
+constexpr int kVvStage = 1024;    // tets staged in shared memory at a time
 constexpr int kVvThreads = 256;
 
 template <int AX, int AY>
@@ -98,43 +111,78 @@ meet_counts_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
   }
 }
 
+template <int ROWS, bool VEC>
 __global__ void __launch_bounds__(kVvThreads)
-vv_counts_kernel(const int* __restrict__ tet, int* __restrict__ C, int NT,
+vv_counts_kernel(const int4* __restrict__ tet, int* __restrict__ C, int NT,
                  int nvl) {
-  __shared__ int tile[kVvRows * kVvCols];
+  __shared__ int4 stage[kVvStage];
+  __shared__ __align__(16) int tile[ROWS * kVvCols];
+  int4* tile4 = reinterpret_cast<int4*>(tile);
   const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kVvRows;
-  const int rows = min(kVvRows, nvl - i0);
-  const int4* T = reinterpret_cast<const int4*>(tet) + (size_t)b * NT;
+  const int i0 = blockIdx.x * ROWS;
+  const int rows = min(ROWS, nvl - i0);
+  const int4* T = tet + (size_t)b * NT;
+  const bool once = NT <= kVvStage;    // staged once for every chunk
   for (int c0 = 0; c0 < nvl; c0 += kVvCols) {
     const int cols = min(kVvCols, nvl - c0);
-    for (int i = threadIdx.x; i < kVvRows * kVvCols; i += kVvThreads)
-      tile[i] = 0;
-    __syncthreads();
-    for (int t = threadIdx.x; t < NT; t += kVvThreads) {
-      const int4 q = T[t];
-      const int v[4] = {q.x, q.y, q.z, q.w};
+    for (int i = threadIdx.x; i < ROWS * kVvCols / 4; i += kVvThreads)
+      tile4[i] = make_int4(0, 0, 0, 0);
+    for (int t0 = 0; t0 < NT; t0 += kVvStage) {
+      const int nt = min(kVvStage, NT - t0);
+      if (!once || c0 == 0) {
+        if (t0 > 0) __syncthreads();   // the last walk has read the stage
+        for (int t = threadIdx.x; t < nt; t += kVvThreads)
+          stage[t] = T[t0 + t];
+      }
+      __syncthreads();
+      for (int t = threadIdx.x; t < nt; t += kVvThreads) {
+        const int4 q = stage[t];
+        const int v[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int ra = v[a] - i0;
-        if (v[a] < 0 || ra < 0 || ra >= rows) continue;
+        for (int a = 0; a < 4; ++a) {
+          const int ra = v[a] - i0;
+          if (v[a] < 0 || ra < 0 || ra >= rows) continue;
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int cb = v[bb] - c0;
-          if (v[bb] >= 0 && cb >= 0 && cb < cols)
-            atomicAdd(&tile[ra * kVvCols + cb], 1);
+          for (int bb = 0; bb < 4; ++bb) {
+            const int cb = v[bb] - c0;
+            if (v[bb] >= 0 && cb >= 0 && cb < cols)
+              atomicAdd(&tile[ra * kVvCols + cb], 1);
+          }
         }
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * kVvCols; i += kVvThreads) {
-      const int r = i / kVvCols;
-      const int c = i % kVvCols;
-      if (c < cols)
-        C[((size_t)b * nvl + i0 + r) * nvl + c0 + c] = tile[i];
+    int* out = C + ((size_t)b * nvl + i0) * nvl + c0;
+    if (VEC) {
+      // nvl % 4 == 0: rows of C and the chunk's start are 16-byte aligned
+      for (int i = threadIdx.x; i < rows * (kVvCols / 4); i += kVvThreads) {
+        const int r = i / (kVvCols / 4);
+        const int c = 4 * (i % (kVvCols / 4));
+        if (c < cols)
+          *reinterpret_cast<int4*>(out + (size_t)r * nvl + c) = tile4[i];
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * kVvCols; i += kVvThreads) {
+        const int r = i / kVvCols;
+        const int c = i % kVvCols;
+        if (c < cols) out[(size_t)r * nvl + c] = tile[i];
+      }
     }
-    __syncthreads();
+    if (c0 + kVvCols < nvl) __syncthreads();   // stored before re-zeroing
   }
+}
+
+template <int ROWS>
+cudaError_t launch_vv_counts(const void* tet, void* C, int B, int NT,
+                             int nvl, cudaStream_t s) {
+  const dim3 grid((nvl + ROWS - 1) / ROWS, B);
+  if (nvl % 4 == 0)
+    vv_counts_kernel<ROWS, true><<<grid, kVvThreads, 0, s>>>(
+        (const int4*)tet, (int*)C, NT, nvl);
+  else
+    vv_counts_kernel<ROWS, false><<<grid, kVvThreads, 0, s>>>(
+        (const int4*)tet, (int*)C, NT, nvl);
+  return cudaGetLastError();
 }
 
 template <int AX, int AY>
@@ -182,13 +230,17 @@ extern "C" int ct_meet_counts(int device, const void* tabx, const void* taby,
   }
 }
 
-// C (B, nvl, nvl) int32 from the tet table (B, NT, 4) int32 (16-byte rows).
+// C (B, nvl, nvl) int32 from the tet table (B, NT, 4) int32 (16-byte rows),
+// in tiles of ``rows`` (8, 16 or 32) rows of C a block.
 extern "C" int ct_vv_counts(int device, const void* tet, void* C, int B,
-                            int NT, int nvl, void* stream) {
+                            int NT, int nvl, int rows, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((nvl + kVvRows - 1) / kVvRows, B);
-  vv_counts_kernel<<<grid, kVvThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)tet, (int*)C, NT, nvl);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rows) {
+    case 8: return (int)launch_vv_counts<8>(tet, C, B, NT, nvl, s);
+    case 16: return (int)launch_vv_counts<16>(tet, C, B, NT, nvl, s);
+    case 32: return (int)launch_vv_counts<32>(tet, C, B, NT, nvl, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -38,9 +38,9 @@
 // serves after the first, and keeping only its own rows.
 //
 // The sub-join's walk needs its subjects by key: each block first builds a
-// lookup of the segment's valid x rows in shared memory, sorted vertex key
-// (base nvl, without the sort join's parity bit) -> x, by open addressing
-// over sub_slots(NX) = next_pow2(2 * NX) slots (load at most one half)
+// lookup of ITS OWN valid x rows in shared memory, sorted vertex key (base
+// nvl, without the sort join's parity bit) -> x, by open addressing over
+// sub_slots(rows) = next_pow2(4 * rows) slots (load at most a quarter)
 // filled by atomicCAS on the key. The walk then sorts each valid y row's AY
 // ids in registers and probes the key of each of its C(AY, AX) vertex
 // subsets; a hit x among the block's rows sets bit y of row x. A sub-join
@@ -50,32 +50,49 @@
 // four at a time as int4 stores. On an H100 at 96^3 (B = 64) the
 // warp-per-row emission of the other bitmask kernels took 0.034-0.047 ms
 // (~30 rows a warp, each a chain of scan, search and global load); one
-// thread a row, 1024 threads a block, 0.013-0.017 ms. The rows come out in
-// ascending y, as the sort join's entry key x * NY + y orders them. What
-// bounds it then: each block builds the whole lookup and walks the whole y
-// table, so the wrapper gives a segment as few shares as fill the card in
-// one wave (sub_row_blocks: 2 at B = 64). Tie rule: equal x keys lie
-// outside the arm's precondition (a table lists each simplex once); there
-// the LARGEST x index holds the key (atomicMax on the slot's x), so its
-// row gets every entry and the others none, on every run.
+// thread a row, 1024 threads a block, 0.013-0.017 ms. Where a block holds
+// so few rows that most threads would idle (2 * rows <= 1024), g lanes
+// share a row (emit_wide_rows): they read g words at a time and a scan of
+// the words' bit counts places each bit. The rows come out in ascending
+// y, as the sort join's entry key x * NY + y orders them. What bounds it
+// then: each block walks the whole y table, so the wrapper gives a segment
+// as few shares as fill the card in one wave (sub_row_blocks: 2 at B =
+// 64), or as its mask rows need. Tie rule: equal x keys lie outside the
+// arm's precondition (a table lists each simplex once); there the LARGEST
+// x index holds the key, so its row gets every entry and the others none,
+// on every run and at every share count: after its own rows, a block walks
+// the segment's later x rows (the only ones that can be larger) and lets
+// each whose key its lookup holds raise the slot's x (atomicMax), so a key
+// some later share's row repeats resolves to that row and sets no bit here.
+//
+// Why the lookup holds only the block's rows: one of the WHOLE segment's
+// NX keys in each block takes 8 * next_pow2(2 * NX) bytes, 256 KB at NE
+// 11,520, past the 227 KB opt-in limit, and would send every table past
+// NX 8192 to the sort kernel. Sized by the block's rows, the limit is one
+// mask row, as for member: ceil(NY / 32) | 1 words, four slots and the
+// key range. At the 48^3 tables of capacity 1024 (NE 11,520, NF 18,048)
+// that is 101 EF rows of 565 words a block, 115 blocks a segment, each
+// walking the segment's 18,048 faces from L2: on an H100, 1.56 ms for 64
+// segments against the sort kernel's 33.9 (chip_smoke.py phase 4b).
 //
 // Routing (the wrapper's entry_route, decided in Python before the launch):
 // a table takes its bitmask kernel while ONE mask row and the 16 warps'
-// rank rows (VV, member) or the lookup (sub-join) fit the per-block opt-in
-// limit (227 KB); the wrapper then launches max(its share rule, ceil(R /
-// rows that fit)) shares of a segment's R rows. On an H100 that takes
-// every VV table the int32 key guard admits, member tables up to NY =
-// 109,376, and sub-join tables up to NX = 8192 (a 128 KB lookup). Ids
-// outside [0, nvl) are dropped, and no bit past O is ever set.
+// rank rows (VV, member) or one row's lookup (sub-join) fit the per-block
+// opt-in limit (227 KB); the wrapper then launches max(its share rule,
+// ceil(R / rows that fit)) shares of a segment's R rows. On an H100 that
+// takes every VV table the int32 key guard admits, member tables up to NY
+// = 109,376, and sub-join tables up to NY = 1,859,232 whatever their NX.
+// Ids outside [0, nvl) are dropped, and no bit past O is ever set.
 //
 // The sort route (vv_entries_kernel, member_entries_kernel,
-// sub_entries_kernel) serves the tables past that, and callers that force
-// it: the entry lanes are generated, sorted by a block-wide bitonic
-// network, deduplicated and inverted (emit_entries); the sub-join first
-// sorts its join lanes and resolves each y lane's x by a running max. VV at
-// NT = 896 sorts E = next_pow2(12 * NT) = 16384 lanes twice,
-// log2(E)*(log2(E)+1)/2 = 105 barrier-separated passes a sort; the
-// sub-join three sorts of E = 8192 lanes at 96^3. Both are bound by those
+// sub_entries_kernel) serves the tables past that (member only, in
+// practice), and callers that force it: the entry lanes are generated,
+// sorted by a block-wide bitonic network, deduplicated and inverted
+// (emit_entries); the sub-join first sorts its join lanes and resolves
+// each y lane's x by a running max. VV at NT = 896 sorts E =
+// next_pow2(12 * NT) = 16384 lanes twice, log2(E)*(log2(E)+1)/2 = 105
+// barrier-separated passes a sort; the sub-join three sorts of E = 8192
+// lanes at 96^3. Both are bound by those
 // passes and by occupancy (128 KB of lanes a block).
 //
 // TT is designed apart (tt_entries_kernel below). It sorts only its EJ face
@@ -842,22 +859,36 @@ sub_entries_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
 }
 
 // EF/ET/FT as a keyed row bitmask (see the header): the block's lookup of
-// the segment's x keys, then one walk of the y table probing each subset
-// key, then one THREAD a row (emit_sparse_rows); kSubThreads threads.
-// tabx is (B, NX, AX), taby (B, NY, AY), colg (B, NY); grid (B, ceil(NX /
-// rows)). Shared memory (sub_bits_smem_ints): the block's mask rows at a
-// stride of Ws = W | 1 words, odd, so that the 32 threads of a warp
-// reading their rows' word w fall in 32 banks; then the lookup's keys and
-// x indices.
-__host__ __device__ __forceinline__ int sub_slots(int NX) {
-  int s = 2;
-  while (s < 2 * NX) s <<= 1;
+// its own rows' x keys, a walk of the segment's larger x rows that lets a
+// larger x take a key it repeats, then one walk of the y table probing
+// each subset key, then the emission (emit_sparse_rows, or emit_wide_rows
+// for few wide rows); kSubThreads threads. tabx is (B, NX, AX), taby (B,
+// NY, AY), colg (B, NY); grid (B, ceil(NX / rows)). Shared memory
+// (sub_bits_smem_ints): the block's mask rows at a stride of Ws = W | 1
+// words, odd, so that the 32 threads of a warp reading their rows' word w
+// fall in 32 banks; then the lookup's keys and x indices, sub_slots(rows)
+// slots, the same in every block of a launch; then the least and the
+// largest key the lookup holds.
+//
+// Nearly every subset key the walk probes is some other block's (at
+// capacity 1024 a block holds ~100 of 11,520 edges), so a probe usually
+// ends at an empty slot. Two things keep that cheap: the lookup runs at a
+// load of at most one quarter (sub_slots = next_pow2(4 * rows)), so a
+// miss reads ~1.3 slots; and a key outside the block's [least, largest]
+// key range is not probed at all (a segment's subject rows come in global
+// id order, so a block's keys span a narrow range: on the 24^3 tables at
+// capacity 1024 ~15% of EF's subset keys fall in a block's range). On an
+// H100 at the capacity-1024 EF tables the lower load alone took 2.064 ms
+// against 2.449 at a load of one half (tools/time_entries.py, B = 64).
+__host__ __device__ __forceinline__ int sub_slots(int rows) {
+  int s = 4;
+  while (s < 4 * rows) s <<= 1;
   return s;
 }
 
-__host__ __device__ __forceinline__ size_t sub_bits_smem_ints(int rows, int W,
-                                                              int NX) {
-  return (size_t)rows * (W | 1) + 2 * (size_t)sub_slots(NX);
+__host__ __device__ __forceinline__ size_t sub_bits_smem_ints(int rows,
+                                                              int W) {
+  return (size_t)rows * (W | 1) + 2 * (size_t)sub_slots(rows) + 2;
 }
 
 // Fibonacci hashing of a key to one of 2^lg slots.
@@ -942,7 +973,82 @@ __device__ __forceinline__ void emit_sparse_rows(const unsigned* mask,
   }
 }
 
+// The same rows -> M and L where a block holds few rows of many words (the
+// sub-join past NX 8192: ~100 rows of 565 words for EF at capacity 1024),
+// g lanes a row (g a power of two, 2..32, so that g * rows <= blockDim.x):
+// the g lanes read g consecutive words at a time, an inclusive scan over
+// the g lanes of their words' bit counts gives each lane the rank of its
+// word's first set bit, and each lane writes its bits' values at those
+// ranks while below deg. The rows come out as emit_sparse_rows writes them.
+// Every thread of the block runs the same number of steps (rows past nr
+// read no word), so the shuffles see whole warps.
+template <class Value>
+__device__ __forceinline__ void emit_wide_rows(const unsigned* mask, int r0,
+                                               int nr, int W, int Ws,
+                                               int deg, int g,
+                                               const Value& value, int* M,
+                                               int* L) {
+  const int lane = threadIdx.x & (g - 1);
+  const int per = blockDim.x / g;          // rows emitted at a time
+  for (int rb = 0; rb < nr; rb += per) {
+    const int r = rb + threadIdx.x / g;
+    const bool live = r < nr;
+    const unsigned* row = mask + (size_t)r * Ws;
+    int* Mr = M + (size_t)(r0 + r) * deg;
+    int n = 0;                             // the row's set bits so far
+    for (int w0 = 0; w0 < W; w0 += g) {
+      const int w = w0 + lane;
+      unsigned bits = live && w < W ? row[w] : 0u;
+      const int c = __popc(bits);
+      int incl = c;
+      for (int d = 1; d < g; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, d, g);
+        if (lane >= d) incl += o;
+      }
+      int pos = n + incl - c;
+      while (bits != 0u && pos < deg) {
+        Mr[pos++] = value(32 * w + __ffs(bits) - 1);
+        bits &= bits - 1u;
+      }
+      n += __shfl_sync(0xffffffffu, incl, g - 1, g);
+    }
+    if (live) {
+      for (int d = min(n, deg) + lane; d < deg; d += g) Mr[d] = -1;
+      if (lane == 0) L[r0 + r] = n;
+    }
+  }
+}
+
 constexpr int kSubThreads = 1024;
+constexpr int kSubUnroll = 2;          // table rows a thread loads at once
+
+// Rows i, i + blockDim.x, ... (kSubUnroll of them, from i) of a (n, A)
+// table, ids sorted; rows past n read as -1. The loads are issued together,
+// ahead of the lookups that use them.
+template <int A>
+__device__ __forceinline__ void load_sorted_rows(const int* tab, int i, int n,
+                                                 int (&w)[kSubUnroll][A]) {
+#pragma unroll
+  for (int u = 0; u < kSubUnroll; ++u) {
+    const int row = i + u * (int)blockDim.x;
+#pragma unroll
+    for (int j = 0; j < A; ++j)
+      w[u][j] = row < n ? tab[(size_t)row * A + j] : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < kSubUnroll; ++u) sort_small<A>(w[u]);
+}
+
+// The sorted vertex key (base nvl) of sorted ids w, or -1 where the row is
+// padding or holds an id outside [0, nvl).
+template <int A>
+__device__ __forceinline__ int sorted_key(const int (&w)[A], int nvl) {
+  if (w[0] < 0 || w[A - 1] >= nvl) return -1;
+  int key = w[0];
+#pragma unroll
+  for (int j = 1; j < A; ++j) key = key * nvl + w[j];
+  return key;
+}
 
 template <int AX, int AY>
 __global__ void __launch_bounds__(kSubThreads)
@@ -956,69 +1062,126 @@ sub_bits_kernel(const int* __restrict__ tabx, const int* __restrict__ taby,
   const int nr = min(rows, NX - r0);
   const int W = (NY + 31) >> 5;
   const int Ws = W | 1;
-  const int S = sub_slots(NX);
+  const int S = sub_slots(rows);
   const int lg = 31 - __clz(S);
   unsigned* mask = bits_smem;
   int* hkey = reinterpret_cast<int*>(bits_smem + (size_t)rows * Ws);
   int* hx = hkey + S;
-  for (int i = threadIdx.x; i < nr * Ws; i += blockDim.x) mask[i] = 0u;
+  int* span = hx + S;                  // the least and the largest key held
+  const int words = nr * Ws;
+  uint4* mask4 = reinterpret_cast<uint4*>(mask);
+  for (int i = threadIdx.x; i < words / 4; i += blockDim.x)
+    mask4[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = (words & ~3) + threadIdx.x; i < words; i += blockDim.x)
+    mask[i] = 0u;
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     hkey[i] = -1;                      // keys are >= 0: -1 is an empty slot
     hx[i] = -1;
   }
-  __syncthreads();
-
-  // the lookup: every valid x of the segment, the largest x per key
-  const int* xb = tabx + (size_t)b * NX * AX;
-  for (int x = threadIdx.x; x < NX; x += blockDim.x) {
-    int w[AX];
-#pragma unroll
-    for (int j = 0; j < AX; ++j) w[j] = xb[(size_t)x * AX + j];
-    sort_small<AX>(w);
-    if (w[0] < 0 || w[AX - 1] >= nvl) continue;
-    int key = w[0];
-#pragma unroll
-    for (int j = 1; j < AX; ++j) key = key * nvl + w[j];
-    unsigned h = sub_hash(key, lg);
-    while (true) {
-      const int prev = atomicCAS(&hkey[h], -1, key);
-      if (prev == -1 || prev == key) {
-        atomicMax(&hx[h], x);
-        break;
-      }
-      h = (h + 1) & (S - 1);
-    }
+  if (threadIdx.x == 0) {
+    span[0] = 0x7fffffff;
+    span[1] = -1;
   }
   __syncthreads();
 
-  // the walk: each valid y's subsets probed, bit y set in the hit x's row
-  const int* yb = taby + (size_t)b * NY * AY;
-  for (int y = threadIdx.x; y < NY; y += blockDim.x) {
-    int w[AY];
+  // the lookup: the block's own valid x rows, the largest x per key
+  const int* xb = tabx + (size_t)b * NX * AX;
+  int lo = 0x7fffffff;
+  int hi = -1;
+  for (int x0 = r0 + threadIdx.x; x0 < r0 + nr;
+       x0 += kSubUnroll * blockDim.x) {
+    int w[kSubUnroll][AX];
+    load_sorted_rows<AX>(xb, x0, r0 + nr, w);
 #pragma unroll
-    for (int j = 0; j < AY; ++j) w[j] = yb[(size_t)y * AY + j];
-    sort_small<AY>(w);
-    if (w[0] < 0 || w[AY - 1] >= nvl) continue;
-    for_subset_keys<AX, AY>(w, nvl, [&](int key) {
+    for (int u = 0; u < kSubUnroll; ++u) {
+      const int key = sorted_key<AX>(w[u], nvl);
+      if (key < 0) continue;
+      lo = min(lo, key);
+      hi = max(hi, key);
       unsigned h = sub_hash(key, lg);
-      int x = -1;
+      while (true) {
+        const int prev = atomicCAS(&hkey[h], -1, key);
+        if (prev == -1 || prev == key) {
+          atomicMax(&hx[h], x0 + u * (int)blockDim.x);
+          break;
+        }
+        h = (h + 1) & (S - 1);
+      }
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((threadIdx.x & 31) == 0 && hi >= 0) {
+    atomicMin(&span[0], lo);
+    atomicMax(&span[1], hi);
+  }
+  __syncthreads();
+  lo = span[0];
+  hi = span[1];
+
+  // the tie rule across shares: a larger x of the segment (a later share's
+  // row) whose key the lookup holds takes it, so that the key's entries go
+  // to the segment's largest x in whichever block holds its rows
+  for (int x0 = r0 + nr + threadIdx.x; x0 < NX;
+       x0 += kSubUnroll * blockDim.x) {
+    int w[kSubUnroll][AX];
+    load_sorted_rows<AX>(xb, x0, NX, w);
+#pragma unroll
+    for (int u = 0; u < kSubUnroll; ++u) {
+      const int key = sorted_key<AX>(w[u], nvl);
+      if (key < lo || key > hi) continue;      // padding, or not held here
+      unsigned h = sub_hash(key, lg);
       while (true) {
         const int k = hkey[h];
         if (k == key) {
-          x = hx[h];
+          atomicMax(&hx[h], x0 + u * (int)blockDim.x);
           break;
         }
         if (k == -1) break;
         h = (h + 1) & (S - 1);
       }
-      const int r = x - r0;
-      if (x >= 0 && (unsigned)r < (unsigned)nr)
-        atomicOr(&mask[(size_t)r * Ws + (y >> 5)], 1u << (y & 31));
-    });
+    }
   }
   __syncthreads();
-  emit_sparse_rows(mask, r0, nr, W, Ws, deg,
-                   MemberValue{colg + (size_t)b * NY},
+
+  // the walk: each valid y's subsets probed, bit y set in the hit x's row
+  // when the block holds it
+  const int* yb = taby + (size_t)b * NY * AY;
+  for (int y0 = threadIdx.x; y0 < NY; y0 += kSubUnroll * blockDim.x) {
+    int w[kSubUnroll][AY];
+    load_sorted_rows<AY>(yb, y0, NY, w);
+#pragma unroll
+    for (int u = 0; u < kSubUnroll; ++u) {
+      if (w[u][0] < 0 || w[u][AY - 1] >= nvl) continue;
+      const int y = y0 + u * (int)blockDim.x;
+      for_subset_keys<AX, AY>(w[u], nvl, [&](int key) {
+        if (key < lo || key > hi) return;      // not held here
+        unsigned h = sub_hash(key, lg);
+        int x = -1;
+        while (true) {
+          const int k = hkey[h];
+          if (k == key) {
+            x = hx[h];
+            break;
+          }
+          if (k == -1) break;
+          h = (h + 1) & (S - 1);
+        }
+        const int r = x - r0;
+        if (x >= 0 && (unsigned)r < (unsigned)nr)
+          atomicOr(&mask[(size_t)r * Ws + (y >> 5)], 1u << (y & 31));
+      });
+    }
+  }
+  __syncthreads();
+  int g = 1;                           // lanes a row, the same in each block
+  while (g < 32 && 2 * g * rows <= (int)blockDim.x) g <<= 1;
+  const MemberValue value{colg + (size_t)b * NY};
+  if (g == 1)
+    emit_sparse_rows(mask, r0, nr, W, Ws, deg, value,
+                     M + (size_t)b * NX * deg, L + (size_t)b * NX);
+  else
+    emit_wide_rows(mask, r0, nr, W, Ws, deg, g, value,
                    M + (size_t)b * NX * deg, L + (size_t)b * NX);
 }
 
@@ -1225,7 +1388,7 @@ cudaError_t launch_sub_bits(const void* tabx, const void* taby,
   dim3 grid;
   size_t bytes;
   cudaError_t e = bits_launch_shape(
-      fn, NX, rows, B, sub_bits_smem_ints(rows, (NY + 31) >> 5, NX), &grid,
+      fn, NX, rows, B, sub_bits_smem_ints(rows, (NY + 31) >> 5), &grid,
       &bytes);
   if (e != cudaSuccess) return e;
   sub_bits_kernel<AX, AY><<<grid, kSubThreads, bytes, s>>>(

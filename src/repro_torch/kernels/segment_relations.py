@@ -23,13 +23,15 @@ VV, member and sub have two routes, chosen in Python before the launch by
                    ``ceil(O / 32)`` words, O = ``nvl`` for VV and NY
                    otherwise), set by atomics in one walk of the table and
                    emitted one warp a row, with no sort; the sub-join probes
-                   a shared-memory lookup of the segment's subject keys for
-                   each coface subset, and emits its sparse rows one thread
-                   a row. The route holds while one mask row and the
-                   warps' rank rows (VV, member) or the lookup (sub-join)
-                   fit the opt-in limit (:func:`bits_rows_fit`), and a
-                   segment's rows are split over as many blocks as the
-                   share rule (:func:`bits_row_blocks`,
+                   a shared-memory lookup of the block's own subject keys
+                   (raised to a later row of the segment that repeats a
+                   key) for each coface subset, and emits its sparse rows
+                   one thread a row, or a few lanes a row where a block
+                   holds few wide rows. The route holds while one mask row
+                   and the warps' rank rows (VV, member) or its lookup
+                   (sub-join) fit the opt-in limit (:func:`bits_rows_fit`),
+                   and a segment's rows are split over as many blocks as
+                   the share rule (:func:`bits_row_blocks`,
                    :func:`sub_row_blocks`) or the limit asks
                    (:func:`bits_blocks`). Every table the repo's paths
                    build takes it;
@@ -37,9 +39,9 @@ VV, member and sub have two routes, chosen in Python before the launch by
                    ``sub_entries_kernel``: the entry lanes sorted,
                    deduplicated and inverted in shared memory (or a device
                    workspace past the limit), for the tables past one row's
-                   limit (member past NY 109,376, the sub-join past NX 8192
-                   on an H100; never VV within its int32 key guard) and for
-                   callers that force it.
+                   limit (member past NY 109,376, the sub-join past NY
+                   1,859,232 on an H100; never VV within its int32 key
+                   guard) and for callers that force it.
 
 They replace the TPU kernels of the reference's
 ``kernels/segment_relations.py`` (``_vv_entries_kernel``,
@@ -136,7 +138,7 @@ def _counts_lib() -> ctypes.CDLL:
         lib.repro_error_string = lib.ct_error_string
         lib.ct_meet_counts.argtypes = [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.ct_meet_counts.restype = _I
-        lib.ct_vv_counts.argtypes = [_I, _P, _P, _I, _I, _I, _P]
+        lib.ct_vv_counts.argtypes = [_I, _P, _P, _I, _I, _I, _I, _P]
         lib.ct_vv_counts.restype = _I
         lib._repro_bound = True
     return lib
@@ -191,11 +193,12 @@ _MEMBER = ("VE", "VF", "VT")
 _ROUTED = ("VV", "member", "sub")
 
 
-def sub_slots(NX: int) -> int:
-    """Slots of the sub-join bitmask block's key lookup: ``next_pow2(2 *
-    NX)``, at least 2, so open addressing runs at a load of at most one
-    half (``sub_slots`` of ``csrc/segment_relations.cu``)."""
-    return max(2, next_pow2(2 * NX))
+def sub_slots(rows: int) -> int:
+    """Slots of the key lookup of a sub-join bitmask block that holds
+    ``rows`` subject rows: ``next_pow2(4 * rows)``, at least 4, so open
+    addressing runs at a load of at most one quarter (``sub_slots`` of
+    ``csrc/segment_relations.cu``)."""
+    return max(4, next_pow2(4 * rows))
 
 
 def _row_words(O: int, sub: bool) -> int:
@@ -206,51 +209,55 @@ def _row_words(O: int, sub: bool) -> int:
     return W | 1 if sub else W
 
 
-def bits_smem_bytes(rows: int, O: int, slots: int = 0) -> int:
-    """Shared memory of one bitmask block, in bytes. VV and member
-    (``slots`` 0): ``rows`` mask rows and one rank row per warp, each
-    ``ceil(O / 32)`` words (``bits_smem_ints`` of
-    ``csrc/segment_relations.cu``). The sub-join: ``rows`` mask rows of
-    ``ceil(O / 32) | 1`` words, then ``slots`` lookup slots of a key and an
-    x index (``sub_bits_smem_ints``)."""
-    if slots:
-        return 4 * rows * _row_words(O, True) + 8 * slots
+def bits_smem_bytes(rows: int, O: int, sub: bool = False) -> int:
+    """Shared memory of one bitmask block, in bytes. VV and member:
+    ``rows`` mask rows and one rank row per warp, each ``ceil(O / 32)``
+    words (``bits_smem_ints`` of ``csrc/segment_relations.cu``). The
+    sub-join (``sub``): ``rows`` mask rows of ``ceil(O / 32) | 1`` words,
+    then the lookup of those rows' keys, :func:`sub_slots` slots of a key
+    and an x index, and the least and largest key it holds
+    (``sub_bits_smem_ints``)."""
+    if sub:
+        return 4 * rows * _row_words(O, True) + 8 * sub_slots(rows) + 8
     return 4 * (rows + _BITS_WARPS) * _row_words(O, False)
 
 
-def _bits_shape(relation: str, nvl: int, NY: int, NX: int
-                ) -> Tuple[int, int, int]:
-    """(rows R, orders O, lookup slots) of one segment's bitmask."""
+def _orders(relation: str, nvl: int, NY: int) -> int:
+    """Orders O (columns) of one segment's bitmask."""
     if relation == "VV":
-        return nvl, nvl, 0
-    if relation in _MEMBER:
-        return nvl, NY, 0
-    if relation in _SUB_ARITY:
-        return NX, NY, sub_slots(NX)
+        return nvl
+    if relation in _MEMBER or relation in _SUB_ARITY:
+        return NY
     raise KeyError(f"relation {relation!r} has one entry kernel")
 
 
-def bits_rows_fit(relation: str, nvl: int, NY: int, limit: int,
-                  NX: int = 0) -> int:
+def bits_rows_fit(relation: str, nvl: int, NY: int, limit: int) -> int:
     """Mask rows one bitmask block holds in ``limit`` bytes of shared
-    memory beside its rank rows (VV, VE/VF/VT) or its lookup of the ``NX``
-    subject keys (EF/ET/FT); 0 where not one row fits. ``NY`` is the
-    coface table's rows (ignored for VV), ``NX`` the subject table's
-    (EF/ET/FT only)."""
-    R, O, slots = _bits_shape(relation, nvl, NY, NX)
-    spare = limit - bits_smem_bytes(0, O, slots)
-    if spare < 0:
-        return 0
-    W = _row_words(O, slots > 0)
-    return spare // (4 * W) if W else max(R, 1)
+    memory beside its rank rows (VV, VE/VF/VT) or the lookup of its rows'
+    keys (EF/ET/FT); 0 where not one row fits. ``NY`` is the coface
+    table's rows (ignored for VV). The sub-join's lookup grows with the
+    rows (:func:`sub_slots`), so its fit is the best over the lookup's
+    power-of-two sizes S of ``min(S / 4, (limit - 8 S - 8) / (4 Ws))``."""
+    O = _orders(relation, nvl, NY)
+    if relation not in _SUB_ARITY:
+        spare = limit - bits_smem_bytes(0, O)
+        W = _row_words(O, False)
+        if spare < 0:
+            return 0
+        return spare // (4 * W) if W else max(nvl, 1)
+    row = 4 * _row_words(O, True)
+    best, S = 0, 4
+    while 8 * S + 8 + row <= limit:
+        best = max(best, min(S // 4, (limit - 8 * S - 8) // row))
+        S *= 2
+    return best
 
 
-def entry_route(relation: str, nvl: int, NY: int, limit: int,
-                NX: int = 0) -> str:
+def entry_route(relation: str, nvl: int, NY: int, limit: int) -> str:
     """The kernel that serves a VV, VE/VF/VT or EF/ET/FT block:
-    ``"bits"`` while one mask row fits beside the rank rows or the lookup
+    ``"bits"`` while one mask row fits beside the rank rows or its lookup
     (:func:`bits_rows_fit`), ``"sort"`` otherwise."""
-    return "bits" if bits_rows_fit(relation, nvl, NY, limit, NX) else "sort"
+    return "bits" if bits_rows_fit(relation, nvl, NY, limit) else "sort"
 
 
 def bits_row_blocks(B: int, R: int, sms: int) -> int:
@@ -299,9 +306,8 @@ def bits_blocks(relation: str, B: int, nvl: int, NX: int, NY: int,
     for VV), ``smem`` bytes of shared memory a block and ``sms``
     multiprocessors; 0 where the segment has no rows or not one mask row
     fits (the sort route serves it)."""
-    sub = relation in _SUB_ARITY
-    R = NX if sub else nvl
-    fit = bits_rows_fit(relation, nvl, NY, smem, NX if sub else 0)
+    R = NX if relation in _SUB_ARITY else nvl
+    fit = bits_rows_fit(relation, nvl, NY, smem)
     if not fit or R == 0:
         return 0
     rows = -(-R // bits_shares(relation, B, R, fit, sms, shares))
@@ -435,7 +441,7 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     idx = _dev_index(dev)
     if arm in _ROUTED:
         fit = bits_rows_fit(relation, nvl, NY if arm == "sub" else N,
-                            smem_limit(dev), N if arm == "sub" else 0)
+                            smem_limit(dev))
         if route == "bits" and not fit:
             raise ValueError(f"{relation} at nvl={nvl}, N={N}: one bitmask "
                              f"row does not fit in shared memory")
@@ -528,11 +534,33 @@ def relation_counts_meet_cuda(tabX: torch.Tensor, tabY: torch.Tensor
     return C
 
 
-def relation_counts_vv_cuda(T_local: torch.Tensor, nvl: int) -> torch.Tensor:
+# rows of C a block of the VV count kernel may keep (its ROWS instances)
+VV_COUNT_ROWS = (8, 16, 32)
+
+
+def vv_count_rows(B: int, nvl: int, sms: int) -> int:
+    """Rows of C one block of the VV count kernel keeps: the largest tile,
+    32 or 16 rows, whose B segments' blocks occupy at least half of the
+    card's ``sms`` multiprocessors, else 8. Each block walks its
+    segment's whole tet table, so fewer, taller tiles cost less where the
+    card is filled anyway: on an H100 (132 SMs, 700 W; 96^3-shaped tables,
+    NV 256, NT 896, ``tools/time_entries.py --counts``) 16 rows (128
+    blocks) beat 32 and 8 at the fused extrema loop's B = 8, and 32 rows
+    beat 16 and 8 at B = 64."""
+    for rows in (32, 16):
+        if 2 * B * -(-nvl // rows) >= sms:
+            return rows
+    return 8
+
+
+def relation_counts_vv_cuda(T_local: torch.Tensor, nvl: int,
+                            rows: Optional[int] = None) -> torch.Tensor:
     """Shared-tet counts ``C (B, nvl, nvl)`` int32: ``C[b, i, j]`` is the
     number of tets of ``T_local[b]`` (``(B, NT, 4)`` int32, ``-1`` padded)
     that contain both local vertices ``i`` and ``j``, diagonal included.
-    Vertex ids outside ``[0, nvl)`` count nowhere."""
+    Vertex ids outside ``[0, nvl)`` count nowhere. A block keeps ``rows``
+    rows of C (one of ``VV_COUNT_ROWS``; by default
+    :func:`vv_count_rows`'s); C is the same for each."""
     if not isinstance(T_local, torch.Tensor) or T_local.dim() != 3:
         raise ValueError("T_local must be a (B, NT, 4) tensor")
     B, NT, _ = T_local.shape
@@ -542,14 +570,17 @@ def relation_counts_vv_cuda(T_local: torch.Tensor, nvl: int) -> torch.Tensor:
     nvl = int(nvl)
     if nvl < 0 or B > _GRID_YZ:
         raise ValueError(f"nvl={nvl}, B={B} out of range")
+    if rows is not None and rows not in VV_COUNT_ROWS:
+        raise ValueError(f"rows={rows}: one of {VV_COUNT_ROWS}")
     dev = T_local.device
     C = torch.empty((B, nvl, nvl), dtype=torch.int32, device=dev)
     if C.numel() == 0:
         return C
     lib = _counts_lib()
-    rc = lib.ct_vv_counts(_dev_index(dev), T_local.data_ptr(), C.data_ptr(),
-                          B, NT, nvl,
-                          torch.cuda.current_stream(dev).cuda_stream)
+    idx = _dev_index(dev)
+    rows = rows or vv_count_rows(B, nvl, _sm_count(idx))
+    rc = lib.ct_vv_counts(idx, T_local.data_ptr(), C.data_ptr(), B, NT, nvl,
+                          rows, torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(lib, rc, "VV count kernel launch")
     _count("vv_counts")
     return C

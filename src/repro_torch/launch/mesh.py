@@ -27,21 +27,22 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..kernels.ops import resolve_device
+
 __all__ = ["DeviceMesh", "make_mesh", "make_production_mesh",
            "make_test_mesh", "batch_axes", "init_group"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
-    if device_type is not None:
-        return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve_device(device_type).type
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device_type: Optional[str] = None) -> DeviceMesh:
     """``init_device_mesh`` over the default group (whose world size must
     be the mesh's size) with ``axes`` as the dim names; ``device_type``
-    defaults to ``cuda`` on a card, else ``cpu``."""
+    defaults to ``cuda`` and raises without a card (``ops.resolve_device``):
+    a mesh on the CPU takes ``device_type="cpu"``."""
     return init_device_mesh(_device_type(device_type), tuple(shape),
                             mesh_dim_names=tuple(axes))
 

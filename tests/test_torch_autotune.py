@@ -282,17 +282,17 @@ def test_kernel_config_default_is_todays_launch():
 @pytest.mark.parametrize("relation,R,O", [("VV", BIG_NV, BIG_NV),
                                           ("VT", BIG_NV, BIG_NT),
                                           ("VV", 256, 256),
-                                          ("FT", 1920, 896)])
+                                          ("FT", 1920, 896),
+                                          ("EF", 11520, 18048)])
 def test_tuned_shares_never_outgrow_shared_memory(relation, R, O):
     """On the capacity-1024 tables a block holds only ``fit`` rows: a tuned
     share count below ``ceil(R / fit)`` gives way to it (VV over at least
     3 blocks, VT over 11 at an H100's 227 KiB; the rule gives VV 4 at
-    B=64), and no count exceeds R; a block's rows then fit its shared
-    memory."""
+    B=64; EF at NE 11,520, NF 18,048 over at least 115), and no count
+    exceeds R; a block's rows then fit its shared memory."""
     limit = roofline.SMEM_OPTIN_BYTES
-    sub = relation == "FT"
-    fit = sr.bits_rows_fit(relation, 256 if sub else R, O, limit,
-                           R if sub else 0)
+    sub = relation in ("FT", "EF")
+    fit = sr.bits_rows_fit(relation, 256 if sub else R, O, limit)
     floor = -(-R // fit)
     NX, NY = (R, O) if sub else (0, O)
     for k in (1, 2, 4, 8, 11, 16, 10 ** 6):
@@ -304,13 +304,14 @@ def test_tuned_shares_never_outgrow_shared_memory(relation, R, O):
         blocks = sr.bits_blocks(relation, 64, 256 if sub else R, NX, NY,
                                 limit, 132, k)
         assert blocks == -(-R // rows) and -(-R // blocks) == rows
-        assert sr.bits_smem_bytes(rows, O, sr.sub_slots(R) if sub else 0) \
-            <= limit
+        assert sr.bits_smem_bytes(rows, O, sub) <= limit
     if (relation, R) == ("VV", BIG_NV):
         assert floor == 3
         assert sr.bits_shares(relation, 64, R, fit, 132) == 4
     if relation == "VT" and R == BIG_NV:
         assert floor == 11
+    if relation == "EF":
+        assert floor == 115
 
 
 @pytest.mark.parametrize("relation", ["VV", "VE", "VT", "FT", "EF", "TT",
@@ -335,8 +336,10 @@ def test_model_prices_the_wrappers_grid(relation):
     assert [autotune._blocks("FT", B, None, SHAPES_96, 132, limit)
             for B in (1, 8, 16, 64)] == [128, 16, 8, 2]
     assert sr.bits_blocks("VT", 64, 256, 0, 109377, limit, 132) == 0
-    assert sr.bits_blocks("FT", 64, 256, 8193, 896, limit, 132) == 0
+    assert sr.bits_blocks("FT", 64, 256, 8193, 1859233, limit, 132) == 0
     assert sr.bits_blocks("FT", 64, 256, 0, 896, limit, 132) == 0
+    # past the sub-join's old NX 8192 limit: row shares of 1438 rows
+    assert sr.bits_blocks("FT", 64, 256, 8193, 896, limit, 132) == 6
 
 
 def test_pick_winner_needs_more_than_the_spread():

@@ -209,8 +209,9 @@ def _sub_tables(rng, tets):
 def test_join_kernels_equal_plain_arm(cuda, relation, route, B, NT, deg):
     """TT, and the sub-join on both routes: each launch equals the plain
     arm and moves its counters, and ``route=None`` takes ``entry_route``'s
-    choice. At NT 3001 the subject tables pass the sub-join's one-row
-    limit (NX > 8192 on an H100), so forcing the bitmask kernel raises."""
+    choice, the bitmask route. At NT 3001 the subject tables pass NX 8192,
+    the sub-join's old one-row limit on an H100, which the bitmask kernel
+    now takes in row shares."""
     rng = np.random.default_rng(NT)
     nvl = 256
     tabs = _sub_tables(rng, _rand_tets(rng, B, NT, nvl))
@@ -229,14 +230,8 @@ def test_join_kernels_equal_plain_arm(cuda, relation, route, B, NT, deg):
         assert segment_relations.LAUNCHES["TT"] == before + 1
         return
     fits = segment_relations.entry_route(
-        relation, nvl, ty.shape[1], segment_relations.smem_limit(cuda),
-        tx.shape[1])
-    assert fits == ("sort" if NT == 3001 else "bits")
-    if route == "bits" and fits == "sort":
-        with pytest.raises(ValueError, match="does not fit"):
-            segment_relations.relation_entries_cuda(
-                relation, tx, ty, colg, nvl=nvl, deg=deg, route="bits")
-        return
+        relation, nvl, ty.shape[1], segment_relations.smem_limit(cuda))
+    assert fits == "bits"
     for r, call in ((route, lambda: segment_relations.relation_entries_cuda(
             relation, tx, ty, colg, nvl=nvl, deg=deg, route=route)),
                     (fits, lambda: ops.relation_block(relation, tx, ty, colg,
@@ -282,6 +277,60 @@ def test_sub_kernel_is_deterministic_past_its_precondition(cuda):
     rest = [i for i in range(tx.shape[1]) if i not in (3, 40, 90)]
     for g, w in zip(first, want):
         assert torch.equal(g[:, rest], w[:, rest])
+    # the three rows in three blocks (at most 38 rows a block): each
+    # block's lookup still resolves the key to row 90
+    for k in (32, 64):
+        blocks = segment_relations.bits_blocks(
+            "FT", 2, nvl, tx.shape[1], ty.shape[1],
+            segment_relations.smem_limit(cuda), 132, k)
+        rows = -(-tx.shape[1] // blocks)
+        assert len({3 // rows, 40 // rows, 90 // rows}) == 3
+        split = segment_relations.relation_entries_cuda(
+            "FT", tx, ty, colg, nvl=nvl, deg=4, route="bits", shares=k)
+        torch.cuda.synchronize()
+        for a, b in zip(split, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("relation", ["EF", "ET", "FT"])
+@pytest.mark.parametrize("NX", [8193, 11520, 18048])
+def test_sub_join_past_nx_8192_equals_plain_arm(cuda, relation, NX):
+    """Subject tables of 8193, 11,520 (the 48^3 edges at capacity 1024)
+    and 18,048 (its faces) rows, cut from or padded to that size, at nvl
+    1000 (FT's keys, 2 * nvl^3, stay inside the int32 guard): the wrapper
+    takes the bitmask route in row shares, each launch equals the plain
+    arm, moves ``sub_bits`` and not ``sub_sort``, and the forced sort
+    kernel gives the same blocks."""
+    rng = np.random.default_rng(NX)
+    nvl = 1000
+    tabs = _sub_tables(rng, _rand_tets(rng, 2, 4000, nvl, fill=0.9))
+    sx = tabs[relation[0]]
+    tx = np.full((2, NX, sx.shape[2]), -1, dtype=np.int32)
+    tx[:, :min(NX, sx.shape[1])] = sx[:, :NX]
+    tx, ty = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+              for a in (tx, tabs[relation[1]]))
+    colg = torch.from_numpy(rng.integers(
+        0, 10 ** 6, ty.shape[:2]).astype(np.int32)).to(cuda)
+    limit = segment_relations.smem_limit(cuda)
+    assert segment_relations.entry_route(relation, nvl, ty.shape[1],
+                                         limit) == "bits"
+    assert segment_relations.bits_blocks(relation, 2, nvl, NX, ty.shape[1],
+                                         limit, 132) >= 2
+    want = ops.relation_block(relation, tx, ty, colg, nvl, backend="torch")
+    before = dict(segment_relations.LAUNCHES)
+    got = ops.relation_block(relation, tx, ty, colg, nvl)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert segment_relations.LAUNCHES["sub_bits"] == before["sub_bits"] + 1
+    assert segment_relations.LAUNCHES["sub_sort"] == before["sub_sort"]
+    assert int(want[1].max()) > 0
+    deg = ops.DEFAULT_DEG[relation]
+    forced = segment_relations.relation_entries_cuda(
+        relation, tx, ty, colg, nvl=nvl, deg=deg, route="sort")
+    torch.cuda.synchronize()
+    for g, w in zip(forced, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("use_key", [False, True])
@@ -744,8 +793,15 @@ def test_meet_kernel_equals_plain_arm(cuda, ax, ay, B, NX, NY, nvl):
 
 @pytest.mark.parametrize("B,NT,nvl", [(1, 1, 8), (3, 127, 64),
                                       (64, 896, 256), (2, 1931, 257),
-                                      (2, 131, 200)])
+                                      (2, 131, 200), (8, 896, 256),
+                                      (1, 896, 256), (8, 300, 37),
+                                      (4, 2100, 131)])
 def test_vv_counts_kernel_equals_plain_arm(cuda, B, NT, nvl):
+    """The VV count kernel at the wrapper's row tiles and at each forced
+    one (8, 16, 32 rows): the fused extrema loop's batch (B 8, NT 896),
+    one segment, nvl 37 and 131 (no multiple of a tile, nor of 4: scalar
+    stores), more tets than one stage (2100), ids past nvl, and from B 4
+    the same batch ending in three -1 padding segments."""
     rng = np.random.default_rng(NT)
     # ids up to 256: with nvl=200 some lie past nvl and count nowhere
     tt = torch.from_numpy(_rand_tets(rng, B, NT, max(nvl, 257))).to(cuda)
@@ -755,6 +811,17 @@ def test_vv_counts_kernel_equals_plain_arm(cuda, B, NT, nvl):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert segment_relations.LAUNCHES["vv_counts"] == before + 1
+    for rows in segment_relations.VV_COUNT_ROWS:
+        tiled = segment_relations.relation_counts_vv_cuda(tt, nvl, rows=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(tiled, want)
+    if B >= 4:
+        padded = tt.clone()
+        padded[B - 3:] = -1
+        got = ops.counts_vv(padded, nvl)
+        want = ops.counts_vv(padded, nvl, backend="torch")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and not got[B - 3:].any()
 
 
 @pytest.mark.parametrize("relation", ["FF", "EE", "TT", "VV"])

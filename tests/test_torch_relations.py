@@ -521,55 +521,128 @@ def _emit_sparse_rows(mask, values, deg):
     return M, L
 
 
-def _sub_bits_rows(relation, tx, ty, col_global, nvl, deg, order=None):
-    """What ``sub_bits_kernel`` computes, step for step. The lookup:
-    ``segment_relations.sub_slots(NX)`` slots of (key, x), filled in
-    ``order`` (default ascending x) by linear probing from the Fibonacci
-    hash of each valid x's sorted vertex key (base ``nvl``); a key already
-    held keeps the larger x. The walk: each valid y row's ids sorted, the
-    key of each of its ``C(ay, ax)`` subsets (``itertools.combinations``
-    order) probed until the key or an empty slot; a hit sets bit y of row
-    x. A row is valid when every id lies in ``[0, nvl)``. Then the rows
-    as :func:`_emit_sparse_rows` emits them, with ``col_global[y]``."""
+def _emit_wide_rows(mask, values, deg, g):
+    """Mask rows -> ``(M, L)`` as ``emit_wide_rows`` emits them, g lanes a
+    row: the lanes take g consecutive words at a time, an inclusive scan of
+    the words' bit counts gives each lane the rank of its word's first set
+    bit, and each lane writes its bits' values at those ranks while below
+    ``deg``; ``L`` the TRUE count, ``-1`` from ``min(L, deg)`` on."""
+    R, W = mask.shape
+    M = np.full((R, deg), -1, dtype=np.int32)
+    L = np.zeros(R, dtype=np.int32)
+    for r in range(R):
+        n = 0
+        for w0 in range(0, W, g):
+            words = [int(mask[r, w]) if w < W else 0
+                     for w in range(w0, w0 + g)]
+            counts = [bin(b).count("1") for b in words]
+            incl = np.cumsum(counts)
+            for lane, bits in enumerate(words):
+                pos = n + int(incl[lane]) - counts[lane]
+                while bits and pos < deg:
+                    low = bits & -bits
+                    M[r, pos] = values(np.array(32 * (w0 + lane)
+                                                + low.bit_length() - 1))
+                    pos += 1
+                    bits ^= low
+            n += int(incl[-1])
+        L[r] = n
+    return M, L
+
+
+def _sub_lanes(rows, threads=1024):
+    """Lanes a row of ``sub_bits_kernel``'s emission for blocks of
+    ``rows`` rows: the largest power of two up to 32 with ``g * rows <=
+    threads`` (1: one thread a row)."""
+    g = 1
+    while g < 32 and 2 * g * rows <= threads:
+        g *= 2
+    return g
+
+
+def _probe(hkey, key, lg):
+    """The slot of ``key`` in an open-addressing lookup, or of the empty
+    slot that ends its probe."""
+    S = len(hkey)
+    h = _sub_hash(key, lg)
+    while hkey[h] not in (-1, key):
+        h = (h + 1) & (S - 1)
+    return h
+
+
+def _sub_bits_rows(relation, tx, ty, col_global, nvl, deg, order=None,
+                   rows=None):
+    """What ``sub_bits_kernel`` computes, step for step, in blocks of
+    ``rows`` subject rows (default all NX: one block a segment). A block's
+    lookup: ``segment_relations.sub_slots(rows)`` slots of (key, x),
+    filled from its OWN valid x rows ``[r0, r0 + nr)``, in ``order``
+    (default ascending x), by linear probing from the Fibonacci hash of
+    each one's sorted vertex key (base ``nvl``); a key already held keeps
+    the larger x. Then the segment's later valid x rows (``x >= r0 + nr``),
+    each raising the x of a key the lookup holds (the tie rule across
+    blocks). The walk: each valid y row's ids sorted, the key of each of
+    its ``C(ay, ax)`` subsets (``itertools.combinations`` order) probed
+    until the key or an empty slot; a hit x among the block's rows sets
+    bit y of row x. Keys outside the least and largest key the lookup
+    holds are not probed (in the tie pass and in the walk). A row is valid when every id lies in ``[0, nvl)``.
+    Then the rows as the kernel emits them, with ``col_global[y]``: one
+    thread a row (:func:`_emit_sparse_rows`) or g lanes a row
+    (:func:`_emit_wide_rows`, g by :func:`_sub_lanes`)."""
     ax, ay = _SUB_ARITY[relation]
     B, NX, _ = tx.shape
     NY = ty.shape[1]
-    S = segment_relations.sub_slots(NX)
+    rows = NX if rows is None else rows
+    S = segment_relations.sub_slots(rows)
     lg = S.bit_length() - 1
     W = -(-NY // 32)
+    g = _sub_lanes(rows)
     M = np.full((B, NX, deg), -1, dtype=np.int32)
     L = np.zeros((B, NX), dtype=np.int32)
+
+    def key_of(ids):
+        w = np.sort(ids)
+        return None if w[0] < 0 or w[-1] >= nvl else _sorted_key(w, nvl)
+
     for b in range(B):
-        hkey = np.full(S, -1, dtype=np.int64)
-        hx = np.full(S, -1, dtype=np.int64)
-        for x in (range(NX) if order is None else order):
-            w = np.sort(tx[b, x])
-            if w[0] < 0 or w[-1] >= nvl:
-                continue
-            key = _sorted_key(w, nvl)
-            h = _sub_hash(key, lg)
-            while hkey[h] not in (-1, key):
-                h = (h + 1) & (S - 1)
-            hkey[h], hx[h] = key, max(hx[h], x)
         mask = np.zeros((NX, W), dtype=np.uint32)
-        rows, orders = [], []
-        for y in range(NY):
-            w = np.sort(ty[b, y])
-            if w[0] < 0 or w[-1] >= nvl:
-                continue
-            for comb in itertools.combinations(range(ay), ax):
-                key = _sorted_key(w[list(comb)], nvl)
-                h = _sub_hash(key, lg)
-                while hkey[h] not in (-1, key):
-                    h = (h + 1) & (S - 1)
-                if hkey[h] == key:
-                    rows.append(hx[h])
-                    orders.append(y)
-        _set_bits(mask, np.array(rows, dtype=np.int64),
-                  np.array(orders, dtype=np.int64))
+        for r0 in range(0, NX, rows):
+            nr = min(rows, NX - r0)
+            hkey = np.full(S, -1, dtype=np.int64)
+            hx = np.full(S, -1, dtype=np.int64)
+            own = range(r0, r0 + nr) if order is None else \
+                [x for x in order if r0 <= x < r0 + nr]
+            for x in own:
+                key = key_of(tx[b, x])
+                if key is not None:
+                    h = _probe(hkey, key, lg)
+                    hkey[h], hx[h] = key, max(hx[h], x)
+            held = hkey[hkey >= 0]
+            lo, hi = (held.min(), held.max()) if len(held) else (1, 0)
+            for x in range(r0 + nr, NX):
+                key = key_of(tx[b, x])
+                if key is not None and lo <= key <= hi:
+                    h = _probe(hkey, key, lg)
+                    if hkey[h] == key:
+                        hx[h] = max(hx[h], x)
+            hit_rows, orders = [], []
+            for y in range(NY):
+                w = np.sort(ty[b, y])
+                if w[0] < 0 or w[-1] >= nvl:
+                    continue
+                for comb in itertools.combinations(range(ay), ax):
+                    key = _sorted_key(w[list(comb)], nvl)
+                    if not lo <= key <= hi:
+                        continue
+                    h = _probe(hkey, key, lg)
+                    if hkey[h] == key and r0 <= hx[h] < r0 + nr:
+                        hit_rows.append(hx[h])
+                        orders.append(y)
+            _set_bits(mask, np.array(hit_rows, dtype=np.int64),
+                      np.array(orders, dtype=np.int64))
         colg = col_global[b]
-        M[b], L[b] = _emit_sparse_rows(mask, lambda o, colg=colg: colg[o],
-                                       deg)
+        value = lambda o, colg=colg: colg[o]
+        M[b], L[b] = _emit_sparse_rows(mask, value, deg) if g == 1 else \
+            _emit_wide_rows(mask, value, deg, g)
     return M, L
 
 
@@ -682,14 +755,68 @@ def test_sub_bits_tie_rule_on_a_repeated_subject_key():
         np.testing.assert_array_equal(got[0][b, 60], held[held[:, 0] >= 0][0])
 
 
+@pytest.mark.parametrize("rows", [5, 16, 37])
+@pytest.mark.parametrize("relation", ["EF", "ET", "FT"])
+def test_sub_bits_rows_in_shares_equal_the_blocks(relation, rows):
+    """The keyed bitmask design in row shares: each block's lookup holds
+    only its own rows' keys (``sub_slots(rows)`` slots), and with few rows
+    a block the rows are emitted by g lanes each (32, 32 and 16 lanes at
+    5, 16 and 37 rows); the blocks equal the plain arm's and the reference's
+    xla block, at the default width and at one below the true counts."""
+    assert [_sub_lanes(r) for r in (5, 16, 37, 116, 512, 513)] == \
+        [32, 32, 16, 8, 2, 1]
+    rng = np.random.default_rng(11)
+    nvl = 33
+    tabs = _segment_tables(rng, 2, 19, nvl, pad=2)
+    tx, ty, colg = _inputs(relation, tabs, rng)
+    tx, ty = _holes(rng, tx), _holes(rng, ty)
+    for deg in (ops.DEFAULT_DEG[relation], 1):
+        got = _sub_bits_rows(relation, tx, ty, colg, nvl, deg, rows=rows)
+        _assert_blocks_equal(ops.relation_block(
+            relation, _t(tx), _t(ty), _t(colg), nvl, deg=deg), got)
+        for w, g in zip(ref_ops.relation_block(relation, tx, ty, colg, nvl,
+                                               deg=deg, backend="xla"), got):
+            np.testing.assert_array_equal(np.asarray(w), g)
+        assert got[1].max() > 0
+
+
+@pytest.mark.parametrize("rows", [7, 16, 41])
+def test_sub_bits_tie_rule_holds_across_shares(rows):
+    """A subject key repeated in rows 3, 40 and 60, which fall in three
+    different blocks at 7 and 16 rows a block and in two at 41: every
+    block's lookup resolves the key to the segment's largest row, 60, so
+    that row gets every entry of the key and rows 3 and 40 none, on any
+    order of the lookup's inserts, and the blocks equal those of one
+    block a segment."""
+    rng = np.random.default_rng(5)
+    nvl = 31
+    tabs = _segment_tables(rng, 2, 19, nvl, pad=2)
+    tx, ty, colg = _inputs("FT", tabs, rng)
+    tx = tx.copy()
+    tx[:, 40] = tx[:, 3][:, ::-1]            # face 3 again, slots reversed
+    tx[:, 60] = tx[:, 3]
+    deg = ops.DEFAULT_DEG["FT"]
+    assert len({x // rows for x in (3, 40, 60)}) >= 2
+    whole = _sub_bits_rows("FT", tx, ty, colg, nvl, deg)
+    for order in (None, rng.permutation(tx.shape[1])):
+        got = _sub_bits_rows("FT", tx, ty, colg, nvl, deg, order=order,
+                             rows=rows)
+        for g, w in zip(got, whole):
+            np.testing.assert_array_equal(g, w)
+    assert (whole[1][:, 60] > 0).all()
+    assert (whole[1][:, [3, 40]] == 0).all()
+
+
 def test_entry_route_on_both_sides_of_the_limit():
     """``entry_route`` takes the bitmask kernel exactly while ONE mask row
     fits the given limit: VV and VE/VF/VT beside the 16 warps' rank rows
     (``4 * (1 + 16) * ceil(O / 32)`` bytes, O = nvl for VV and NY
     otherwise), EF/ET/FT (rows of ``ceil(NY / 32) | 1`` words) beside the
-    lookup of the NX subject keys (8 bytes a slot, ``next_pow2(2 * NX)``
-    slots); the wrapper then gives each segment ``bits_shares`` blocks,
-    more than the share rule where fewer would not fit."""
+    lookup of the block's own subject keys (8 bytes a slot,
+    ``next_pow2(4 * rows)`` slots: four for one row, whatever NX) and its
+    key range (8 bytes); the wrapper then gives each segment
+    ``bits_shares`` blocks, more than the share rule where fewer would not
+    fit."""
     route, size = segment_relations.entry_route, \
         segment_relations.bits_smem_bytes
     fit, shares = segment_relations.bits_rows_fit, \
@@ -698,30 +825,32 @@ def test_entry_route_on_both_sides_of_the_limit():
     assert size(256, 256) == 4 * 272 * 8
     assert size(256, 1920) == 4 * 272 * 60 and size(256, 1921) == \
         4 * 272 * 61
-    assert size(1, 896, slots(1920)) == 4 * 29 + 8 * 4096
-    assert size(3, 1920, slots(1280)) == 4 * 3 * 61 + 8 * 4096
+    assert size(1, 896, True) == 4 * 29 + 8 * 4 + 8
+    assert size(3, 1920, True) == 4 * 3 * 61 + 8 * 16 + 8
+    assert size(818, 1920, True) == 4 * 818 * 61 + 8 * 4096 + 8
     assert [slots(n) for n in (0, 1, 2, 3, 1280, 1920, 8192, 8193)] == \
-        [2, 2, 4, 8, 4096, 4096, 16384, 32768]
+        [4, 4, 8, 16, 8192, 8192, 32768, 65536]
     for relation, nvl, NY, NX in (("VV", 256, 0, 0), ("VV", 33, 5, 0),
                                   ("VT", 256, 896, 0), ("VF", 256, 1920, 0),
                                   ("VE", 31, 1281, 0), ("FT", 31, 896, 1920),
                                   ("EF", 31, 1921, 1280), ("ET", 7, 5, 3)):
         O = nvl if relation == "VV" else NY
-        one = size(1, O, slots(NX) if relation in _SUB_ARITY else 0)
-        assert route(relation, nvl, NY, one, NX) == "bits"
-        assert fit(relation, nvl, NY, one, NX) == 1
-        assert route(relation, nvl, NY, one - 1, NX) == "sort"
-        assert fit(relation, nvl, NY, one - 1, NX) == 0
+        sub = relation in _SUB_ARITY
+        one = size(1, O, sub)
+        assert route(relation, nvl, NY, one) == "bits"
+        assert fit(relation, nvl, NY, one) == 1
+        assert route(relation, nvl, NY, one - 1) == "sort"
+        assert fit(relation, nvl, NY, one - 1) == 0
         # a whole segment's mask: every row in one block
-        R = NX if relation in _SUB_ARITY else nvl
-        whole = size(R, O, slots(NX) if relation in _SUB_ARITY else 0)
-        assert fit(relation, nvl, NY, whole, NX) == R
+        R = NX if sub else nvl
+        whole = size(R, O, sub)
+        assert fit(relation, nvl, NY, whole) == R
     h100 = 232448                          # the opt-in limit of an H100
     for relation, NY, NX in (("VV", 896, 0), ("VE", 1280, 0),
                              ("VF", 1920, 0), ("VT", 896, 0),
                              ("EF", 1920, 1280), ("ET", 896, 1280),
                              ("FT", 896, 1920)):     # the 96^3 tables
-        assert route(relation, 256, NY, h100, NX) == "bits"
+        assert route(relation, 256, NY, h100) == "bits"
     # masks past the limit now take row shares: VV at nvl 1376 (1335 rows
     # a block) and VT at NY 7680 (226 rows a block), and the capacity-1024
     # tables (NV 2048, NT 8576: 892 and 200 rows a block)
@@ -738,23 +867,42 @@ def test_entry_route_on_both_sides_of_the_limit():
     assert shares("VV", 64, 2048, 892, 132) == 4
     assert shares("VT", 64, 2048, 200, 132) == 11
     # the single-row limits on an H100: member NY 109,376 (VV never passes
-    # it within the int32 key guard, nvl < 46,341), the sub-join NX 8192
-    # (a 128 KB lookup) at NY 810,976
+    # it within the int32 key guard, nvl < 46,341), the sub-join NY
+    # 1,859,232 (a row of 58,101 words, a lookup of four slots and the key
+    # range) whatever its NX: the lookup holds only the block's rows
     assert route("VT", 256, 109376, h100) == "bits"
     assert route("VT", 256, 109377, h100) == "sort"
     assert route("VV", 46340, 0, h100) == "bits"
     assert shares("VV", 64, 46340, fit("VV", 46340, 0, h100), 132) <= 65535
-    assert route("FT", 256, 896, h100, 8192) == "bits"
-    assert route("FT", 256, 896, h100, 8193) == "sort"
-    assert route("FT", 256, 810976, h100, 8192) == "bits"
-    assert route("FT", 256, 810977, h100, 8192) == "sort"
+    assert route("FT", 256, 1859232, h100) == "bits"
+    assert route("FT", 256, 1859233, h100) == "sort"
+    assert fit("FT", 256, 1859232, h100) == 1
+    for NX, blocks in ((8192, 6), (8193, 6), (11520, 9), (10 ** 6, 696)):
+        # past the old NX limit: as many blocks as 1438 rows a block need
+        assert segment_relations.bits_blocks("FT", 64, 256, NX, 896, h100,
+                                             132) == blocks
+        assert -(-NX // blocks) <= 1438
+    # the 48^3 tables at capacity 1024 (NE 11,520, NF 18,048, NT 8576):
+    # EF 101 rows of 565 words a block (a lookup of 512 slots), ET 208 of
+    # 269 (1024 slots), so 115 and 56 blocks a segment
+    assert fit("EF", 2048, 18048, h100) == 101
+    assert fit("ET", 2048, 8576, h100) == 208
+    assert size(101, 18048, True) <= h100 < size(102, 18048, True)
+    assert size(208, 8576, True) <= h100 < size(209, 8576, True)
+    for relation, NY, blocks in (("EF", 18048, 115), ("ET", 8576, 56)):
+        for B in (8, 64):
+            assert segment_relations.bits_blocks(relation, B, 2048, 11520,
+                                                 NY, h100, 132) == blocks
+        # one segment: the share rule's 132 blocks (88 rows each), 131 whole
+        assert segment_relations.bits_blocks(relation, 1, 2048, 11520, NY,
+                                             h100, 132) == 131
     # at 96^3, B = 64: FT and EF need two shares at least, ET one; the
     # sub-join's rule gives each of 132 SMs one block (132 // B a segment)
-    assert fit("FT", 256, 896, h100, 1920) == 1721
-    assert fit("EF", 256, 1920, h100, 1280) == 818
-    assert fit("ET", 256, 896, h100, 1280) == 1721
-    for relation, R, rows in (("FT", 1920, 1721), ("EF", 1280, 818),
-                              ("ET", 1280, 1721)):
+    assert fit("FT", 256, 896, h100) == 1438
+    assert fit("EF", 256, 1920, h100) == 818
+    assert fit("ET", 256, 896, h100) == 1438
+    for relation, R, rows in (("FT", 1920, 1438), ("EF", 1280, 818),
+                              ("ET", 1280, 1438)):
         assert shares(relation, 64, R, rows, 132) == 2
     assert shares("EF", 64, 1280, 300, 132) == 5      # fewer would not fit
     sub_blocks = segment_relations.sub_row_blocks

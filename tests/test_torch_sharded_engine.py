@@ -261,7 +261,8 @@ def test_shards_arguments_validate(bar):
         persistence_pairs(eng, port, rank, shards=3)
     with pytest.raises(ValueError, match="segments"):
         RelationEngine(port, RELS, device="cpu",
-                       shard_plan=ShardPlan.make(17, shards=2))
+                       shard_plan=ShardPlan.make(17, shards=2,
+                                                 devices=("cpu",) * 2))
     with pytest.raises(ValueError, match="shard 2"):
         eng.dev_inverse("T", shard=2)
     # an explicit plan of the engine's size: the shards it names

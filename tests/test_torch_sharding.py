@@ -23,13 +23,20 @@ def _t(a):
     return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _cpu_plan(ns, shards):
+    """``ShardPlan.make`` with its shards on the CPU, spelled out: without
+    ``devices`` more than one shard takes the visible cards."""
+    return ShardPlan.make(ns, shards, devices=None if shards <= 1 else
+                          ("cpu",) * max(1, min(shards, ns)))
+
+
 # -- ShardPlan ---------------------------------------------------------------
 
 @pytest.mark.parametrize("ns,shards", [(10, 4), (10, 3), (3, 8), (5, 1),
                                        (12, 4), (13824, 4), (1, 2)])
 def test_plan_equals_the_reference(ns, shards):
     ref = ref_sharding.ShardPlan.make(ns, shards)
-    got = ShardPlan.make(ns, shards)
+    got = _cpu_plan(ns, shards)
     assert got.bounds == ref.bounds and got.n_shards == ref.n_shards
     segs = np.arange(ns)
     np.testing.assert_array_equal(got.shard_of_array(segs),
@@ -43,12 +50,12 @@ def test_plan_equals_the_reference(ns, shards):
 
 
 def test_plan_bounds_and_clamping():
-    p = ShardPlan.make(10, shards=4)
+    p = _cpu_plan(10, shards=4)
     assert p.bounds == (0, 3, 6, 8, 10)
     assert [p.shard_bounds(k) for k in range(4)] == [
         (0, 3), (3, 6), (6, 8), (8, 10)]
     assert list(p.segments(1)) == [3, 4, 5]
-    p = ShardPlan.make(3, shards=8)              # clamped to the segments
+    p = _cpu_plan(3, shards=8)                   # clamped to the segments
     assert p.n_shards == 3 and p.bounds == (0, 1, 2, 3)
 
 
@@ -62,9 +69,12 @@ def test_unsharded_plan_stays_off_the_device_api(monkeypatch):
 
 
 def test_multi_device_compares_normalised_cards(monkeypatch):
-    # round-robin over the visible cards, or the CPU when there is none
+    # round-robin over the visible cards; without one that raises, and the
+    # CPU is asked for by name
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = ShardPlan.make(8, shards=4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ShardPlan.make(8, shards=4)
+    p = ShardPlan.make(8, shards=4, devices=("cpu",) * 4)
     assert p.devices == (torch.device("cpu"),) * 4 and not p.multi_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
@@ -98,7 +108,7 @@ def test_rehomed_repeats_the_target_device():
                                       (5, 8)])
 @pytest.mark.parametrize("workers", [1, 2, 3, 4, 5, 9])
 def test_partition_equals_the_reference(n, shards, workers):
-    plan = ShardPlan.make(n, shards)
+    plan = _cpu_plan(n, shards)
     shard_of = plan.shard_of
     want = ref_scheduler.partition(n, workers, shard_of)
     got = partition(n, workers, shard_of)
@@ -110,11 +120,11 @@ def test_partition_equals_the_reference(n, shards, workers):
 
 
 def test_partition_is_shard_affine():
-    plan = ShardPlan.make(16, shards=4)
+    plan = _cpu_plan(16, shards=4)
     shares = partition(16, 2, plan.shard_of)     # fewer workers than shards
     assert {plan.shard_of(i) for i in shares[0]} == {0, 2}
     assert {plan.shard_of(i) for i in shares[1]} == {1, 3}
-    plan = ShardPlan.make(12, shards=2)
+    plan = _cpu_plan(12, shards=2)
     for sh in partition(12, 5, plan.shard_of):   # more workers than shards
         assert len({plan.shard_of(i) for i in sh}) == 1
     assert partition(7, 3) == [[0, 3, 6], [1, 4], [2, 5]]
@@ -123,7 +133,7 @@ def test_partition_is_shard_affine():
 @pytest.mark.parametrize("ns,shards,batch", [(10, 3, 3), (12, 4, 4),
                                              (13, 2, 16), (9, 1, 4)])
 def test_segment_batches_restart_at_shard_boundaries(ns, shards, batch):
-    plan = ShardPlan.make(ns, shards)
+    plan = _cpu_plan(ns, shards)
     ref = ref_sharding.ShardPlan.make(ns, shards)
     got = segment_batches(ns, batch, plan)
     assert got == ref_scheduler.segment_batches(ns, batch, ref)
@@ -298,3 +308,30 @@ def test_shard_halves_sum_to_the_single_pool_union():
     got = cg.union_pairs(cand, clen, _t(args["pair_gid"]), _t(pair_at), 8)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_make_mesh_needs_a_card_or_the_cpu_spelled_out(monkeypatch):
+    """``make_mesh`` and the two named meshes default to ``cuda`` and raise
+    without a card (the port's ``ops.resolve_device`` rule); with
+    ``device_type="cpu"`` they build the mesh as before, here on the dry
+    run's fake group of four ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshes
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: meshes.make_mesh((2, 2), ("data", "model")),
+                  lambda: meshes.make_test_mesh(),
+                  lambda: meshes.make_production_mesh(multi_pod=True)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            build()
+    meshes.init_group("fake", 0, 4)
+    try:
+        mesh = meshes.make_mesh((2, 2), ("data", "model"), "cpu")
+        assert mesh.device_type == "cpu"
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert meshes.batch_axes(mesh) == ("data",)
+        test_mesh = meshes.make_test_mesh(device_type="cpu")
+        assert tuple(test_mesh.shape) == (2, 2)
+    finally:
+        dist.destroy_process_group()

@@ -3,7 +3,8 @@ on one NVIDIA card, three ways, at the shapes of ``PERF.md``'s rows 1, 2
 and 4.
 
     PYTHONPATH=src python tools/time_entries.py [--n 96] [--big]
-        [--rels VV,VE,VF,VT,EF,ET,FT] [--tag NAME]
+        [--big-rels VV,VT,EF,ET] [--rels VV,VE,VF,VT,EF,ET,FT] [--counts]
+        [--tag NAME]
 
 The tree is whichever ``repro_torch`` the ``PYTHONPATH`` names, so two
 commits compare in one call: unpack the parent into a directory that
@@ -15,9 +16,14 @@ Inputs: ``structured_grid(n, n, n)`` with the quickstart's field,
 ``segment_mesh(capacity=64)``, ``precondition`` of the seven relations;
 the first 64 segments' tables (NV 256, NE 1280, NF 1920, NT 896 at n = 48
 and at n = 96), each relation at its default width. With ``--big``, also
-the 48^3 mesh at ``segment_mesh(capacity=1024)`` (NV 2048, NT 8576), VV
-and VT, and that mesh's critical-points path on the kernels (three runs
-after a warm-up: wall, ``t_sync``, ``t_kernel``, launches). Each arm that
+the 48^3 mesh at ``segment_mesh(capacity=1024)`` (NV 2048, NE 11,520, NF
+18,048, NT 8576; the relations of ``--big-rels``, by default VV and VT),
+and, when VV and VT are among them, that mesh's critical-points path on
+the kernels (three runs after a warm-up: wall, ``t_sync``, ``t_kernel``,
+launches). With ``--counts``, also the VV count kernel
+(``relation_counts_vv_cuda``) on the first 64 and the first 8 segments'
+tets (``PERF.md``'s rows 7 and 7b), at the wrapper's row tile and, where
+the tree offers ``rows=``, at each one. Each arm that
 the tree routes (``entry_route``; the sub-join where ``LAUNCHES`` counts
 ``"sub_bits"``) is timed on both routes, the bitmask route with each
 segment's rows shared by 1 to 8 blocks (up to 22 on the capacity-1024
@@ -32,6 +38,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
@@ -98,8 +105,10 @@ def time_arm(sr, ops, dev, relation, tx, ty, colg, nvl, shares):
     limit = sr.smem_limit(dev)
     if hasattr(sr, "bits_rows_fit"):
         R = tx.shape[1] if sub else nvl
-        fit = sr.bits_rows_fit(relation, nvl, ty.shape[1], limit,
-                               tx.shape[1] if sub else 0)
+        # the tree's fit: by the lookup of all NX keys where it takes NX
+        nx = (tx.shape[1] if sub else 0,) if "NX" in inspect.signature(
+            sr.bits_rows_fit).parameters else ()
+        fit = sr.bits_rows_fit(relation, nvl, ty.shape[1], limit, *nx)
         if not fit:
             return row
         plan = lambda k: sr.bits_shares(relation, tx.shape[0], R, fit, sms)
@@ -128,11 +137,37 @@ def time_arm(sr, ops, dev, relation, tx, ty, colg, nvl, shares):
     return row
 
 
+def time_counts(sr, ops, dev, T_local, nvl):
+    """The VV count kernel on the first 64 and the first 8 segments' tets,
+    each held against the plain arm first; where the tree's wrapper takes
+    ``rows``, also at each row tile it offers."""
+    tiles = [None] + list(getattr(sr, "VV_COUNT_ROWS", ()))
+    row = {}
+    for B in (64, 8):
+        T = torch.from_numpy(np.ascontiguousarray(T_local[:B])).to(dev)
+        want = ops.counts_vv(T, nvl, backend="torch")
+        for rows in tiles:
+            kw = {"rows": rows} if rows else {}
+            launch = lambda kw=kw: sr.relation_counts_vv_cuda(T, nvl, **kw)
+            got = launch()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"vv_counts at B={B}, rows={rows} "
+                                 f"disagrees with the plain arm")
+            key = f"B{B}" + (f"_rows{rows}" if rows else "")
+            row[key] = three_ways(launch, "vv_counts")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96)
     ap.add_argument("--big", action="store_true",
-                    help="also the 48^3 mesh at capacity 1024 (VV, VT)")
+                    help="also the 48^3 mesh at capacity 1024")
+    ap.add_argument("--big-rels", default="VV,VT",
+                    help="the relations timed at capacity 1024")
+    ap.add_argument("--counts", action="store_true",
+                    help="also the VV count kernel at B = 64 and B = 8")
     ap.add_argument("--rels", default=",".join(RELS),
                     help="the relations timed at capacity 64")
     ap.add_argument("--tag", default="")
@@ -157,17 +192,22 @@ def main() -> int:
     out = {"tag": args.tag, "card": chip_smoke.nvidia_smi(), "n": n,
            "NV": t.NV, "NE": t.NE, "NF": t.NF, "NT": t.NT,
            "setup_s": round(time.perf_counter() - t0, 3)}
-    for relation, (tx, ty, colg) in cases(t, args.rels.split(",")).items():
+    rels = [r for r in args.rels.split(",") if r]
+    for relation, (tx, ty, colg) in cases(t, rels).items():
         out[relation] = time_arm(sr, ops, dev, relation, tx, ty, colg, t.NV,
                                  SHARES)
+    if args.counts:
+        out["vv_counts"] = time_counts(sr, ops, dev, t.T_local, t.NV)
+    big_rels = args.big_rels.split(",")
     if args.big:
-        bpre = precondition(segment_mesh(mesh(48), capacity=1024),
-                            ["VV", "VT"])
+        bpre = precondition(segment_mesh(mesh(48), capacity=1024), big_rels)
         bt = bpre.tables
-        big = {"NV": bt.NV, "NT": bt.NT}
-        for relation, (tx, ty, colg) in cases(bt, ["VV", "VT"]).items():
+        big = {"NV": bt.NV, "NE": bt.NE, "NF": bt.NF, "NT": bt.NT}
+        for relation, (tx, ty, colg) in cases(bt, big_rels).items():
             big[relation] = time_arm(sr, ops, dev, relation, tx, ty, colg,
                                      bt.NV, BIG_SHARES)
+        out["capacity_1024"] = big
+    if args.big and {"VV", "VT"} <= set(big_rels):
         from repro_torch.algorithms.critical_points import \
             critical_points, total_order
         from repro_torch.core.engine import RelationEngine
@@ -187,7 +227,6 @@ def main() -> int:
                              "t_kernel_s": eng.stats.t_kernel,
                              "launches": eng.stats.kernel_launches})
         big["critical_points_path"] = runs
-        out["capacity_1024"] = big
     print(json.dumps(out), flush=True)
     return 0
 
