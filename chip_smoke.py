@@ -2,9 +2,9 @@
 
     PYTHONPATH=src python3 chip_smoke.py        # from the repository root
 
-Phases, one JSON line each, in the order 1, 9-13, 2-8e: the LM phases run
-on the card while a host process of the script's own (``--meshes``) builds
-phase 2's meshes, which phases 2-8e then read:
+Phases, one JSON line each, in the order 1, 9-13, 2-8e (5b after 5): the
+LM phases run on the card while a host process of the script's own
+(``--meshes``) builds phase 2's meshes, which phases 2-8e then read:
 
   1. device: the card, and the kernel build from
      ``src/repro_torch/kernels/csrc`` (one nvcc per source, started
@@ -24,8 +24,11 @@ phase 2's meshes, which phases 2-8e then read:
      32; -1 slots inside sub-join rows; a fully valid lane vector; rows
      with L > deg; tables on each side of the old whole-mask limit, now
      row shares, past the member one-row limit, and on each side of the
-     sub-join's old NX 8192 limit, both now on the bitmask route; lanes
-     too large for shared memory, which run from a device workspace; the
+     sub-join's old NX 8192 limit, both now on the bitmask route; TT and
+     sub-join lanes too large for shared memory, which run from a device
+     workspace; the VV and member sort route past the arms' precondition
+     (a vertex twice in a row, rows of thousands of entries, member ids
+     past nvl, nvl 60,000 past the shared-memory histogram); the
      bitmask kernels, a TT table with faces of three and four cofacets and
      a sub-join table with a repeated face key run twice for equal
      blocks); then
@@ -52,8 +55,8 @@ phase 2's meshes, which phases 2-8e then read:
      shared-memory limit, so the bitmask kernels run in row shares), on
      both arms, counters zeroed just before the kernels' run and read just
      after, ``types`` equal to the capacity-64 segmentation's; both routes
-     held and timed at its shapes (the sort kernels forced: no path
-     reaches them any more, so they count no launch on the paths). Then
+     held and timed at its shapes (the sort kernels forced: no path of
+     this segmentation reaches them). Then
      EF and ET over every segment of that segmentation (NE 11,520 > 8192,
      NF 18,048: the sub-join bitmask kernel in row shares) on the kernels
      and on the plain arm, counters zeroed just before and read just after
@@ -67,6 +70,17 @@ phase 2's meshes, which phases 2-8e then read:
      chi, counts and SHA-256 digests equal to the JAX reference's;
      ``morse_smale(adjacency="ft")`` (the sub-join bitmask kernel over
      every segment) equal to the TT route; the plain torch arm equal too.
+ 5b. the gradient at capacity 8192: the 48^3 mesh in 14 segments of at
+     most 8192 vertices (nvl 11,008, NF 111,616: VF past the member
+     bitmask kernel's one-row limit), ``precondition(["VE","VF","VT"])``,
+     ``RelationEngine(["VE","VF","VT"])`` -> ``discrete_gradient`` on the
+     kernels and on the plain torch arm, counters zeroed just before the
+     kernels' run and read just after: every VF launch on the sort route's
+     ``member_entries_kernel`` and every VE and VT launch on the bitmask
+     kernel (the wrapper's calls by relation against the route counters),
+     Euler 1, counts and digest equal to the JAX reference's at that
+     segmentation (``REF_GRAD_8192``), every VF block equal between the
+     arms; the sort kernel held and timed at the 14 segments' VF tables.
   6. audit + persistence path at 96^3: ``RelationEngine(["VE","VF","VT",
      "FT","TT","FF"])`` -> ``discrete_gradient(audit=True)`` (TT and FF
      completion; FF blocks from the meet kernel) -> ``morse_smale`` ->
@@ -265,6 +279,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -399,6 +414,26 @@ BIG_CAPACITY = 1024
 # capacity (NE 11,520 > 8192: the bitmask kernel in row shares, 115 and 55
 # blocks a segment)
 BIG_SUB_RELS = ["EF", "ET"]
+# phase 5b: the SMALL_N mesh in segments of this many vertices (14
+# segments; nvl 11,008, NE 68,480, NF 111,616, NT 54,016), past the member
+# bitmask kernel's one-row limit for VF (NY 109,376 on an H100), so the
+# gradient's VF blocks come from the sort route's member_entries_kernel
+GRAD_CAPACITY = 8192
+GRAD_RELS = ["VE", "VF", "VT"]
+# The JAX reference's gradient at that segmentation (the segmentation moves
+# edge and face ids, so the digest is not REF_MS[48]'s), computed on a CPU
+# with:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c '<build the quickstart mesh
+#   at n=48; sm = segment_mesh(mesh, capacity=8192); pre = precondition(sm,
+#   ["VE","VF","VT"]); eng = RelationEngine(pre, ["VE","VF","VT"],
+#   backend="xla", tune="off"); g = discrete_gradient(eng, pre,
+#   total_order(sm.scalars), batch_segments=16); print g.euler(),
+#   g.counts(), digest(g, GRAD_FIELDS)>'
+# -> Euler characteristic 1, 3 launches, 42 segments produced (17.3 s).
+REF_GRAD_8192 = {"grad": {"crit_v": 11, "crit_e": 23, "crit_f": 15,
+                          "crit_t": 2},
+                 "grad_sha256": ("7ca0954eef38472b7dbb04a41f6a75c7"
+                                 "06a9e4b67eda3338fc931b2b18a2f985")}
 
 # the H100 SXM peaks every bound below is priced at live in the port's
 # roofline model (``repro_torch.launch.roofline``); tools/time_flash.py
@@ -700,7 +735,8 @@ def quickstart_mesh(n: int):
 
 
 def build_meshes(out_path: str) -> int:
-    """Phase 2's 96^3 mesh and phase 4b's two 48^3 segmentations, built and
+    """Phase 2's 96^3 mesh, phase 4b's two 48^3 segmentations and phase
+    5b's, built and
     preconditioned on the host by ``chip_smoke.py --meshes PATH``: the
     parent starts this process before its kernel build and reads the
     pickle at ``PATH`` after the LM phases, so that the host numpy of the
@@ -730,15 +766,19 @@ def build_meshes(out_path: str) -> int:
     # the sub-join past NX 8192 (NE 11,520): EF and ET on the same segments
     epre = precondition(bsm, relations=BIG_SUB_RELS)
     t5 = time.perf_counter()
+    gsm = segment_mesh(quickstart_mesh(SMALL_N), capacity=GRAD_CAPACITY)
+    gpre = precondition(gsm, relations=GRAD_RELS)
+    t6 = time.perf_counter()
     with open(out_path, "wb") as f:
         pickle.dump({"mesh": mesh, "sm": sm, "pre": pre, "psm": psm,
-                     "ppre": ppre, "bsm": bsm, "bpre": bpre, "epre": epre},
+                     "ppre": ppre, "bsm": bsm, "bpre": bpre, "epre": epre,
+                     "gsm": gsm, "gpre": gpre},
                     f, protocol=pickle.HIGHEST_PROTOCOL)
-    t6 = time.perf_counter()
+    t7 = time.perf_counter()
     times = {"segment_s": t1 - t0, "precondition_s": t2 - t1,
              "degree_bound_s": t3 - t2, "small_s": t4 - t3,
-             "big_capacity_s": t5 - t4, "dump_s": t6 - t5,
-             "process_s": t6 - t0}
+             "big_capacity_s": t5 - t4, "grad_capacity_s": t6 - t5,
+             "dump_s": t7 - t6, "process_s": t7 - t0}
     with open(out_path + ".json", "w") as f:
         json.dump({k: round(v, 3) for k, v in times.items()}, f)
     return 0
@@ -1134,12 +1174,14 @@ def check(cond, msg) -> None:
 ROUTED_ARMS = ("VV", "member", "sub")
 ROUTED = tuple(f"{arm}{r}" for arm in ROUTED_ARMS
                for r in ("", "_bits", "_sort"))
-# kernels that no path reaches: the sort kernels since the bitmask route
-# holds every table one mask row fits, held and timed by force (route=
-# "sort") in phases 3-4; the SIMT flash kernel since the mma kernel takes
-# float32, held and timed by force (simt=True) in phase 9; 0 launches on
-# the paths
-FORCED = ("VV_sort", "member_sort", "sub_sort", "flash")
+# kernels that no path reaches: the VV and sub-join sort kernels since
+# the bitmask route holds every table one mask row fits (VV within its
+# int32 key guard, the sub-join past any NX a mesh builds), held and timed
+# by force (route="sort") in phases 3-4; the SIMT flash kernel since the
+# mma kernel takes float32, held and timed by force (simt=True) in phase 9;
+# 0 launches on the paths. The member sort kernel has a path: phase 5b's
+# VF tables
+FORCED = ("VV_sort", "sub_sort", "flash")
 # the kernel wrappers' counters of the engine's launches: one per launch
 # that reaches a wrapper (VV, member, TT, sub-join; meet and VV counts on
 # the dense assembly)
@@ -2831,20 +2873,45 @@ def main() -> int:
         .astype(np.int32)
     compare("fully valid lanes", "FT", cu(fx), cu(ft), cu(colg_for(ft)),
             40, 16, route="sort")
-    # lanes past the shared-memory opt-in limit -> device workspace
-    big = 1408                       # VV: 8 * E = 256 KB of lanes
-    check(4 * sr.lane_ints(sr.next_pow2(12 * big), 256) > sr.smem_limit(dev),
-          "the VV workspace case fits shared memory")
+    # tables whose lanes passed the opt-in limit in the block-a-segment
+    # sort design (VV 1408 tets: 256 KB of lanes), on both routes
+    big = 1408
     tt = rand_tets(2, big, 256)
     cv = cu(rng.integers(0, 10 ** 6, (2, 256)).astype(np.int32))
     for route in ("sort", "bits"):
-        compare(f"device-workspace lanes, {route} route", "VV", cu(tt),
-                cu(tt), cv, 256, 256, route=route)
+        compare(f"1408 tets, {route} route", "VV", cu(tt), cu(tt), cv, 256,
+                256, route=route)
     tv = rand_tets(2, 2 ** 14 // 4 + 64, 256)
     cv = cu(rng.integers(0, 10 ** 6, (2, tv.shape[1])).astype(np.int32))
     for route in ("sort", "bits"):
-        compare(f"device-workspace lanes, {route} route", "VT", cu(tv),
-                cu(tv), cv, 256, 128, route=route)
+        compare(f"4160 tets, {route} route", "VT", cu(tv), cu(tv), cv, 256,
+                128, route=route)
+    # the VV and member sort route past the arms' precondition: -1 slots,
+    # a vertex twice in a row, vertex 5 in most rows (a row of 900-3000
+    # entries, VV three times as many with duplicates: sorted in the
+    # workspace, past the 128 a warp sorts in registers), rows past deg,
+    # empty rows (ids below 300 of nvl 400), member ids past nvl; VE at
+    # nvl 60,000, whose row counts pass the shared-memory histogram
+    for relation, n, nv_, deg in (("VV", 1000, 400, 16),
+                                  ("VF", 4000, 400, 8),
+                                  ("VE", 3000, 60000, 8)):
+        a = 4 if relation == "VV" else _ARITY[relation[1]]
+        tab = rand_simplices(2, n, a, 300, fill=0.99)
+        for b in range(2):
+            rows = np.flatnonzero(~(tab[b] == 5).any(-1) & (tab[b, :, 0]
+                                                              >= 0))
+            tab[b, rows[:int(0.9 * len(rows))], 0] = 5
+        tab[rng.random(tab.shape) < 0.05] = -1
+        tab[:, 3, :2] = 7
+        if relation != "VV":
+            tab[:, 10, 0] = nv_ + 3
+        cv = rng.integers(0, 10 ** 6, (2, nv_ if relation == "VV" else n))
+        want = compare(f"past the precondition, nvl {nv_}", relation,
+                       cu(tab), cu(tab), cu(cv.astype(np.int32)), nv_, deg,
+                       route="sort")
+        check(int(want[1].max()) > deg and bool((want[1] == 0).any()),
+              f"the {relation} sort-route case has no row past deg or no "
+              f"empty row")
     # each side of the old whole-mask limit (on an H100's 227 KB: nvl 1344
     # and NY 6816 fit whole, 1376 and 6848 now take row shares) and a
     # member table past the one-row limit (NY 110,000: the sort kernel)
@@ -3285,6 +3352,7 @@ def main() -> int:
     psm, ppre = built["psm"], built["ppre"]
     prank = total_order(psm.scalars)
     bsm, bpre, epre = built["bsm"], built["bpre"], built["epre"]
+    gsm, gpre = built["gsm"], built["gpre"]
     del built
     brank = total_order(bsm.scalars)
     bt = bpre.tables
@@ -3330,7 +3398,8 @@ def main() -> int:
           f"{BIG_CAPACITY} path: {big_launches}")
     all_bits(f"the capacity-{BIG_CAPACITY} path", big_launches)
     # both routes held and timed at this path's shapes: the bitmask kernels
-    # in row shares, the sort kernels forced (device workspace)
+    # in row shares, the sort kernels forced (rows 1c and 2c of PERF.md;
+    # the member sort kernel's kernels-line entry is phase 5b's path shape)
     bT, bV = cu(bt.T_local[:BATCH]), cu(bt.table("V")[0][:BATCH])
     for relation, tx, ty, colg in (
             ("VV", bT, bT, cu(bt.LV_global[:BATCH])),
@@ -3345,7 +3414,7 @@ def main() -> int:
             row = time_arm(key, relation, tx, ty, colg, deg, work,
                            nv=bt.NV, route=route,
                            reps=4 if route == "sort" else 20)
-            if route == "sort":
+            if key == "VV_sort":
                 timing[key] = row
         # share counts given: 1 gives way to the shared-memory floor
         # (ceil(R / fit): VV 3, VT 11 blocks), 8 splits finer where it can
@@ -3523,6 +3592,97 @@ def main() -> int:
     _, _, _, pout = ms_path(ppre, prank, "torch", SMALL_N)
     emit(pout)
     del eng, g
+
+    # -- 5b. the gradient at capacity 8192: VF on the sort route -----------
+    mark("5b")
+    gt = gpre.tables
+    grank = total_order(gsm.scalars)
+    g_routes = {r: sr.entry_route(r, gt.NV, gt.table(r[1])[0].shape[1],
+                                  limit) for r in GRAD_RELS}
+    check(g_routes == {"VE": "bits", "VF": "sort", "VT": "bits"},
+          f"the capacity-{GRAD_CAPACITY} tables route {g_routes}")
+    # the wrapper's calls by relation, beside the route counters: VF's
+    # calls must be the member sort launches, VE's and VT's the bitmask ones
+    entries_cuda = sr.relation_entries_cuda
+    calls = {r: 0 for r in GRAD_RELS}
+    calls_lock = threading.Lock()
+
+    def counted_entries(relation, *args, **kw):
+        with calls_lock:
+            calls[relation] += 1
+        return entries_cuda(relation, *args, **kw)
+
+    vf_blocks = {}
+    for backend in ("cuda", "torch"):
+        if backend == "cuda":
+            for k in sr.LAUNCHES:
+                sr.LAUNCHES[k] = 0
+            sr.relation_entries_cuda = counted_entries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            eng = RelationEngine(gpre, GRAD_RELS, lookahead=8, device="cuda",
+                                 backend=backend)
+            g = discrete_gradient(eng, gpre, grank, batch_segments=16)
+            torch.cuda.synchronize()
+        finally:
+            sr.relation_entries_cuda = entries_cuda
+        wall = time.perf_counter() - t0
+        if backend == "cuda":
+            grad_launches = {k: sr.LAUNCHES[k] for k in
+                             ("member", "member_bits", "member_sort")}
+        s = eng.stats
+        gout = {"phase": "gradient_path", "backend": backend, "n": SMALL_N,
+                "capacity": GRAD_CAPACITY, "segments": gsm.n_segments,
+                "NV": gt.NV, "NE": gt.NE, "NF": gt.NF, "NT": gt.NT,
+                "routes": g_routes, "euler": g.euler(), "grad": g.counts(),
+                "grad_sha256": digest(g, GRAD_FIELDS),
+                "wall_s": round(wall, 3),
+                "setup_s": round(built_times["grad_capacity_s"], 3),
+                "kernel_launches": s.kernel_launches,
+                "segments_produced": s.segments_produced,
+                "t_sync_s": round(s.t_sync, 3),
+                "t_kernel_s": round(s.t_kernel, 3),
+                **({"kernel_counters": grad_launches,
+                    "wrapper_calls": dict(calls)}
+                   if backend == "cuda" else {})}
+        emit(gout)
+        check(g.euler() == 1, f"{backend}: Euler {g.euler()} != chi 1")
+        check(gout["grad"] == REF_GRAD_8192["grad"],
+              f"{backend} counts {gout['grad']} != reference "
+              f"{REF_GRAD_8192['grad']}")
+        check(gout["grad_sha256"] == REF_GRAD_8192["grad_sha256"],
+              f"{backend}: the capacity-{GRAD_CAPACITY} gradient differs "
+              f"from the reference's")
+        vf_blocks[backend] = [eng.get_full("VF", seg)
+                              for seg in range(gsm.n_segments)]
+        del eng, g
+    check(grad_launches["member_sort"] > 0
+          and grad_launches["member_sort"] == calls["VF"]
+          and grad_launches["member_bits"] == calls["VE"] + calls["VT"] > 0
+          and grad_launches["member"] == sum(calls.values()),
+          f"the capacity-{GRAD_CAPACITY} gradient's VF did not take the "
+          f"sort kernel, or VE/VT not the bitmask kernel: {grad_launches} "
+          f"for {calls}")
+    same = all(np.array_equal(a, b)
+               for got, want in zip(vf_blocks["cuda"], vf_blocks["torch"])
+               for a, b in zip(got, want))
+    check(same, f"the capacity-{GRAD_CAPACITY} VF blocks differ between the "
+                f"kernels and the plain arm")
+    launches["member_sort"] += grad_launches["member_sort"]
+    launches["member_bits"] += grad_launches["member_bits"]
+    del vf_blocks
+    # the sort kernel held and timed at the path's shape: all 14 segments'
+    # VF tables in one launch (PERF.md row 2e)
+    gV, gF, gcolg = (cu(a) for a in (gt.table("V")[0], gt.F_local,
+                                     gt.LF_global))
+    deg = ops.DEFAULT_DEG["VF"]
+    compare(f"capacity-{GRAD_CAPACITY} VF tables", "VF", gV, gF, gcolg,
+            gt.NV, deg, want_route="sort")
+    timing["member_sort"] = time_arm(
+        "member_sort", "VF", gV, gF, gcolg, deg,
+        entry_work("VF", gV, gF, gcolg, gt.NV, deg), nv=gt.NV)
+    del gV, gF, gcolg, gpre, gsm
 
     # -- 6. the audit + persistence path at 96^3 (its engine serves phase 7)
     mark("6")

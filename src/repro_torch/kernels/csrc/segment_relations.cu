@@ -1,6 +1,5 @@
-// Sparse relation-entry assembly for Hopper (sm_90a): one thread block per
-// batched segment (or per share of a segment's rows) emits that segment's
-// padded (M, L) relation block.
+// Sparse relation-entry assembly for Hopper (sm_90a): each launch emits the
+// padded (M, L) relation blocks of its batched segments.
 //
 // Replaces the TPU kernels of src/repro/kernels/segment_relations.py:
 //   vv_bits_kernel, vv_entries_kernel         <- _vv_entries_kernel
@@ -84,16 +83,25 @@
 // = 109,376, and sub-join tables up to NY = 1,859,232 whatever their NX.
 // Ids outside [0, nvl) are dropped, and no bit past O is ever set.
 //
-// The sort route (vv_entries_kernel, member_entries_kernel,
-// sub_entries_kernel) serves the tables past that (member only, in
-// practice), and callers that force it: the entry lanes are generated,
-// sorted by a block-wide bitonic network, deduplicated and inverted
-// (emit_entries); the sub-join first sorts its join lanes and resolves
-// each y lane's x by a running max. VV at NT = 896 sorts E =
-// next_pow2(12 * NT) = 16384 lanes twice, log2(E)*(log2(E)+1)/2 = 105
-// barrier-separated passes a sort; the sub-join three sorts of E = 8192
-// lanes at 96^3. Both are bound by those
-// passes and by occupancy (128 KB of lanes a block).
+// The sort route serves the tables past that, and callers that force it.
+// VV and VE/VF/VT (vv_entries_kernel, member_entries_kernel) build each
+// segment's relation as CSR rows over four passes, each a launch of the
+// arm's kernel template on a grid that spreads a segment's table over many
+// blocks (see "CSR rows" below): count the entries of each row (a block a
+// tile of the table, in a shared-memory histogram of nvl ints), scan the
+// counts into row starts, place each entry's order key in its row by an
+// atomic cursor, then one warp a row sorts the row's keys (in registers up
+// to 128 keys, in the workspace past that), drops duplicates and emits. No
+// combined row * O + order key is ever formed, and the order of the
+// atomics cannot change a block: a row's keys are sorted before they are
+// read, and a value is a function of its order key. What bounds it: the
+// place pass's one device-memory atomic and scattered 4-byte store an
+// entry, and the latency of each warp's row. The sub-join
+// (sub_entries_kernel) keeps the block-a-segment design: its join lanes
+// are generated, sorted by a block-wide bitonic network, each y lane
+// resolves its x by a running max, and the entries are deduplicated and
+// inverted (emit_entries); three sorts of E = 8192 lanes at 96^3, bound by
+// those barrier-separated passes and by occupancy.
 //
 // TT is designed apart (tt_entries_kernel below). It sorts only its EJ face
 // lanes (4096 at NT = 896) and never inverts a list of entries: under the
@@ -110,15 +118,15 @@
 // the device workspace past the opt-in limit (NT > 3168 at deg 8), as
 // below.
 //
-// Lanes of the sort kernels (int32 key + int32 value, 8*E bytes) never
-// leave shared memory between the entry generation and the store of M:
-// device memory sees each table row once and each M row once. When 8*E
+// Lanes of the sub-join's sort kernel (int32 key + int32 value, 8*E bytes)
+// never leave shared memory between the entry generation and the store of
+// M: device memory sees each table row once and each M row once. When 8*E
 // exceeds the per-block opt-in limit (227 KB) the same code runs with its
 // lanes in a workspace in device memory that the wrapper allocates; no
 // kernel ever falls back to another implementation.
 //
-// Key encoding of the sort kernels (identical to the plain torch arm and
-// the reference): an entry's key is row * O + order in int32 (the
+// Key encoding of the sub-join's sort kernel (identical to the plain torch
+// arm and the reference): an entry's key is row * O + order in int32 (the
 // wrapper's callers guarantee R * O + O < 2^31), invalid lanes carry
 // INT32_MAX and value 0. Every key family is tie-insensitive (equal keys
 // carry equal values), so the unstable bitonic network gives the same
@@ -229,77 +237,6 @@ __device__ __forceinline__ int* segment_lanes(int* work, int b, size_t per) {
   extern __shared__ __align__(16) int smem[];
   if (kGlobalLanes) return work + (size_t)b * per;
   return smem;
-}
-
-// VV: the 12 ordered vertex pairs of each local tet are the entries,
-// key va * nvl + vb, value col_global[vb]. tet is (B, NT, 4), colg (B, NV).
-template <bool kGlobalLanes>
-__global__ void __launch_bounds__(1024)
-vv_entries_kernel(const int* __restrict__ tet, const int* __restrict__ colg,
-                  int* __restrict__ M, int* __restrict__ L, int* work,
-                  int NT, int NV, int nvl, int deg, int E) {
-  const int b = blockIdx.x;
-  const size_t per = 2 * (size_t)E + nvl + 1;
-  int* key = segment_lanes<kGlobalLanes>(work, b, per);
-  int* val = key + E;
-  int* starts = val + E;
-  const int* tb = tet + (size_t)b * NT * 4;
-  const int* cg = colg + (size_t)b * NV;
-  const int n = 12 * NT;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    int k = kBig;
-    int v = 0;
-    if (i < n) {
-      const int p = i / NT;           // pair-major, as the reference
-      const int t = i - p * NT;
-      const int va = tb[t * 4 + kPairA[p]];
-      const int vb = tb[t * 4 + kPairB[p]];
-      if (va >= 0 && vb >= 0) {
-        k = va * nvl + vb;
-        v = vb < NV ? cg[vb] : 0;
-      }
-    }
-    key[i] = k;
-    val[i] = v;
-  }
-  __syncthreads();
-  emit_entries(key, val, starts, E, nvl, nvl, deg,
-               M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
-}
-
-// VE/VF/VT: the (NY, ay) table is the entry list, key v * NY + y, value
-// col_global[y]. taby is (B, NY, ay), colg (B, NY).
-template <bool kGlobalLanes>
-__global__ void __launch_bounds__(1024)
-member_entries_kernel(const int* __restrict__ taby,
-                      const int* __restrict__ colg, int* __restrict__ M,
-                      int* __restrict__ L, int* work, int NY, int ay,
-                      int nvl, int deg, int E) {
-  const int b = blockIdx.x;
-  const size_t per = 2 * (size_t)E + nvl + 1;
-  int* key = segment_lanes<kGlobalLanes>(work, b, per);
-  int* val = key + E;
-  int* starts = val + E;
-  const int* tb = taby + (size_t)b * NY * ay;
-  const int* cg = colg + (size_t)b * NY;
-  const int n = NY * ay;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    int k = kBig;
-    int v = 0;
-    if (i < n) {
-      const int y = i / ay;           // row-major table walk, coalesced
-      const int vert = tb[i];
-      if (vert >= 0) {
-        k = vert * NY + y;
-        v = cg[y];
-      }
-    }
-    key[i] = k;
-    val[i] = v;
-  }
-  __syncthreads();
-  emit_entries(key, val, starts, E, nvl, NY, deg,
-               M + (size_t)b * nvl * deg, L + (size_t)b * nvl);
 }
 
 // -- VV and VE/VF/VT as row bitmasks ----------------------------------------
@@ -523,34 +460,38 @@ constexpr int kTTChunk = 32 * kTTPer;        // lanes a warp sorts alone
 
 typedef unsigned long long u64;
 
-__device__ __forceinline__ void cswap64(u64& a, u64& b, bool up) {
+template <class T>
+__device__ __forceinline__ void cswap(T& a, T& b, bool up) {
   if ((a > b) == up) {
-    const u64 t = a;
+    const T t = a;
     a = b;
     b = t;
   }
 }
 
-// The bitonic passes of merge size k with strides jmax..1 (jmax < 128) over
-// one warp's chunk, starting at lane index base, held in registers.
-__device__ __forceinline__ void warp_passes(u64 (&v)[kTTPer], int base,
-                                            int k, int jmax) {
+// The bitonic passes of merge size k with strides jmax..1 (jmax < 32 * R)
+// over one warp's chunk of 32 * R lanes, starting at lane index base, held
+// in registers (lane i of the chunk in v[i / 32] of lane i % 32): the TT
+// kernel's 64-bit face lanes (R = kTTPer), the CSR rows' 32-bit order keys.
+template <class T, int R>
+__device__ __forceinline__ void warp_passes(T (&v)[R], int base, int k,
+                                            int jmax) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = kTTChunk / 2; j > 0; j >>= 1) {
+  for (int j = 16 * R; j > 0; j >>= 1) {
     if (j > jmax) continue;
     if (j >= 32) {
       const int rj = j >> 5;
 #pragma unroll
-      for (int r = 0; r < kTTPer; ++r) {
+      for (int r = 0; r < R; ++r) {
         if ((r & rj) == 0) {
-          cswap64(v[r], v[r | rj], ((base + r * 32 + lane) & k) == 0);
+          cswap(v[r], v[r | rj], ((base + r * 32 + lane) & k) == 0);
         }
       }
     } else {
 #pragma unroll
-      for (int r = 0; r < kTTPer; ++r) {
-        const u64 o = __shfl_xor_sync(0xffffffffu, v[r], j);
+      for (int r = 0; r < R; ++r) {
+        const T o = __shfl_xor_sync(0xffffffffu, v[r], j);
         const bool up = ((base + r * 32 + lane) & k) == 0;
         const bool lower = (lane & j) == 0;
         const bool keep_min = lower == up;
@@ -701,6 +642,384 @@ tt_entries_kernel(const int* __restrict__ tet, const int* __restrict__ colg,
   const int total = NT * deg;
   int* Mb = M + (size_t)b * total;
   for (int i = threadIdx.x; i < total; i += blockDim.x) Mb[i] = Ms[i];
+}
+
+// -- VV and VE/VF/VT on the sort route: CSR rows ----------------------------
+//
+// One launch of the wrapper runs four passes over its B segments, each a
+// launch of the arm's kernel template (vv_entries_kernel<kPass>,
+// member_entries_kernel<kPass>), after the segments' row counts are zeroed:
+//   kCsrCount  grid (B, tiles): a block counts its tile of the table's
+//              entries per row in a shared-memory histogram of nvl ints
+//              (in device memory where nvl ints pass the opt-in limit),
+//              then adds the nonzero counts into its segment's row counts;
+//   kCsrScan   grid B: an exclusive scan of a segment's nvl counts gives
+//              its row starts, and the counts return to 0 as cursors
+//              (staged in shared memory where nvl ints fit);
+//   kCsrPlace  grid (B, tiles): each entry takes a slot in its row by an
+//              atomic cursor and writes its order key there (the order
+//              within a row does not matter): a block counts its tile per
+//              row again in shared memory, reserves each row's run of
+//              slots with one atomic on the row's device cursor, and hands
+//              the run out by shared-memory atomics on a second walk;
+//   kCsrRows   one warp a row: the row's keys are sorted (up to
+//              kCsrShort in registers, past that in place in the
+//              workspace), duplicates dropped (VV always has them: a pair
+//              repeats in every tet that holds both vertices), and the warp
+//              writes L, the TRUE count (it may exceed deg: the engine's
+//              width check), and M, the value of each of the first deg
+//              keys, -1 after.
+// An entry is (row, order) with both ids inside their ranges: VV a tet's
+// ordered pair (va, vb) of ids in [0, nvl); member the slot v of table row
+// y, v in [0, nvl). Anything else (-1 padding, ids past nvl) is dropped
+// before it touches a counter. Its value is a function of its order key
+// (VVValue, MemberValue), so the workspace holds keys only, and since every
+// row is sorted before it is read the blocks do not depend on the order of
+// the atomics. The workspace (csr_ints ints a segment): the B segments'
+// nvl row counts, then their nvl + 1 row starts, then their n = 12 * NT
+// (VV) or ay * NY (member) order keys.
+
+constexpr int kCsrThreads = 512;
+constexpr int kCsrWarps = kCsrThreads / 32;
+constexpr int kCsrShort = 32 * kTTPer;       // rows sorted in registers
+constexpr int kCsrCount = 0;
+constexpr int kCsrScan = 1;
+constexpr int kCsrPlace = 2;
+constexpr int kCsrRows = 3;
+
+struct CsrArgs {
+  int* M;
+  int* L;
+  int* work;
+  int B;
+  int nvl;
+  int deg;
+  int tile;          // units of the table a count or place block walks
+  int shared_hist;   // the count pass's histogram is in shared memory
+};
+
+// VV: a unit is a local tet, its entries the 12 ordered pairs (va, vb) of
+// its ids in [0, nvl): row va, order vb. tet is (B, NT, 4), colg (B, NV).
+struct VVEntries {
+  const int* tet;
+  const int* colg;
+  int NT;
+  int NV;
+  __host__ __device__ int units() const { return NT; }
+  __host__ __device__ size_t entries() const { return 12 * (size_t)NT; }
+  template <class F>
+  __device__ __forceinline__ void walk(int b, int t, int nvl, F f) const {
+    const int* tb = tet + ((size_t)b * NT + t) * 4;
+    const int4 q = (reinterpret_cast<size_t>(tb) & 15) == 0
+                       ? *reinterpret_cast<const int4*>(tb)
+                       : make_int4(tb[0], tb[1], tb[2], tb[3]);
+    const int v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if ((unsigned)v[a] >= (unsigned)nvl) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c != a && (unsigned)v[c] < (unsigned)nvl) f(v[a], v[c]);
+      }
+    }
+  }
+  __device__ VVValue value(int b) const {
+    return VVValue{colg + (size_t)b * NV, NV};
+  }
+};
+
+// VE/VF/VT: a unit is a slot of the (NY, ay) table, walked row-major
+// (coalesced); slot v of row y is the entry row v, order y. taby is
+// (B, NY, ay), colg (B, NY).
+struct MemberEntries {
+  const int* taby;
+  const int* colg;
+  int NY;
+  int ay;
+  __host__ __device__ int units() const { return NY * ay; }
+  __host__ __device__ size_t entries() const { return (size_t)NY * ay; }
+  template <class F>
+  __device__ __forceinline__ void walk(int b, int i, int nvl, F f) const {
+    const int v = taby[(size_t)b * NY * ay + i];
+    if ((unsigned)v < (unsigned)nvl) f(v, i / ay);
+  }
+  __device__ MemberValue value(int b) const {
+    return MemberValue{colg + (size_t)b * NY};
+  }
+};
+
+// Segment b's view of the workspace.
+struct CsrView {
+  int* cnt;      // nvl row counts, then the place pass's cursors
+  int* start;    // nvl + 1 row starts
+  int* keys;     // n order keys, row by row
+};
+
+__device__ __forceinline__ CsrView csr_view(const CsrArgs& a, size_t n,
+                                            int b) {
+  int* start = a.work + (size_t)a.B * a.nvl;
+  int* keys = start + (size_t)a.B * (a.nvl + 1);
+  return {a.work + (size_t)b * a.nvl, start + (size_t)b * (a.nvl + 1),
+          keys + (size_t)b * n};
+}
+
+template <class Arm>
+__device__ __forceinline__ void csr_count(const Arm& arm, const CsrArgs& a) {
+  extern __shared__ __align__(16) int csr_hist[];
+  const int b = blockIdx.x;
+  const CsrView w = csr_view(a, arm.entries(), b);
+  const int u0 = blockIdx.y * a.tile;
+  const int u1 = min(arm.units(), u0 + a.tile);
+  if (!a.shared_hist) {
+    for (int u = u0 + threadIdx.x; u < u1; u += blockDim.x)
+      arm.walk(b, u, a.nvl, [&](int r, int) { atomicAdd(&w.cnt[r], 1); });
+    return;
+  }
+  for (int r = threadIdx.x; r < a.nvl; r += blockDim.x) csr_hist[r] = 0;
+  __syncthreads();
+  for (int u = u0 + threadIdx.x; u < u1; u += blockDim.x)
+    arm.walk(b, u, a.nvl, [&](int r, int) { atomicAdd(&csr_hist[r], 1); });
+  __syncthreads();
+  for (int r = threadIdx.x; r < a.nvl; r += blockDim.x) {
+    const int c = csr_hist[r];
+    if (c != 0) atomicAdd(&w.cnt[r], c);
+  }
+}
+
+// Each thread scans a contiguous chunk of the counts; a block-wide scan of
+// the chunks' sums gives each chunk its first start. Where nvl ints fit in
+// shared memory (as the count pass's histogram), the counts are staged
+// there first by coalesced loads, all in flight at once, and the starts go
+// back out the same way: a thread's own chunk would be a chain of
+// dependent device-memory round trips (22 of them at nvl 11,008).
+template <class Arm>
+__device__ __forceinline__ void csr_scan(const Arm& arm, const CsrArgs& a) {
+  extern __shared__ __align__(16) int csr_hist[];
+  __shared__ int warp_sum[kCsrWarps];
+  const CsrView w = csr_view(a, arm.entries(), blockIdx.x);
+  const int nvl = a.nvl;
+  const bool staged = a.shared_hist;
+  int* cnt = w.cnt;
+  if (staged) {
+#pragma unroll 8
+    for (int r = threadIdx.x; r < nvl; r += kCsrThreads)
+      csr_hist[r] = w.cnt[r];
+    __syncthreads();
+    cnt = csr_hist;
+  }
+  const int chunk = (nvl + kCsrThreads - 1) / kCsrThreads;
+  const int lo = min(nvl, (int)threadIdx.x * chunk);
+  const int hi = min(nvl, lo + chunk);
+  int sum = 0;
+  for (int r = lo; r < hi; ++r) sum += cnt[r];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kCsrWarps ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += o;
+    }
+    if (lane < kCsrWarps) warp_sum[lane] = v;      // inclusive over warps
+  }
+  __syncthreads();
+  int run = incl - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (int r = lo; r < hi; ++r) {
+    const int c = cnt[r];
+    if (staged) {
+      cnt[r] = run;
+    } else {
+      w.start[r] = run;
+      w.cnt[r] = 0;
+    }
+    run += c;
+  }
+  if (threadIdx.x == 0) w.start[nvl] = warp_sum[kCsrWarps - 1];
+  if (staged) {
+    __syncthreads();
+#pragma unroll 8
+    for (int r = threadIdx.x; r < nvl; r += kCsrThreads) {
+      w.start[r] = csr_hist[r];
+      w.cnt[r] = 0;
+    }
+  }
+}
+
+// With the shared histogram, a block counts its tile's entries per row
+// again, reserves each row's run of slots with one device-memory atomic,
+// and hands the slots out by shared-memory atomics on a second walk of its
+// tile (L2 serves it), so the device-memory atomics are one a row the tile
+// touches, not one an entry.
+template <class Arm>
+__device__ __forceinline__ void csr_place(const Arm& arm, const CsrArgs& a) {
+  extern __shared__ __align__(16) int csr_hist[];
+  const int b = blockIdx.x;
+  const CsrView w = csr_view(a, arm.entries(), b);
+  const int u0 = blockIdx.y * a.tile;
+  const int u1 = min(arm.units(), u0 + a.tile);
+  if (!a.shared_hist) {
+    for (int u = u0 + threadIdx.x; u < u1; u += blockDim.x)
+      arm.walk(b, u, a.nvl, [&](int r, int o) {
+        w.keys[w.start[r] + atomicAdd(&w.cnt[r], 1)] = o;
+      });
+    return;
+  }
+  for (int r = threadIdx.x; r < a.nvl; r += blockDim.x) csr_hist[r] = 0;
+  __syncthreads();
+  for (int u = u0 + threadIdx.x; u < u1; u += blockDim.x)
+    arm.walk(b, u, a.nvl, [&](int r, int) { atomicAdd(&csr_hist[r], 1); });
+  __syncthreads();
+  for (int r = threadIdx.x; r < a.nvl; r += blockDim.x) {
+    const int c = csr_hist[r];
+    if (c != 0) csr_hist[r] = w.start[r] + atomicAdd(&w.cnt[r], c);
+  }
+  __syncthreads();
+  for (int u = u0 + threadIdx.x; u < u1; u += blockDim.x)
+    arm.walk(b, u, a.nvl, [&](int r, int o) {
+      w.keys[atomicAdd(&csr_hist[r], 1)] = o;
+    });
+}
+
+// One chunk of 32 keys of a sorted row: lane's key x is new where ``uniq``;
+// the new keys take the next ranks in lane order, and those below deg write
+// their values to the M row.
+template <class Value>
+__device__ __forceinline__ void csr_emit(bool uniq, int x, int& n, int deg,
+                                         const Value& value, int* Mr) {
+  const unsigned bal = __ballot_sync(0xffffffffu, uniq);
+  const int rank = n + __popc(bal & ((1u << (threadIdx.x & 31)) - 1u));
+  if (uniq && rank < deg) Mr[rank] = value(x);
+  n += __popc(bal);
+}
+
+// Sorts keys[0, c) ascending in place, one warp, by the bitonic network
+// whose first comparator of each merge pairs mirror images (lo, lo ^ (k -
+// 1)) and whose others are half-cleaners (lo, lo + j), every comparator
+// keeping the smaller key at the lower index. Virtual keys past c, larger
+// than any, would never move, so a comparator reaching past c is skipped
+// and the row needs no padding.
+__device__ __forceinline__ void warp_sort_in_place(int* keys, int c) {
+  const int lane = threadIdx.x & 31;
+  int P = 1;
+  while (P < c) P <<= 1;
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < (P >> 1); i += 32) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = j == (k >> 1) ? lo ^ (k - 1) : lo + j;
+        if (hi >= c) continue;
+        const int x = keys[lo];
+        const int y = keys[hi];
+        if (x > y) {
+          keys[lo] = y;
+          keys[hi] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// A row of c <= 32 * R keys, sorted in R registers a lane (key i in v[i /
+// 32] of lane i % 32, padded with kBig) and emitted.
+template <int R, class Value>
+__device__ __forceinline__ void csr_short_row(const int* keys, int c,
+                                              int deg, const Value& value,
+                                              int* Mr, int& n) {
+  const int lane = threadIdx.x & 31;
+  int v[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = k * 32 + lane;
+    v[k] = i < c ? keys[i] : kBig;
+  }
+#pragma unroll
+  for (int k = 2; k <= 32 * R; k <<= 1) warp_passes(v, 0, k, k >> 1);
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k * 32 < c) {                              // the same in every lane
+      const int x = v[k];
+      int prev = __shfl_up_sync(0xffffffffu, x, 1);
+      const int carry = __shfl_sync(0xffffffffu, v[k > 0 ? k - 1 : 0], 31);
+      if (lane == 0) prev = k > 0 ? carry : -1;    // keys are >= 0
+      csr_emit(x != kBig && x != prev, x, n, deg, value, Mr);
+    }
+  }
+}
+
+template <class Arm>
+__device__ __forceinline__ void csr_rows(const Arm& arm, const CsrArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kCsrWarps + (threadIdx.x >> 5);
+  if (row >= (long long)a.B * a.nvl) return;       // the whole warp
+  const int b = (int)(row / a.nvl);
+  const int r = (int)(row - (long long)b * a.nvl);
+  const CsrView w = csr_view(a, arm.entries(), b);
+  const int s = w.start[r];
+  const int c = w.start[r + 1] - s;
+  int* keys = w.keys + s;
+  const auto value = arm.value(b);
+  int* Mr = a.M + (size_t)row * a.deg;
+  int n = 0;                                       // distinct keys so far
+  if (c <= 32) {
+    csr_short_row<1>(keys, c, a.deg, value, Mr, n);
+  } else if (c <= 64) {
+    csr_short_row<2>(keys, c, a.deg, value, Mr, n);
+  } else if (c <= kCsrShort) {
+    csr_short_row<4>(keys, c, a.deg, value, Mr, n);
+  } else {
+    warp_sort_in_place(keys, c);
+    for (int i0 = 0; i0 < c; i0 += 32) {
+      const int i = i0 + lane;
+      const int x = i < c ? keys[i] : kBig;
+      const int prev = i > 0 && i < c ? keys[i - 1] : -1;
+      csr_emit(i < c && x != prev, x, n, a.deg, value, Mr);
+    }
+  }
+  for (int d = min(n, a.deg) + lane; d < a.deg; d += 32) Mr[d] = -1;
+  if (lane == 0) a.L[row] = n;
+}
+
+template <int kPass, class Arm>
+__device__ __forceinline__ void csr_pass(const Arm& arm, const CsrArgs& a) {
+  if constexpr (kPass == kCsrCount) {
+    csr_count(arm, a);
+  } else if constexpr (kPass == kCsrScan) {
+    csr_scan(arm, a);
+  } else if constexpr (kPass == kCsrPlace) {
+    csr_place(arm, a);
+  } else {
+    csr_rows(arm, a);
+  }
+}
+
+// Blocks a multiprocessor keeps of each pass: the rows pass is bound by
+// the latency of each warp's row, so it asks for the most warps (4 blocks of
+// 512 threads, at most 32 registers a thread).
+template <int kPass>
+constexpr int csr_min_blocks() {
+  return kPass == kCsrRows ? 4 : 1;
+}
+
+template <int kPass>
+__global__ void __launch_bounds__(kCsrThreads, csr_min_blocks<kPass>())
+vv_entries_kernel(const VVEntries arm, const CsrArgs a) {
+  csr_pass<kPass>(arm, a);
+}
+
+template <int kPass>
+__global__ void __launch_bounds__(kCsrThreads, csr_min_blocks<kPass>())
+member_entries_kernel(const MemberEntries arm, const CsrArgs a) {
+  csr_pass<kPass>(arm, a);
 }
 
 // The arity-AX vertex subsets of an arity-AY simplex, as slot indices, in
@@ -1202,9 +1521,10 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 }  // namespace
 
 // Plain C interface, bound with ctypes. Every entry returns a cudaError_t
-// (0 on success), read with cudaGetLastError() right after the launch.
-// ``work`` is null for the shared-memory variant, else a device workspace
-// of B segments' lanes: 2E + R + 1 int32 each (tt_lane_ints for TT).
+// (0 on success), read with cudaGetLastError() right after each launch.
+// For TT and the sub-join ``work`` is null for the shared-memory variant,
+// else a device workspace of B segments' lanes: 2E + R + 1 int32 each
+// (tt_lane_ints for TT); VV and member always take one (csr_ints).
 
 extern "C" int sr_smem_optin_limit(int device, int* out) {
   return (int)cudaDeviceGetAttribute(
@@ -1215,49 +1535,85 @@ extern "C" const char* sr_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+namespace {
+
+// The passes of one sort-route launch of VV or member, on stream s, each
+// launch checked: the row counts zeroed, then count, scan, place and rows.
+template <class Arm>
+cudaError_t launch_csr(void (*const pass[4])(Arm, CsrArgs), const Arm& arm,
+                       CsrArgs a, int device, cudaStream_t s) {
+  if (a.B < 1 || a.nvl < 1 || a.deg < 1 || a.tile < 1)
+    return cudaErrorInvalidValue;
+  const int tiles = arm.units() > 0 ? (arm.units() - 1) / a.tile + 1 : 1;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(a.B, tiles);
+  cudaError_t e =
+      cudaMemsetAsync(a.work, 0, (size_t)a.B * a.nvl * sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return e;
+  const size_t hist = (size_t)a.nvl * sizeof(int);
+  a.shared_hist = hist <= (size_t)optin;
+  if (a.shared_hist) {
+    e = allow_smem((const void*)pass[kCsrCount], hist);
+    if (e != cudaSuccess) return e;
+  }
+  pass[kCsrCount]<<<grid, kCsrThreads, a.shared_hist ? hist : 0, s>>>(arm,
+                                                                        a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.shared_hist) {
+    e = allow_smem((const void*)pass[kCsrScan], hist);
+    if (e != cudaSuccess) return e;
+  }
+  pass[kCsrScan]<<<a.B, kCsrThreads, a.shared_hist ? hist : 0, s>>>(arm, a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (a.shared_hist) {
+    e = allow_smem((const void*)pass[kCsrPlace], hist);
+    if (e != cudaSuccess) return e;
+  }
+  pass[kCsrPlace]<<<grid, kCsrThreads, a.shared_hist ? hist : 0, s>>>(arm,
+                                                                        a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long rows = (long long)a.B * a.nvl;
+  const long long blocks = (rows + kCsrWarps - 1) / kCsrWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  pass[kCsrRows]<<<(unsigned)blocks, kCsrThreads, 0, s>>>(arm, a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ``tile``: units of the table (VV tets, member table slots) a block of the
+// count and place passes walks; the grid is (B, ceil(units / tile)).
+// ``work``: csr_ints(n, nvl) int32 a segment (the wrapper's csr_ints).
 extern "C" int sr_vv_entries(int device, const void* tet, const void* colg,
                              void* M, void* L, void* work, int B, int NT,
-                             int NV, int nvl, int deg, int E, void* stream) {
+                             int NV, int nvl, int deg, int tile,
+                             void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = threads_for(E);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (work != nullptr) {
-    vv_entries_kernel<true><<<B, threads, 0, s>>>(
-        (const int*)tet, (const int*)colg, (int*)M, (int*)L, (int*)work, NT,
-        NV, nvl, deg, E);
-  } else {
-    const size_t bytes = (2 * (size_t)E + nvl + 1) * sizeof(int);
-    e = allow_smem((const void*)vv_entries_kernel<false>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    vv_entries_kernel<false><<<B, threads, bytes, s>>>(
-        (const int*)tet, (const int*)colg, (int*)M, (int*)L, nullptr, NT,
-        NV, nvl, deg, E);
-  }
-  return (int)cudaGetLastError();
+  static void (*const pass[4])(VVEntries, CsrArgs) = {
+      vv_entries_kernel<kCsrCount>, vv_entries_kernel<kCsrScan>,
+      vv_entries_kernel<kCsrPlace>, vv_entries_kernel<kCsrRows>};
+  const VVEntries arm{(const int*)tet, (const int*)colg, NT, NV};
+  const CsrArgs a{(int*)M, (int*)L, (int*)work, B, nvl, deg, tile, 0};
+  return (int)launch_csr(pass, arm, a, device, (cudaStream_t)stream);
 }
 
 extern "C" int sr_member_entries(int device, const void* taby,
                                  const void* colg, void* M, void* L,
                                  void* work, int B, int NY, int ay, int nvl,
-                                 int deg, int E, void* stream) {
+                                 int deg, int tile, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = threads_for(E);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (work != nullptr) {
-    member_entries_kernel<true><<<B, threads, 0, s>>>(
-        (const int*)taby, (const int*)colg, (int*)M, (int*)L, (int*)work,
-        NY, ay, nvl, deg, E);
-  } else {
-    const size_t bytes = (2 * (size_t)E + nvl + 1) * sizeof(int);
-    e = allow_smem((const void*)member_entries_kernel<false>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    member_entries_kernel<false><<<B, threads, bytes, s>>>(
-        (const int*)taby, (const int*)colg, (int*)M, (int*)L, nullptr, NY,
-        ay, nvl, deg, E);
-  }
-  return (int)cudaGetLastError();
+  static void (*const pass[4])(MemberEntries, CsrArgs) = {
+      member_entries_kernel<kCsrCount>, member_entries_kernel<kCsrScan>,
+      member_entries_kernel<kCsrPlace>, member_entries_kernel<kCsrRows>};
+  const MemberEntries arm{(const int*)taby, (const int*)colg, NY, ay};
+  const CsrArgs a{(int*)M, (int*)L, (int*)work, B, nvl, deg, tile, 0};
+  return (int)launch_csr(pass, arm, a, device, (cudaStream_t)stream);
 }
 
 namespace {

@@ -33,15 +33,24 @@ VV, member and sub have two routes, chosen in Python before the launch by
                    and a segment's rows are split over as many blocks as
                    the share rule (:func:`bits_row_blocks`,
                    :func:`sub_row_blocks`) or the limit asks
-                   (:func:`bits_blocks`). Every table the repo's paths
-                   build takes it;
-  - ``"sort"``   — ``vv_entries_kernel`` / ``member_entries_kernel`` /
-                   ``sub_entries_kernel``: the entry lanes sorted,
-                   deduplicated and inverted in shared memory (or a device
-                   workspace past the limit), for the tables past one row's
-                   limit (member past NY 109,376, the sub-join past NY
-                   1,859,232 on an H100; never VV within its int32 key
-                   guard) and for callers that force it.
+                   (:func:`bits_blocks`);
+  - ``"sort"``   — for the tables past one row's limit (member past NY
+                   109,376, the sub-join past NY 1,859,232 on an H100;
+                   never VV within its int32 key guard) and for callers
+                   that force it. ``vv_entries_kernel`` /
+                   ``member_entries_kernel`` build a segment's relation as
+                   CSR rows in a device workspace (:func:`csr_ints`): a
+                   grid of (B, :func:`csr_tiles`) blocks counts each row's
+                   entries in a shared-memory histogram, a scan gives the
+                   row starts, the same grid places each entry's order key
+                   in its row by an atomic cursor, and one warp a row sorts
+                   its keys (in registers up to 128), drops duplicates and
+                   emits: four launches, one count in ``LAUNCHES``. The VF
+                   tables of the 48^3 quickstart mesh at capacity 8192 (NY
+                   111,616) take it. ``sub_entries_kernel``: the join and
+                   entry lanes sorted, deduplicated and inverted by one
+                   block a segment in shared memory (or a device workspace
+                   past the limit).
 
 They replace the TPU kernels of the reference's
 ``kernels/segment_relations.py`` (``_vv_entries_kernel``,
@@ -65,8 +74,9 @@ replacing ``_meet_kernel``) and :func:`relation_counts_vv_cuda`
 bit-identical to them.
 
 The wrappers take CUDA int32 tensors only and raise on anything else; they
-allocate the outputs (and, when a sort kernel's lanes exceed the per-block
-shared-memory limit, a lane workspace in device memory), launch on the
+allocate the outputs (and the VV and member sort route's workspace, or,
+when the TT or sub-join kernel's lanes exceed the per-block shared-memory
+limit, a lane workspace in device memory), launch on the
 current stream without synchronising, and raise on a refused launch.
 ``LAUNCHES`` counts kernel launches per arm (``"meet"`` and
 ``"vv_counts"`` for the two count kernels), and per route for VV, member
@@ -155,9 +165,37 @@ def next_pow2(n: int) -> int:
 
 
 def lane_ints(E: int, R: int) -> int:
-    """int32 words of one segment's lanes: keys, values, the R + 1 row
-    starts."""
+    """int32 words of one segment's lanes in the sub-join's sort kernel:
+    keys, values, the R + 1 row starts."""
     return 2 * E + R + 1
+
+
+def csr_ints(n: int, nvl: int) -> int:
+    """int32 words of one segment's workspace on the VV and member sort
+    route (``vv_entries_kernel``, ``member_entries_kernel``): its ``nvl``
+    row counts (the place pass's cursors after the scan), its ``nvl + 1``
+    row starts, and its ``n`` order keys (``n = 12 * NT`` for VV, ``arity
+    * NY`` for member). Values are not stored: each is a function of its
+    order key."""
+    return n + 2 * nvl + 1
+
+
+# blocks that fill the card: the count and place passes of the sort route
+# aim at this many blocks a multiprocessor over a launch
+_CSR_BLOCKS_PER_SM = 4
+# entries a count or place block walks at least, so that zeroing and
+# flushing its nvl-int histogram stays a small share of its work
+_CSR_MIN_TILE = 2048
+
+
+def csr_tiles(B: int, n: int, sms: int) -> int:
+    """Blocks that share one segment's ``n`` entries in the count and place
+    passes of the VV and member sort route: as many as put
+    ``_CSR_BLOCKS_PER_SM`` blocks on each of the card's ``sms``
+    multiprocessors over B segments, no more than give each block
+    ``_CSR_MIN_TILE`` entries, at least one, at most the grid's 65,535."""
+    want = -(-_CSR_BLOCKS_PER_SM * sms // max(B, 1))
+    return max(1, min(want, -(-n // _CSR_MIN_TILE), 65535))
 
 
 # face lanes one warp of the TT kernel sorts in registers (kTTChunk)
@@ -371,8 +409,9 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
     NY)`` map). The caller guarantees local ids in ``[0, nvl)`` (``-1``
     marks padding) and keys that fit int32 (``ops.sparse_arm_ok``); the
     blocks equal the plain arm's within that precondition. The bitmask
-    kernels drop an entry with an id outside it and never write outside
-    their mask.
+    kernels and the VV and member sort kernels drop an entry with an id
+    outside it (as a ``-1`` slot), and never write outside their mask or
+    workspace.
 
     ``route`` picks the VV, member or sub-join kernel: ``None`` takes
     :func:`entry_route`'s choice on this device, ``"bits"`` or ``"sort"``
@@ -391,13 +430,13 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         B, N, a = tab.shape
         _check(tab, "tabX", (B, N, 4))
         _check(col_global, "col_global", (B, col_global.shape[-1]))
-        E, R = next_pow2(12 * N), nvl
+        units, n, R = N, 12 * N, nvl
     elif relation in _MEMBER:
         arm, tab = "member", tabY
         B, N, a = tab.shape
         _check(tab, "tabY", (B, N, a))
         _check(col_global, "col_global", (B, N))
-        E, R = next_pow2(a * N), nvl
+        units, n, R = a * N, a * N, nvl
     elif relation == "TT":
         arm, tab = "TT", tabX
         B, N, a = tab.shape
@@ -427,7 +466,12 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         raise ValueError(f"route={route!r} for relation {relation!r}: "
                          f"VV, VE/VF/VT and EF/ET/FT take None, 'bits' or "
                          f"'sort', TT None")
-    per = tt_lane_ints(N, deg) if arm == "TT" else lane_ints(E, R)
+    if arm == "TT":
+        per = tt_lane_ints(N, deg)
+    elif arm == "sub":
+        per = lane_ints(E, R)
+    else:
+        per = csr_ints(n, nvl)
     if max(nvl, deg) < 1 or R * deg >= 2 ** 31 or per >= 2 ** 31:
         raise ValueError(f"nvl={nvl}, deg={deg}, {per} lane words out of "
                          f"range")
@@ -469,20 +513,30 @@ def relation_entries_cuda(relation: str, tabX: torch.Tensor,
         _check_rc(lib, rc, f"{arm} bitmask kernel launch")
         _count(arm, f"{arm}_bits")
         return M, L
+    if arm in ("VV", "member"):
+        if R == 0:
+            return M, L
+        work = torch.empty(B * per, dtype=torch.int32, device=dev)
+        tile = max(1, -(-units // csr_tiles(B, n, _sm_count(idx))))
+        if arm == "VV":
+            rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
+                                   M.data_ptr(), L.data_ptr(),
+                                   work.data_ptr(), B, N,
+                                   col_global.shape[1], nvl, deg, tile,
+                                   stream)
+        else:
+            rc = lib.sr_member_entries(idx, tab.data_ptr(),
+                                       col_global.data_ptr(), M.data_ptr(),
+                                       L.data_ptr(), work.data_ptr(), B, N,
+                                       a, nvl, deg, tile, stream)
+        _check_rc(lib, rc, f"{arm} entry kernel launch")
+        _count(arm, f"{arm}_sort")
+        return M, L
     work = None
     if 4 * per + extra > smem_limit(dev):
         work = torch.empty(B * per, dtype=torch.int32, device=dev)
     wp = work.data_ptr() if work is not None else None
-    if arm == "VV":
-        rc = lib.sr_vv_entries(idx, tab.data_ptr(), col_global.data_ptr(),
-                               M.data_ptr(), L.data_ptr(), wp, B, N,
-                               col_global.shape[1], nvl, deg, E, stream)
-    elif arm == "member":
-        rc = lib.sr_member_entries(idx, tab.data_ptr(),
-                                   col_global.data_ptr(), M.data_ptr(),
-                                   L.data_ptr(), wp, B, N, a, nvl, deg, E,
-                                   stream)
-    elif arm == "TT":
+    if arm == "TT":
         rc = lib.sr_tt_entries(idx, tab.data_ptr(), col_global.data_ptr(),
                                M.data_ptr(), L.data_ptr(), wp, B, N, nvl,
                                deg, EJ, stream)

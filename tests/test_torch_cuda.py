@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a card, against the plain torch arm: each
 entry-assembly arm (VV, member, TT, sub-join; VV, member and sub-join on
 both the bitmask and the sort route, and on each side of the routing
-limit; the sub-join past its precondition) at the
+limit; the sub-join past its precondition; the VV and member sort route's
+CSR kernels at the capacity-8192 VF and capacity-1024 VT and VV shapes and
+past their precondition) at the
 main path's shapes and at edge sizes (including lanes too large for shared
 memory), the completion
 gather kernel (and its mask mode, one shard's half of the sharded
@@ -155,6 +157,120 @@ def test_entry_route_on_the_card(cuda, relation, nvl, NT):
         with pytest.raises(ValueError, match="does not fit"):
             segment_relations.relation_entries_cuda(
                 relation, tab, tab, colg, nvl=nvl, deg=32, route="bits")
+
+
+_QUICKSTART = {}
+
+
+def _quickstart_pre(capacity, relations):
+    """The 48^3 quickstart mesh segmented at ``capacity`` and
+    preconditioned for ``relations``, built once a process."""
+    key = (capacity, tuple(relations))
+    if key not in _QUICKSTART:
+        sm = segment_mesh(structured_grid(48, 48, 48, scalar_fn=fields
+                                          .gaussians(0, k=4, sigma=3.0,
+                                                     scale=48)),
+                          capacity=capacity)
+        _QUICKSTART[key] = precondition(sm, list(relations))
+    return _QUICKSTART[key]
+
+
+def _sort_route_equals_plain(cuda, relation, tab, colg, nvl, deg,
+                             route="sort", plain_tab=None):
+    """The sort route's kernel (forced, or the wrapper's own choice with
+    ``route=None``) against the plain arm on ``plain_tab`` (default
+    ``tab``), bit for bit, one ``_sort`` launch counted; launched again,
+    the same blocks. Returns the plain arm's ``L``."""
+    arm = "VV" if relation == "VV" else "member"
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    tab, colg = cu(tab), cu(colg)
+    ptab = tab if plain_tab is None else cu(plain_tab)
+    before = dict(segment_relations.LAUNCHES)
+    got = segment_relations.relation_entries_cuda(
+        relation, tab, tab, colg, nvl=nvl, deg=deg, route=route)
+    again = segment_relations.relation_entries_cuda(
+        relation, tab, tab, colg, nvl=nvl, deg=deg, route=route)
+    want = ops.relation_block(relation, ptab, ptab, colg, nvl, deg=deg,
+                              backend="torch")
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w)
+        assert torch.equal(a, g)
+    assert segment_relations.LAUNCHES[f"{arm}_sort"] == \
+        before[f"{arm}_sort"] + 2
+    assert segment_relations.LAUNCHES[arm] == before[arm] + 2
+    return want[1]
+
+
+@pytest.mark.parametrize("relation,capacity", [("VF", 8192), ("VT", 1024),
+                                               ("VV", 1024)])
+def test_csr_sort_kernels_at_the_path_shapes(cuda, relation, capacity):
+    """The redesigned sort kernels at their shapes: VF of the 48^3 mesh at
+    capacity 8192 (14 segments, nvl 11,008, NY 111,616), which the wrapper
+    sends to ``member_entries_kernel`` by itself, and the capacity-1024
+    VT and VV tables (B 64, nvl 2048, NT 8576), forced; twice, equal."""
+    pre = _quickstart_pre(capacity, (relation,))
+    t = pre.tables
+    if relation == "VV":
+        tab, colg = t.T_local[:64], t.LV_global[:64]
+    else:
+        tab, colg = (a[:64] for a in t.table(relation[1]))
+    limit = segment_relations.smem_limit(cuda)
+    own = segment_relations.entry_route(relation, t.NV, tab.shape[1], limit)
+    assert own == ("sort" if capacity == 8192 else "bits")
+    L = _sort_route_equals_plain(cuda, relation, tab, colg, t.NV,
+                                 ops.DEFAULT_DEG[relation],
+                                 route=None if own == "sort" else "sort")
+    assert int(L.max()) > 0
+
+
+def _adversarial_tables(rng, relation, B, N, nvl, used, heavy):
+    """(B, N, arity) tables past the arms' precondition: random simplices of
+    distinct ids below ``used`` (rows ``used`` .. nvl - 1 stay empty), -1
+    padding rows and -1 slots, vertex 5 in ``heavy`` rows (a row of that
+    many entries; for VV three times as many, with duplicates), a vertex
+    twice in one row, and ids past nvl. Returns the table and the one the
+    plain arm takes: for VV the ids past nvl as -1 slots (the plain VV key
+    ``va * nvl + vb`` would carry such a vb into a later row; the kernels
+    drop it, as the bitmask kernels do)."""
+    a = 4 if relation == "VV" else {"E": 2, "F": 3, "T": 4}[relation[1]]
+    tab = np.full((B, N, a), -1, dtype=np.int32)
+    k = N - 7
+    for b in range(B):
+        tab[b, :k] = np.argsort(rng.random((k, used)), axis=1)[:, :a]
+        rows = rng.choice(k, heavy, replace=False)
+        rows = rows[~(tab[b, rows] == 5).any(-1)]
+        tab[b, rows, 0] = 5
+    tab[rng.random(tab.shape) < 0.05] = -1
+    tab[:, 3, :2] = 7
+    tab[:, 10, 0] = nvl + 3
+    tab[:, 12, a - 1] = nvl
+    plain = np.where(tab >= nvl, -1, tab).astype(np.int32) \
+        if relation == "VV" else tab
+    return tab, plain
+
+
+@pytest.mark.parametrize("relation,N,nvl,used,heavy,deg",
+                         [("VV", 1500, 500, 400, 900, 16),
+                          ("VF", 5000, 400, 350, 3000, 8),
+                          ("VT", 2000, 300, 250, 1500, 4),
+                          ("VE", 3000, 60000, 500, 2000, 8)])
+def test_csr_sort_kernels_past_the_precondition(cuda, relation, N, nvl,
+                                                used, heavy, deg):
+    """The redesigned sort kernels on adversarial tables (-1 padding, ids
+    past nvl, a vertex twice in a row, a row of ``heavy`` entries sorted in
+    the workspace, rows past deg, empty rows) equal the plain arm; twice,
+    the same blocks. VE at nvl 60,000 counts past the shared-memory
+    histogram (240 KB), in device memory."""
+    rng = np.random.default_rng(N + nvl)
+    tab, plain = _adversarial_tables(rng, relation, 2, N, nvl, used, heavy)
+    ncol = nvl if relation == "VV" else N
+    colg = rng.integers(0, 10 ** 6, (2, ncol)).astype(np.int32)
+    L = _sort_route_equals_plain(cuda, relation, tab, colg, nvl, deg,
+                                 plain_tab=plain)
+    assert int(L.max()) > deg and int((L == 0).sum()) > 0
+    if nvl == 60000:
+        assert 4 * nvl > segment_relations.smem_limit(cuda)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -3,8 +3,8 @@ on one NVIDIA card, three ways, at the shapes of ``PERF.md``'s rows 1, 2
 and 4.
 
     PYTHONPATH=src python tools/time_entries.py [--n 96] [--big]
-        [--big-rels VV,VT,EF,ET] [--rels VV,VE,VF,VT,EF,ET,FT] [--counts]
-        [--tag NAME]
+        [--capacity 1024] [--big-rels VV,VT,EF,ET] [--rels VV,VE,VF,VT,EF,
+        ET,FT] [--counts] [--tag NAME]
 
 The tree is whichever ``repro_torch`` the ``PYTHONPATH`` names, so two
 commits compare in one call: unpack the parent into a directory that
@@ -16,11 +16,13 @@ Inputs: ``structured_grid(n, n, n)`` with the quickstart's field,
 ``segment_mesh(capacity=64)``, ``precondition`` of the seven relations;
 the first 64 segments' tables (NV 256, NE 1280, NF 1920, NT 896 at n = 48
 and at n = 96), each relation at its default width. With ``--big``, also
-the 48^3 mesh at ``segment_mesh(capacity=1024)`` (NV 2048, NE 11,520, NF
-18,048, NT 8576; the relations of ``--big-rels``, by default VV and VT),
-and, when VV and VT are among them, that mesh's critical-points path on
-the kernels (three runs after a warm-up: wall, ``t_sync``, ``t_kernel``,
-launches). With ``--counts``, also the VV count kernel
+the 48^3 mesh at ``segment_mesh(capacity=C)``, C from ``--capacity``
+(1024: NV 2048, NE 11,520, NF 18,048, NT 8576, 108 segments; 8192: NV
+11,008, NE 68,480, NF 111,616, NT 54,016, 14 segments, where VF takes
+the sort route), its first 64 segments' tables of the relations of
+``--big-rels`` (by default VV and VT), and, when VV and VT are among
+them, that mesh's critical-points path on the kernels (three runs after a
+warm-up: wall, ``t_sync``, ``t_kernel``, launches). With ``--counts``, also the VV count kernel
 (``relation_counts_vv_cuda``) on the first 64 and the first 8 segments'
 tets (``PERF.md``'s rows 7 and 7b), at the wrapper's row tile and, where
 the tree offers ``rows=``, at each one. Each arm that
@@ -30,9 +32,10 @@ segment's rows shared by 1 to 8 blocks (up to 22 on the capacity-1024
 tables), each share count as the wrapper launches it (``bits_shares``:
 never fewer than fit); an arm the tree does not route on its one
 kernel. Each by ``time_ms`` (the eager CUDA-event loop),
-``graph_ms`` (CUDA-graph replay) and the profiler's kernel time, after a
-check that the blocks equal the plain arm's. Prints one JSON line with the
-card's name and power limit.
+``graph_ms`` (CUDA-graph replay) and the profiler's kernel time a call,
+also by kernel (``passes_ms``: the VV and member sort route runs four),
+after a check that the blocks equal the plain arm's.
+Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -163,9 +166,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=96)
     ap.add_argument("--big", action="store_true",
-                    help="also the 48^3 mesh at capacity 1024")
+                    help="also the 48^3 mesh at --capacity")
+    ap.add_argument("--capacity", type=int, default=1024,
+                    help="the segment capacity of --big's 48^3 mesh")
     ap.add_argument("--big-rels", default="VV,VT",
-                    help="the relations timed at capacity 1024")
+                    help="the relations timed at that capacity")
     ap.add_argument("--counts", action="store_true",
                     help="also the VV count kernel at B = 64 and B = 8")
     ap.add_argument("--rels", default=",".join(RELS),
@@ -200,13 +205,15 @@ def main() -> int:
         out["vv_counts"] = time_counts(sr, ops, dev, t.T_local, t.NV)
     big_rels = args.big_rels.split(",")
     if args.big:
-        bpre = precondition(segment_mesh(mesh(48), capacity=1024), big_rels)
+        bsm = segment_mesh(mesh(48), capacity=args.capacity)
+        bpre = precondition(bsm, big_rels)
         bt = bpre.tables
-        big = {"NV": bt.NV, "NE": bt.NE, "NF": bt.NF, "NT": bt.NT}
+        big = {"capacity": args.capacity, "segments": bsm.n_segments,
+               "NV": bt.NV, "NE": bt.NE, "NF": bt.NF, "NT": bt.NT}
         for relation, (tx, ty, colg) in cases(bt, big_rels).items():
             big[relation] = time_arm(sr, ops, dev, relation, tx, ty, colg,
                                      bt.NV, BIG_SHARES)
-        out["capacity_1024"] = big
+        out[f"capacity_{args.capacity}"] = big
     if args.big and {"VV", "VT"} <= set(big_rels):
         from repro_torch.algorithms.critical_points import \
             critical_points, total_order

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -37,9 +38,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 
-def profiler_ms(fn, name: str, reps: int = 20):
-    """Mean device time of the kernels whose name holds ``name``, from
-    ``torch.profiler``; None when it records none."""
+def kernels_ms(fn, name: str, reps: int = 20) -> dict:
+    """Device time one call of ``fn`` spends in each kernel whose name holds
+    ``name`` (by its short name, template arguments kept: a wrapper whose
+    call runs several passes shows each), from ``torch.profiler``; empty
+    when it records none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -49,18 +52,24 @@ def profiler_ms(fn, name: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    out = {}
     for ev in prof.key_averages():
         if name in ev.key:
-            total += getattr(ev, "device_time_total", 0.0)
-            count += ev.count
-    return total / count / 1e3 if count else None
+            short = re.search(r"\w+(<[^()]*>)?(?=\()", ev.key)
+            key = short.group(0) if short else ev.key
+            out[key] = out.get(key, 0.0) + getattr(
+                ev, "device_time_total", 0.0) / reps / 1e3
+    return out
 
 
 def three_ways(fn, name: str) -> dict:
+    """``fn`` timed by the eager loop, graph replay and the profiler, and the
+    profiler's time of each kernel a call runs (``passes_ms``)."""
+    per = kernels_ms(fn, name)
     return {"eager_ms": chip_smoke.time_ms(torch, fn),
             "graph_ms": chip_smoke.graph_ms(torch, fn),
-            "profiler_ms": profiler_ms(fn, name)}
+            "profiler_ms": sum(per.values()) if per else None,
+            "passes_ms": per}
 
 
 def main() -> int:
