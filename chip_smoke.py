@@ -196,8 +196,11 @@ LM phases run on the card while a host process of the script's own
      one SDPA call, the plain version and its bound.
  10. the JAX reference's full-width LM pins (``LM_PINS``), on both
      attention arms: qwen2-7b at full width cut to two layers and
-     whisper-base whole, float32, weights from ``reference_tree``; every
-     cuda-arm flash launch is the mma kernel's.
+     whisper-base whole, weights from ``reference_tree``, in float32
+     (every cuda-arm flash launch the mma kernel's) and in the reference's
+     configured bf16 (``check_lm_pins_bf16``, each pin's port error
+     printed beside its ``ref_err``; every cuda-arm launch
+     ``flash_fwd_wgmma``'s, ``PIN_FLASH``).
  11. qwen2-7b served at full width and depth in bf16 (weights from a
      seeded generator on the card): ``serve.main`` (4 prompts of 32
      tokens, 16 generated), then ``make_prefill_step`` at B=4 and S=4096
@@ -205,15 +208,16 @@ LM phases run on the card while a host process of the script's own
      kernels' arm, every one ``flash_fwd_wgmma``, and the arms' logits
      within ``LM_ARM_TOL``; walls, tokens/s and the peak device memory.
  11b. the vlm, moe, ssm and hybrid families, through the same entry points:
-     (a) the JAX reference's float32 pins (``LM_FAMILY_PINS``) on both
-     arms: qwen2-vl-7b cut to two layers (256 vision tokens on a 16 x 16
-     grid of (0, h, w) ids, 768 text tokens), granite-moe-3b cut to two
-     layers (and its first layer's per-expert counts and dropped pairs,
-     with ``moe.dispatch`` dropping as many), mamba2-130m whole, zamba2-
-     2.7b cut to one group (6 Mamba2 layers and the shared block), each
-     prefill's flash launches counted (float32: the mma kernel; 2, 2, 0,
-     1), and ``generate``; (b) each family at full width, cut to about
-     half its depth (``FAMILY_FLASH``: 14, 16, 12 and 30 layers), in
+     (a) the JAX reference's float32 and bf16 pins (``LM_FAMILY_PINS``)
+     on both arms: qwen2-vl-7b cut to two layers (256 vision tokens on a
+     16 x 16 grid of (0, h, w) ids, 768 text tokens), granite-moe-3b cut
+     to two layers (and its first layer's per-expert counts and dropped
+     pairs, with ``moe.dispatch`` dropping as many; in bf16 within the
+     pin's near ties), mamba2-130m whole, zamba2-2.7b cut to one group (6
+     Mamba2 layers and the shared block), each prefill's flash launches
+     counted (2, 2, 0, 1: float32 the mma kernel, bf16 wgmma but zamba2's
+     hd 80 on mma), and ``generate``; (b) each family at full width, cut
+     to about half its depth (``FAMILY_FLASH``: 14, 16, 12 and 30 layers), in
      bf16 with seeded weights: ``serve.main`` and ``generate`` (4 x 32 +
      16 tokens, no flash launch in decode), ``make_prefill_step`` at B 4,
      S 4096 on both arms in turns with the kernels' launches asserted per
@@ -221,12 +225,28 @@ LM phases run on the card while a host process of the script's own
      ``flash_fwd_mma``, mamba2 none), the arms' logits within
      ``LM_ARM_TOL``, granite's flipped expert choices between the arms
      per layer, walls, tokens/s and the peak device memory.
+ 11c. gemma-7b, deepseek-7b, command-r-35b and phi3.5-moe-42b-a6.6b, as
+     11b: (a) their float32 and bf16 pins (``LM_NEW_PINS``: each at full
+     width cut to two layers, a prefill at B 2, S 2048 and a generate; 2
+     flash launches a prefill, bf16 on ``flash_fwd_wgmma``, gemma's at hd
+     256) on both arms; (b) each at full width in bf16, ``NEW_FLASH``'s
+     depth (gemma and deepseek whole, command-r 20 and phi3.5-moe 16
+     layers): ``serve.main``, ``generate``, ``make_prefill_step`` at B 4,
+     S 4096 on both arms in turns with every call's launches asserted, the
+     arms' logits within ``LM_ARM_TOL`` (phi3.5-moe's with the torch arm's
+     expert choices replayed on the kernels' arm, its free-running first
+     layer within ``ARM_FIRST_FLIPS``: ``ARM_ROUTED``), phi3.5-moe's
+     flipped expert choices per layer, walls, tokens/s and the peak device
+     memory.
  12. LM training: (a) the JAX reference's float32 training pins
      (``LM_TRAIN_PINS``) on both arms: deepseek-7b at full width cut to two
      layers, three ``make_train_step`` calls (AdamW on float32 masters)
      each step's loss, grad norm and lr within ``TRAIN_PIN_TOL``, with and
      without the chunked cross entropy, 2 ``flash_fwd_mma`` launches a
-     step on the kernels' arm (the backward is plain torch); (b)
+     step on the kernels' arm (the backward is plain torch); and
+     ``"train"`` on the kernels' arm under ``remat="full"`` and
+     ``"dots"`` against the same pin, 4 launches a step (each
+     checkpointed block's forward runs again in the backward); (b)
      deepseek-7b at full width, ``TRAIN_LAYERS`` layers, bf16, through
      ``launch.train.main`` at B 4, S 2048: 8 steps, then the same with a
      checkpoint every 5 and a fault injected at step 6, the last losses
@@ -504,7 +524,11 @@ LM_PIN_SHAPES = {"S2048": (2, 2048, 1), "S100": (2, 100, 2),
                  "vl": (2, 1024, 5), "vl_generate": (2, 16, 6),
                  "granite": (2, 2048, 7), "granite_generate": (2, 16, 8),
                  "mamba2": (2, 2048, 9), "mamba2_generate": (2, 16, 10),
-                 "zamba2": (2, 2048, 11), "zamba2_generate": (2, 16, 12)}
+                 "zamba2": (2, 2048, 11), "zamba2_generate": (2, 16, 12),
+                 "gemma": (2, 2048, 14), "gemma_generate": (2, 16, 15),
+                 "deepseek": (2, 2048, 16), "deepseek_generate": (2, 16, 17),
+                 "command_r": (2, 2048, 18), "command_r_generate": (2, 16, 19),
+                 "phi35": (2, 2048, 20), "phi35_generate": (2, 16, 21)}
 # the configuration each pin runs (lm_pin_cfg cuts its depth)
 LM_PIN_ARCH = {"S2048": "qwen2-7b", "S100": "qwen2-7b",
                "generate": "qwen2-7b", "whisper": "whisper-base",
@@ -512,11 +536,29 @@ LM_PIN_ARCH = {"S2048": "qwen2-7b", "S100": "qwen2-7b",
                "granite": "granite-moe-3b-a800m",
                "granite_generate": "granite-moe-3b-a800m",
                "mamba2": "mamba2-130m", "mamba2_generate": "mamba2-130m",
-               "zamba2": "zamba2-2.7b", "zamba2_generate": "zamba2-2.7b"}
-# phase 10's pins, and phase 11b's (the vlm, moe, ssm and hybrid families)
+               "zamba2": "zamba2-2.7b", "zamba2_generate": "zamba2-2.7b",
+               "gemma": "gemma-7b", "gemma_generate": "gemma-7b",
+               "deepseek": "deepseek-7b", "deepseek_generate": "deepseek-7b",
+               "command_r": "command-r-35b",
+               "command_r_generate": "command-r-35b",
+               "phi35": "phi3.5-moe-42b-a6.6b",
+               "phi35_generate": "phi3.5-moe-42b-a6.6b"}
+# phase 10's pins, phase 11b's (the vlm, moe, ssm and hybrid families) and
+# phase 11c's (the four configurations first served on the card in PR 29)
 LM_DENSE_PINS = ("S2048", "S100", "generate", "whisper")
 LM_FAMILY_PINS = ("vl", "vl_generate", "granite", "granite_generate",
                   "mamba2", "mamba2_generate", "zamba2", "zamba2_generate")
+LM_NEW_PINS = ("gemma", "gemma_generate", "deepseek", "deepseek_generate",
+               "command_r", "command_r_generate", "phi35", "phi35_generate")
+# the bf16 pins' tolerance is this factor times the pin's ref_err, the
+# reference's own bf16 error (check_lm_pins_bf16). Two bf16 results, each
+# within ref_err of the float32 one, lie within 2 ref_err of each other.
+# On a CPU (tests/test_torch_bf16_pins.py, every SMOKE arch) the port's
+# torch arm in bf16 sat 0.66-1.48 ref_err from the float32 reference at
+# its top-5 (phi3.5-moe the farthest); qwen2-7b's SMOKE port with its KV
+# heads rolled by one sat 43.7 ref_err away and with its causal mask
+# dropped 15.0, both failing at this factor
+BF16_PIN_FACTOR = 2.0
 LM_GEN, LM_CACHE = 8, 64
 WHISPER_FRAMES = 1500        # whisper-base's encoder length (30 s of audio)
 # phase 12a's float32 training pins: deepseek-7b (the reference trainer's
@@ -557,6 +599,16 @@ TRAIN_ARM_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "attn_grad_norm": 1e-3}
 # lm_pin_inputs; computed on a CPU (all twelve pins 156.7 s, 12.9 GB peak;
 # the four of qwen2-7b and whisper-base as before) with:
 #   PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py
+# Since PR 29 also the float32 pins of gemma-7b, deepseek-7b, command-r-35b
+# and phi3.5-moe (LM_NEW_PINS), and every name's pin in the reference's
+# configured bf16, "<name>_bf16" (with ref_err and margin; a moe prefill's
+# router_err and near_ties: tools/lm_pins.py's docstring), computed with
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python tools/lm_pins.py \
+#       --dtype bfloat16 [NAME ...]
+# in two runs on an 8-core CPU: the 18 names but command-r's, 932.1 s and
+# 21.7 GB peak RSS; command_r and command_r_generate, 236.1 s and 36.3 GB
+# (its two-layer tree is 22.4 GB); the twelve float32 pins above came out
+# of it unchanged
 LM_PINS = {
     "S2048": {
         "next": [75891, 80767],
@@ -701,6 +753,433 @@ LM_PINS = {
              14515],
         ],
     },
+    "gemma": {
+        "next": [67109, 253695],
+        "top5_ids": [
+            [67109, 239945, 111107, 175580, 1317],
+            [253695, 32304, 118988, 115412, 19334],
+        ],
+        "top5_vals": [
+            [
+                2147.191162109375, 225.1162872314453,
+                212.4535369873047, 207.41395568847656,
+                201.32635498046875
+            ],
+            [
+                2219.472900390625, 231.30166625976562,
+                224.08465576171875, 210.08212280273438,
+                204.67457580566406
+            ],
+        ],
+    },
+    "gemma_generate": {
+        "tokens": [
+            [88411, 88411, 88411, 88411, 88411, 88411, 88411, 88411],
+            [
+                227631, 227631, 227631, 227631, 227631, 227631, 227631,
+                227631
+            ],
+        ],
+    },
+    "deepseek": {
+        "next": [37015, 11098],
+        "top5_ids": [
+            [37015, 5581, 43011, 19849, 44450],
+            [11098, 12761, 26620, 87619, 3818],
+        ],
+        "top5_vals": [
+            [
+                3.7562315464019775, 3.74757719039917,
+                3.7163257598876953, 3.6257452964782715,
+                3.532689332962036
+            ],
+            [
+                4.544949531555176, 3.698544979095459,
+                3.5960853099823, 3.5730886459350586,
+                3.553497314453125
+            ],
+        ],
+    },
+    "deepseek_generate": {
+        "tokens": [
+            [72677, 17001, 14750, 25391, 21454, 88511, 89225, 36670],
+            [72266, 13064, 100050, 70440, 13082, 12802, 65534, 19145],
+        ],
+    },
+    "command_r": {
+        "next": [72063, 54562],
+        "top5_ids": [
+            [72063, 139603, 36074, 72182, 12618],
+            [54562, 157654, 236779, 209119, 214245],
+        ],
+        "top5_vals": [
+            [
+                3.8520452976226807, 3.7578232288360596,
+                3.7408194541931152, 3.669884204864502,
+                3.608940839767456
+            ],
+            [
+                3.721832036972046, 3.5936901569366455,
+                3.523721218109131, 3.4465625286102295,
+                3.4342432022094727
+            ],
+        ],
+    },
+    "command_r_generate": {
+        "tokens": [
+            [
+                230694, 43913, 250821, 218798, 179462, 52422, 85786,
+                206411
+            ],
+            [
+                88835, 86392, 178933, 181887, 154103, 28500, 223986,
+                218852
+            ],
+        ],
+    },
+    "phi35": {
+        "next": [17031, 27387],
+        "top5_ids": [
+            [17031, 2249, 27932, 31045, 17530],
+            [27387, 15939, 28766, 106, 16226],
+        ],
+        "top5_vals": [
+            [
+                3.289081573486328, 3.2801992893218994,
+                3.276686668395996, 3.22818660736084,
+                3.223055601119995
+            ],
+            [
+                3.327521562576294, 3.292124032974243,
+                3.281949281692505, 3.071254014968872,
+                3.0453035831451416
+            ],
+        ],
+        "counts": [
+            465, 558, 559, 513, 503, 506, 488, 493, 490, 557, 536, 514,
+            523, 495, 494, 498
+        ],
+        "dropped": 0,
+    },
+    "phi35_generate": {
+        "tokens": [
+            [14879, 14046, 27052, 8253, 29358, 26940, 16115, 9546],
+            [19812, 16848, 7526, 13158, 12867, 15058, 6324, 8074],
+        ],
+    },
+    "S2048_bf16": {
+        "next": [75891, 80767],
+        "top5_ids": [
+            [75891, 144058, 109321, 141320, 142762],
+            [80767, 5966, 115156, 2819, 66661],
+        ],
+        "top5_vals": [
+            [3.828125, 3.75, 3.71875, 3.71875, 3.671875],
+            [4.03125, 3.984375, 3.9375, 3.921875, 3.546875],
+        ],
+        "ref_err": 0.015393257141113281,
+        "margin": [0.078125, 0.046875],
+    },
+    "S100_bf16": {
+        "next": [58784, 97940],
+        "top5_ids": [
+            [58784, 88911, 41335, 44748, 149245],
+            [97940, 108315, 94469, 45696, 48513],
+        ],
+        "top5_vals": [
+            [4.09375, 3.6875, 3.65625, 3.5625, 3.546875],
+            [3.703125, 3.5625, 3.515625, 3.484375, 3.46875],
+        ],
+        "ref_err": 0.01603221893310547,
+        "margin": [0.40625, 0.140625],
+    },
+    "generate_bf16": {
+        "tokens": [
+            [410, 42308, 44536, 120416, 32712, 135807, 66475, 25820],
+            [
+                28909, 93678, 130455, 112053, 57057, 74346, 55146, 24222
+            ],
+        ],
+        "margin": [
+            [
+                0.0625, 0.0, 0.078125, 0.03125, 0.328125, 0.171875,
+                0.09375, 0.21875
+            ],
+            [
+                0.109375, 0.25, 0.078125, 0.3125, 0.53125, 0.34375,
+                0.03125, 0.0
+            ],
+        ],
+        "ref_err": 0.022159337997436523,
+    },
+    "whisper_bf16": {
+        "next": [32068, 28059],
+        "top5_ids": [
+            [32068, 36330, 41602, 27098, 31555],
+            [28059, 38540, 31306, 36599, 21009],
+        ],
+        "top5_vals": [
+            [3.296875, 3.15625, 3.140625, 3.125, 3.109375],
+            [3.4375, 3.3125, 3.21875, 3.203125, 3.1875],
+        ],
+        "ref_err": 0.016684293746948242,
+        "margin": [0.140625, 0.125],
+    },
+    "vl_bf16": {
+        "next": [12363, 63931],
+        "top5_ids": [
+            [12363, 70163, 131240, 73391, 28940],
+            [63931, 133735, 133549, 30193, 46908],
+        ],
+        "top5_vals": [
+            [3.71875, 3.609375, 3.59375, 3.5625, 3.5],
+            [3.96875, 3.828125, 3.703125, 3.609375, 3.515625],
+        ],
+        "ref_err": 0.01082611083984375,
+        "margin": [0.109375, 0.140625],
+    },
+    "vl_generate_bf16": {
+        "tokens": [
+            [69089, 134350, 11552, 1961, 80652, 123187, 81476, 63512],
+            [
+                19089, 37040, 45476, 123311, 88553, 62369, 113478, 27255
+            ],
+        ],
+        "margin": [
+            [
+                0.5, 0.015625, 0.015625, 0.21875, 0.15625, 0.421875,
+                0.5625, 0.015625
+            ],
+            [
+                0.375, 0.296875, 0.21875, 0.375, 0.359375, 1.046875,
+                0.015625, 0.015625
+            ],
+        ],
+        "ref_err": 0.02200794219970703,
+    },
+    "granite_bf16": {
+        "next": [22779, 15893],
+        "top5_ids": [
+            [22779, 34391, 45919, 6862, 36311],
+            [15893, 32378, 9975, 43014, 44010],
+        ],
+        "top5_vals": [
+            [1280.0, 142.0, 140.0, 137.0, 137.0],
+            [1352.0, 150.0, 146.0, 146.0, 143.0],
+        ],
+        "counts": [
+            773, 798, 777, 813, 809, 845, 811, 827, 866, 893, 843, 838,
+            850, 843, 803, 841, 828, 775, 817, 847, 840, 788, 799, 846,
+            822, 887, 776, 804, 836, 784, 802, 867, 796, 758, 773, 766,
+            839, 802, 870, 816
+        ],
+        "dropped": 0,
+        "ref_err": 1.737548828125,
+        "margin": [1138.0, 1202.0],
+        "router_err": 0.0017573535442352295,
+        "near_ties": 4605,
+    },
+    "granite_generate_bf16": {
+        "tokens": [
+            [18322, 18322, 18322, 18322, 18322, 18322, 18322, 18322],
+            [20791, 20791, 20791, 20791, 20791, 20791, 20791, 20791],
+        ],
+        "margin": [
+            [
+                1080.0, 1080.0, 1072.0, 1072.0, 1062.0, 1045.0, 1036.0,
+                1029.0
+            ],
+            [
+                1099.0, 1095.0, 1101.0, 1087.0, 1083.0, 1075.0, 1059.0,
+                1052.0
+            ],
+        ],
+        "ref_err": 3.6385498046875,
+    },
+    "mamba2_bf16": {
+        "next": [18886, 49199],
+        "top5_ids": [
+            [18886, 29463, 30372, 38240, 29621],
+            [49199, 25624, 45334, 32757, 35600],
+        ],
+        "top5_vals": [
+            [153.0, 102.0, 101.0, 99.5, 96.0],
+            [109.5, 98.0, 96.5, 93.5, 92.5],
+        ],
+        "ref_err": 2.9442596435546875,
+        "margin": [51.0, 11.5],
+    },
+    "mamba2_generate_bf16": {
+        "tokens": [
+            [42323, 42323, 42323, 42323, 42323, 42323, 35429, 35429],
+            [13606, 13606, 13606, 13606, 13606, 13606, 13606, 13606],
+        ],
+        "margin": [
+            [69.0, 31.5, 36.0, 46.5, 73.5, 31.5, 3.0, 89.5],
+            [2.5, 31.0, 58.0, 45.0, 62.5, 76.0, 25.5, 23.5],
+        ],
+        "ref_err": 10.85467529296875,
+    },
+    "zamba2_bf16": {
+        "next": [27255, 23942],
+        "top5_ids": [
+            [27255, 22077, 19485, 17376, 26684],
+            [23942, 8357, 6777, 22410, 30665],
+        ],
+        "top5_vals": [
+            [768.0, 192.0, 189.0, 182.0, 175.0],
+            [816.0, 185.0, 175.0, 159.0, 158.0],
+        ],
+        "ref_err": 1.41290283203125,
+        "margin": [576.0, 631.0],
+    },
+    "zamba2_generate_bf16": {
+        "tokens": [
+            [3682, 3682, 3682, 3682, 3682, 3682, 3682, 3682],
+            [14515, 14515, 14515, 14515, 14515, 14515, 14515, 14515],
+        ],
+        "margin": [
+            [663.0, 630.0, 656.0, 629.0, 633.0, 605.0, 582.0, 586.0],
+            [676.0, 591.0, 620.0, 615.0, 593.0, 629.0, 586.0, 624.0],
+        ],
+        "ref_err": 9.597702026367188,
+    },
+    "gemma_bf16": {
+        "next": [67109, 253695],
+        "top5_ids": [
+            [67109, 239945, 111107, 175580, 1317],
+            [253695, 32304, 118988, 115412, 19334],
+        ],
+        "top5_vals": [
+            [2144.0, 225.0, 213.0, 207.0, 201.0],
+            [2224.0, 232.0, 224.0, 210.0, 204.0],
+        ],
+        "ref_err": 4.527099609375,
+        "margin": [1919.0, 1992.0],
+    },
+    "gemma_generate_bf16": {
+        "tokens": [
+            [88411, 88411, 88411, 88411, 88411, 88411, 88411, 88411],
+            [
+                227631, 227631, 227631, 227631, 227631, 227631, 227631,
+                227631
+            ],
+        ],
+        "margin": [
+            [
+                1874.0, 1876.0, 1893.0, 1878.0, 1883.0, 1868.0, 1868.0,
+                1851.0
+            ],
+            [
+                1803.0, 1804.0, 1795.0, 1787.0, 1780.0, 1774.0, 1767.0,
+                1760.0
+            ],
+        ],
+        "ref_err": 7.712890625,
+    },
+    "deepseek_bf16": {
+        "next": [37015, 11098],
+        "top5_ids": [
+            [37015, 5581, 43011, 19849, 44450],
+            [11098, 12761, 26620, 87619, 70016],
+        ],
+        "top5_vals": [
+            [3.765625, 3.75, 3.71875, 3.625, 3.546875],
+            [4.53125, 3.703125, 3.59375, 3.578125, 3.5625],
+        ],
+        "ref_err": 0.014185667037963867,
+        "margin": [0.015625, 0.828125],
+    },
+    "deepseek_generate_bf16": {
+        "tokens": [
+            [72677, 17001, 14750, 25391, 21454, 88511, 89225, 36670],
+            [72266, 13064, 100050, 70440, 13082, 12802, 65534, 19145],
+        ],
+        "margin": [
+            [
+                0.046875, 0.125, 0.0625, 0.046875, 0.203125, 0.296875,
+                0.078125, 0.078125
+            ],
+            [
+                0.0625, 0.15625, 0.1875, 0.03125, 0.0625, 0.09375,
+                0.140625, 0.390625
+            ],
+        ],
+        "ref_err": 0.013074398040771484,
+    },
+    "command_r_bf16": {
+        "next": [72063, 54562],
+        "top5_ids": [
+            [72063, 139603, 36074, 72182, 12618],
+            [54562, 157654, 236779, 209119, 214245],
+        ],
+        "top5_vals": [
+            [3.84375, 3.765625, 3.734375, 3.671875, 3.609375],
+            [3.71875, 3.59375, 3.515625, 3.453125, 3.4375],
+        ],
+        "ref_err": 0.008295297622680664,
+        "margin": [0.078125, 0.125],
+    },
+    "command_r_generate_bf16": {
+        "tokens": [
+            [
+                230694, 43913, 250821, 218798, 179462, 52422, 85786,
+                206411
+            ],
+            [
+                88835, 86392, 178933, 161321, 125022, 116687, 144639,
+                99001
+            ],
+        ],
+        "margin": [
+            [
+                0.21875, 0.140625, 0.03125, 0.015625, 0.109375, 0.125,
+                0.015625, 0.4375
+            ],
+            [
+                0.03125, 0.125, 0.3125, 0.0, 0.25, 0.03125, 0.046875,
+                0.015625
+            ],
+        ],
+        "ref_err": 0.016859054565429688,
+    },
+    "phi35_bf16": {
+        "next": [17031, 27387],
+        "top5_ids": [
+            [17031, 2249, 27932, 31045, 3799],
+            [27387, 15939, 28766, 106, 13038],
+        ],
+        "top5_vals": [
+            [3.296875, 3.28125, 3.28125, 3.234375, 3.21875],
+            [3.328125, 3.296875, 3.265625, 3.0625, 3.046875],
+        ],
+        "counts": [
+            464, 556, 560, 512, 505, 505, 489, 491, 492, 557, 537, 514,
+            520, 496, 494, 500
+        ],
+        "dropped": 0,
+        "ref_err": 0.016324281692504883,
+        "margin": [0.015625, 0.03125],
+        "router_err": 0.002077162265777588,
+        "near_ties": 525,
+    },
+    "phi35_generate_bf16": {
+        "tokens": [
+            [14879, 14046, 27052, 8253, 29358, 26940, 16115, 9546],
+            [19812, 16848, 7526, 13158, 12867, 15058, 6324, 8074],
+        ],
+        "margin": [
+            [
+                0.234375, 0.140625, 0.75, 0.09375, 0.046875, 0.359375,
+                0.046875, 0.296875
+            ],
+            [
+                0.109375, 0.34375, 0.15625, 0.25, 0.125, 0.15625,
+                0.3125, 0.015625
+            ],
+        ],
+        "ref_err": 0.014665842056274414,
+    },
     # phase 12a: each step's loss, grad norm and lr (LM_TRAIN_PINS; both
     # pins 182.7 s and 29.8 GB peak RSS on a CPU, with --port)
     "train": {
@@ -724,6 +1203,20 @@ LM_PINS = {
 # this share of the largest logit (on an H100 80GB HBM3 the arms differed
 # by 0.022 of it at S=4096 and 0.018 at S=1000)
 LM_ARM_TOL = 0.05
+# phi3.5-moe's top-2 routing carries that rounding past LM_ARM_TOL: on an
+# H100 80GB HBM3 at 16 layers, B 4, S 4096, the arms chose 26 of 32,768
+# experts apart in the first layer and 2,169 in the last, and their logits
+# differed by 0.347 of the largest. On a CPU (tools/moe_rounding.py, the
+# torch arm with _sdpa against the flash kernels' plain version, a 512-wide
+# stand-in of 16 layers) its routing took the logits 0.088 apart from 5
+# flips of 4,096 in the first layer (granite's 0.0088, a dense FFN's
+# 0.013), and K/V heads rolled by one took them 1.21 apart from 345 first-
+# layer flips. So for these configurations phase 11b/11c holds the arms
+# within LM_ARM_TOL with the torch arm's expert choices and gates replayed
+# on the kernels' arm (as every moe's, granite's free-running too), and
+# their free-running first layers within ARM_FIRST_FLIPS of the choices
+ARM_ROUTED = ("phi3.5-moe-42b-a6.6b",)
+ARM_FIRST_FLIPS = 0.01
 
 
 def quickstart_mesh(n: int):
@@ -859,12 +1352,13 @@ def reference_tree(cfg, seed: int):
         def fill(i):
             g = np.random.Generator(np.random.PCG64(seeds[i]))
             x = out[i * chunk:(i + 1) * chunk]
-            x[:] = g.standard_normal(x.size, dtype=f32)
-            while trunc:
-                bad = np.abs(x) > 2
-                if not bad.any():
-                    break
-                x[bad] = g.standard_normal(int(bad.sum()), dtype=f32)
+            g.standard_normal(x.size, dtype=f32, out=x)
+            # redraw the entries past 2 in place, in index order, until
+            # none is left: only the redrawn entries are tested again
+            bad = np.flatnonzero(np.abs(x) > 2) if trunc else ()
+            while len(bad):
+                x[bad] = g.standard_normal(bad.size, dtype=f32)
+                bad = bad[np.abs(x[bad]) > 2]
         list(pool.map(fill, range(len(seeds))))
         return out.reshape(shape)
 
@@ -968,13 +1462,15 @@ def grid_positions(nv: int, n_text: int, batch: int):
         pos.astype(np.int32)[:, None], (3, batch, nv + n_text)))
 
 
-def lm_pin_inputs(cfg, name: str):
+def lm_pin_inputs(cfg, name: str, shape=None, frames: int = WHISPER_FRAMES):
     """The seeded numpy inputs of one LM pin: ``tokens`` (B, S) int32 (and
     ``frames`` (B, 1500, D) float32 for whisper; for the vlm prefill
     ``tokens`` (B, S - nv), ``vision_embeds`` (B, nv, D) float32 and
-    ``positions3d`` on a grid), or the prompts of a generate pin."""
+    ``positions3d`` on a grid), or the prompts of a generate pin.
+    ``shape`` (B, S, seed) and ``frames`` replace the pin's own (the CPU
+    tests' small pins)."""
     import numpy as np
-    B, S, seed = LM_PIN_SHAPES[name]
+    B, S, seed = shape or LM_PIN_SHAPES[name]
     rng = np.random.default_rng(seed)
     if cfg.family == "vlm" and not name.endswith("generate"):
         nv = cfg.n_vision_tokens
@@ -985,7 +1481,7 @@ def lm_pin_inputs(cfg, name: str):
                 "positions3d": grid_positions(nv, S - nv, B)}
     out = {"tokens": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)}
     if cfg.family == "encdec":
-        out["frames"] = rng.normal(0, 1, (B, WHISPER_FRAMES, cfg.d_model)) \
+        out["frames"] = rng.normal(0, 1, (B, frames, cfg.d_model)) \
             .astype(np.float32)
     return out
 
@@ -1022,20 +1518,21 @@ def train_batch_digests(vocab: int, synthetic) -> dict:
     return out
 
 
-def lm_pin_cfg(configs, arch: str):
-    """The configuration a pin runs, in float32: qwen2-7b, qwen2-vl-7b,
-    granite-moe-3b and deepseek-7b at full width cut to two layers,
-    zamba2-2.7b to one
-    group (6 Mamba2 layers and the shared block), whisper-base and
-    mamba2-130m whole. ``configs`` is either package's ``configs``
-    module."""
+def lm_pin_cfg(configs, arch: str, dtype: str = "float32"):
+    """The configuration a pin runs, in ``dtype`` (float32 unless asked):
+    qwen2-7b, qwen2-vl-7b, granite-moe-3b, deepseek-7b, gemma-7b,
+    command-r-35b and phi3.5-moe at full width cut to two layers,
+    zamba2-2.7b to one group (6 Mamba2 layers and the shared block),
+    whisper-base and mamba2-130m whole. ``configs`` is either package's
+    ``configs`` module."""
     cfg = configs.get_config(arch)
     if arch in ("qwen2-7b", "qwen2-vl-7b", "granite-moe-3b-a800m",
-                "deepseek-7b"):
+                "deepseek-7b", "gemma-7b", "command-r-35b",
+                "phi3.5-moe-42b-a6.6b"):
         cfg = dataclasses.replace(cfg, n_layers=2)
     elif arch == "zamba2-2.7b":
         cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every)
-    return dataclasses.replace(cfg, dtype="float32")
+    return dataclasses.replace(cfg, dtype=dtype)
 
 
 def routing_counts(eidx, cfg):
@@ -1055,24 +1552,86 @@ def routing_counts(eidx, cfg):
             "c_loc": c_loc}
 
 
-def lm_pin_run(torch, dev, backend, names):
-    """The port's results for the LM pins ``names``, on ``dev`` through
-    ``backend``, in ``LM_PINS``' layout, with the flash launches of each
-    ``prefill_fn`` call, per kernel (counters zeroed just before, read just
-    after). A moe prefill also gives its first layer's routing counts, and
-    checks that ``moe.dispatch`` drops the pairs they predict."""
+# the (dtype, backend) runs of each pin phase: the reference's float32 pins
+# and its configured bf16 pins, each on both attention arms
+PIN_RUNS = (("float32", "cuda"), ("float32", "torch"),
+            ("bfloat16", "cuda"), ("bfloat16", "torch"))
+# flash launches of each prefill pin's prefill_fn on the kernels' arm, and
+# the kernel of its bf16 run: every float32 launch is flash_fwd_mma's;
+# in bf16 the kernel _variant (kernels/flash_attention.py) picks for these
+# contiguous heads: flash_fwd_wgmma at hd 64, 128 and 256 (the S100 pin's
+# 100 ragged rows too), flash_fwd_mma at zamba2's hd 80. whisper-base:
+# 6 encoder, 6 decoder and 6 cross attentions
+PIN_FLASH = {"S2048": (2, "flash_wgmma"), "S100": (2, "flash_wgmma"),
+             "whisper": (18, "flash_wgmma"), "vl": (2, "flash_wgmma"),
+             "granite": (2, "flash_wgmma"), "mamba2": (0, None),
+             "zamba2": (1, "flash_mma"), "gemma": (2, "flash_wgmma"),
+             "deepseek": (2, "flash_wgmma"), "command_r": (2, "flash_wgmma"),
+             "phi35": (2, "flash_wgmma")}
+
+
+def pin_flash_want(names, dtype: str, backend: str) -> dict:
+    """Each prefill pin's flash launches per kernel on ``backend`` in
+    ``dtype`` (``PIN_FLASH``)."""
+    out = {}
+    for name in names:
+        if name.endswith("generate"):
+            continue
+        n, kernel = PIN_FLASH[name]
+        out[name] = {"flash_mma": 0, "flash_simt": 0, "flash_wgmma": 0}
+        if backend == "cuda" and n:
+            out[name]["flash_mma" if dtype == "float32" else kernel] = n
+    return out
+
+
+# arch -> a Future of its pin tree (reference_tree(lm_pin_cfg(arch), 0)),
+# drawn ahead on a host thread by prefetch_trees; lm_pin_run takes it
+_TREES: dict = {}
+
+
+def prefetch_trees(archs) -> None:
+    """Start drawing the pin trees of ``archs`` on one host thread, in
+    order, for ``lm_pin_run`` to take: phase 11c's 11 B float32 parameters
+    are drawn while the card runs phases 9-11b."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import configs
+    pool = ThreadPoolExecutor(1)
+    for arch in archs:
+        _TREES[arch] = pool.submit(reference_tree,
+                                   lm_pin_cfg(configs, arch), 0)
+    pool.shutdown(wait=False)
+
+
+def lm_pin_run(torch, dev, names):
+    """The port's results for the LM pins ``names`` on ``dev``, for each
+    (dtype, backend) of ``PIN_RUNS``: ``{(dtype, backend): (results,
+    launches)}``, the results in ``LM_PINS``' layout (a bf16 prefill's
+    with its logits at both pins' top-5 ids, ``prefill_result``), the
+    launches each ``prefill_fn`` call's flash launches per kernel
+    (counters zeroed just before, read just after). Each arch's tree is
+    drawn once (by ``prefetch_trees``, else the next arch's on a host
+    thread while this one's runs),
+    its float32 model built from it and the bf16 model cast from that on
+    the device (the same rounding as from the tree), and every backend of
+    a dtype run on its model. A moe prefill also gives its first layer's
+    routing counts, and checks that ``moe.dispatch`` drops the pairs they
+    predict."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve, steps
     from repro_torch.models import lm, moe
 
-    out, launches = {}, {}
+    runs = PIN_RUNS
+    res = {run: ({}, {}) for run in runs}
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    def prefill(model, cfg, batch, name):
+    def prefill(model, cfg, batch, name, backend, out, launches):
         routed = []
         route = moe.route
 
@@ -1092,9 +1651,9 @@ def lm_pin_run(torch, dev, backend, names):
         launches[name] = {key: fa.LAUNCHES[key] for key in
                           ("flash_mma", "flash_simt", "flash_wgmma")}
         nxt = steps.make_prefill_step(cfg, backend)(model, batch)
-        vals, ids = torch.topk(logits[:, -1].float(), 5, dim=-1)
-        out[name] = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
-                     "top5_vals": vals.tolist()}
+        out[name] = prefill_result(
+            torch, logits[:, -1], nxt, name,
+            LM_PINS if cfg.dtype == "bfloat16" else None)
         if cfg.family == "moe":
             rc = routing_counts(routed[0].cpu().numpy(), cfg)
             plan = moe.dispatch(routed[0], cfg,
@@ -1105,24 +1664,81 @@ def lm_pin_run(torch, dev, backend, names):
                   f"{plan.c_loc}, the counts say {rc}")
             out[name].update(counts=rc["counts"], dropped=rc["dropped"])
 
-    arch_model = None
-    for name in names:
-        arch = LM_PIN_ARCH[name]
-        cfg = lm_pin_cfg(configs, arch)
-        if arch_model is None or arch_model[0] != arch:
-            arch_model = None           # free the last arch's weights first
-            arch_model = (arch, lm.params_from_reference(
-                reference_tree(cfg, 0), cfg, dev))
-        model = arch_model[1]
-        inputs = {k: torch.from_numpy(v).to(dev)
-                  for k, v in lm_pin_inputs(cfg, name).items()}
-        if name.endswith("generate"):
-            out[name] = {"tokens": serve.generate(
-                cfg, model, inputs["tokens"].cpu().numpy(), LM_GEN,
-                LM_CACHE, backend=backend).tolist()}
+    archs = list(dict.fromkeys(LM_PIN_ARCH[n] for n in names))
+    pool = ThreadPoolExecutor(1)
+
+    def fetch(arch):
+        return _TREES.pop(arch, None) or pool.submit(
+            reference_tree, lm_pin_cfg(configs, arch), 0)
+    trees = [fetch(archs[0])]
+    for i, arch in enumerate(archs):
+        tree = trees.pop().result()
+        if i + 1 < len(archs):
+            trees.append(fetch(archs[i + 1]))
+        model = None
+        for dtype in dict.fromkeys(d for d, _ in runs):
+            cfg = lm_pin_cfg(configs, arch, dtype)
+            if model is not None and model.embed.table.dtype == \
+                    torch.float32:
+                cast = lm.build(cfg, dev)
+                cast.load_state_dict(model.state_dict())
+                model = cast
+                del cast
+            else:
+                model = None
+                model = lm.params_from_reference(tree, cfg, dev)
+            for name in (n for n in names if LM_PIN_ARCH[n] == arch):
+                inputs = {k: torch.from_numpy(v).to(dev)
+                          for k, v in lm_pin_inputs(cfg, name).items()}
+                for backend in (b for d, b in runs if d == dtype):
+                    out, launches = res[(dtype, backend)]
+                    if name.endswith("generate"):
+                        out[name] = {"tokens": serve.generate(
+                            cfg, model, inputs["tokens"].cpu().numpy(),
+                            LM_GEN, LM_CACHE, backend=backend).tolist()}
+                    else:
+                        prefill(model, cfg, inputs, name, backend, out,
+                                launches)
+        del model, tree
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    pool.shutdown()
+    return res
+
+
+def lm_pin_phase(torch, dev, names, phase: str, launches) -> None:
+    """The pins ``names`` on both arms in float32 and in bf16
+    (``lm_pin_run``): one ``phase`` line a run with the results, the
+    flash launches per prefill and, in bf16, each pin's port error beside
+    its ``ref_err``; the float32 pins by ``check_lm_pins``, the bf16 pins
+    by ``check_lm_pins_bf16``, the launches by ``pin_flash_want``. Adds the
+    kernels' arm's launches to ``launches``."""
+    t0 = time.perf_counter()
+    res = lm_pin_run(torch, dev, names)
+    for (dtype, backend), (got, pin_launches) in res.items():
+        line = {"phase": phase, "dtype": dtype, "backend": backend,
+                "results": got, "flash_launches": pin_launches}
+        if dtype == "bfloat16":
+            line["port_err_vs_ref_err"] = {
+                name: [bf16_port_err(got[name], LM_PINS[name]),
+                       LM_PINS[f"{name}_bf16"]["ref_err"]] for name in names}
+        emit(line)
+    emit({"phase": f"{phase}_wall", "wall_s":
+          round(time.perf_counter() - t0, 3)})
+    for (dtype, backend), (got, pin_launches) in res.items():
+        what = f"{backend} {dtype}"
+        if dtype == "float32":
+            check_lm_pins(got, what, names)
         else:
-            prefill(model, cfg, inputs, name)
-    return out, launches
+            check_lm_pins_bf16(got, what, names)
+        want = pin_flash_want(names, dtype, backend)
+        check(pin_launches == want, f"{what}: flash launches per prefill "
+              f"{pin_launches} != {want}")
+        if backend == "cuda":
+            for n in pin_launches.values():
+                for key in ("flash_mma", "flash_wgmma"):
+                    launches[key] += n[key]
 
 
 def check_lm_pins(got, what: str, names) -> None:
@@ -1140,6 +1756,100 @@ def check_lm_pins(got, what: str, names) -> None:
                             sum(want["top5_vals"], [])):
                 check(abs(g - w) <= 1e-3 * abs(w),
                       f"{what} {name}: top-5 logit {g} != reference {w}")
+
+
+def prefill_result(torch, last, nxt, name=None, pins=None) -> dict:
+    """The port's prefill pin in ``LM_PINS``' layout from the last
+    position's logits ``last`` (B, V) and ``make_prefill_step``'s tokens
+    ``nxt`` (B, 1); where ``pins`` is given, also ``last`` at the top-5
+    ids of ``pins[name]`` (the float32 pin: ``at_f32_ids``) and of
+    ``pins[name + "_bf16"]`` (``at_bf16_ids``), which
+    ``bf16_pin_faults`` reads."""
+    last = last.float()
+    vals, ids = torch.topk(last, 5, dim=-1)
+    out = {"next": nxt[:, 0].tolist(), "top5_ids": ids.tolist(),
+           "top5_vals": vals.tolist()}
+    if pins is not None:
+        for key, pin in (("at_f32_ids", name), ("at_bf16_ids",
+                                                f"{name}_bf16")):
+            idx = torch.tensor(pins[pin]["top5_ids"], device=last.device)
+            out[key] = last.gather(1, idx).tolist()
+    return out
+
+
+def bf16_port_err(got, f32_pin):
+    """The port's largest |bf16 - float32 reference| at the float32 pin's
+    top-5 ids (a prefill pin; None for a generate pin)."""
+    if "at_f32_ids" not in got:
+        return None
+    return max(abs(g - w) for g, w in zip(sum(got["at_f32_ids"], []),
+                                          sum(f32_pin["top5_vals"], [])))
+
+
+def bf16_pin_faults(got, f32_pin, pin, factor=None) -> list:
+    """Where the port's bf16 result ``got`` (``prefill_result`` with the
+    pins, or ``{"tokens"}``, and a moe prefill's ``counts``) breaks the
+    bf16 rule against the reference's float32 pin ``f32_pin`` and bf16 pin
+    ``pin``, at ``tol = factor x pin["ref_err"]`` (``BF16_PIN_FACTOR``):
+    (a) at the float32 pin's top-5 ids the port's logits lie within tol of
+    the reference's float32 values; (b) at the bf16 pin's ids within 2 tol
+    of the pin's values; (c) a next token equals the pin's where the pin's
+    margin exceeds 2 tol, and elsewhere is one of the pin's top-5 with the
+    port's logit there within tol of the pin's top-1; generated tokens
+    equal the pin's up to each row's first step of margin <= 2 tol (none
+    after it compared); (d) a moe pin's routing counts differ by at most
+    its ``near_ties`` moved choices (half the summed |difference|).
+    Returns one message a fault."""
+    tol = (BF16_PIN_FACTOR if factor is None else factor) * pin["ref_err"]
+    out = []
+    if "top5_vals" in pin:
+        for key, want, ids, lim in (
+                ("at_f32_ids", f32_pin["top5_vals"], f32_pin["top5_ids"],
+                 tol),
+                ("at_bf16_ids", pin["top5_vals"], pin["top5_ids"],
+                 2 * tol)):
+            for b, (gr, wr) in enumerate(zip(got[key], want)):
+                for i, (g, w) in enumerate(zip(gr, wr)):
+                    if not abs(g - w) <= lim:
+                        out.append(f"({'a' if lim == tol else 'b'}) row {b} "
+                                   f"id {ids[b][i]}: {g} against {w} (tol "
+                                   f"{lim})")
+        for b, (n, w) in enumerate(zip(got["next"], pin["next"])):
+            if pin["margin"][b] > 2 * tol:
+                if n != w:
+                    out.append(f"(c) row {b}: next {n} != {w} at margin "
+                               f"{pin['margin'][b]} > 2 tol {2 * tol}")
+                continue
+            val = dict(zip(got["top5_ids"][b], got["top5_vals"][b])).get(n)
+            if n not in pin["top5_ids"][b] or val is None or \
+                    not abs(val - pin["top5_vals"][b][0]) <= tol:
+                out.append(f"(c) row {b}: next {n} (logit {val}) is not "
+                           f"within tol {tol} of the pin's top-1 "
+                           f"{pin['top5_vals'][b][0]} among its top-5 "
+                           f"{pin['top5_ids'][b]}")
+    if "tokens" in pin:
+        for b, (g, w) in enumerate(zip(got["tokens"], pin["tokens"])):
+            stop = next((t for t, m in enumerate(pin["margin"][b])
+                         if m <= 2 * tol), len(w))
+            if list(g[:stop]) != list(w[:stop]):
+                out.append(f"(c) row {b}: tokens {list(g)} != {w} before "
+                           f"step {stop}")
+    if "near_ties" in pin:
+        moved = sum(abs(g - w) for g, w in zip(got["counts"],
+                                                pin["counts"])) / 2
+        if moved > pin["near_ties"]:
+            out.append(f"(d) {moved} expert choices moved, near ties "
+                       f"{pin['near_ties']}")
+    return out
+
+
+def check_lm_pins_bf16(got, what: str, names) -> None:
+    """Every bf16 pin of ``names`` met by ``bf16_pin_faults`` against
+    ``LM_PINS[name]`` and ``LM_PINS[name + "_bf16"]``."""
+    faults = [f"{what} {name}_bf16 {f}" for name in names
+              for f in bf16_pin_faults(got[name], LM_PINS[name],
+                                       LM_PINS[f"{name}_bf16"])]
+    check(not faults, "; ".join(faults))
 
 
 # each phase's start on the host clock, in order (``mark``); the
@@ -1573,26 +2283,11 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               "tflops_per_s": flops / f_ms / 1e9})
         del q, k, v, qt, kt, vt
 
-    # -- 10. the full-width LM pins of the JAX reference, on both arms -----
+    # -- 10. the full-width LM pins of the JAX reference, on both arms, in
+    # float32 and in the reference's configured bf16 -----------------------
     mark("10")
-    for backend in ("cuda", "torch"):
-        t0 = time.perf_counter()
-        got, pin_launches = lm_pin_run(torch, dev, backend, LM_DENSE_PINS)
-        torch.cuda.synchronize()
-        emit({"phase": "lm_pins", "backend": backend, "results": got,
-              "flash_launches": pin_launches,
-              "wall_s": round(time.perf_counter() - t0, 3)})
-        check_lm_pins(got, backend, LM_DENSE_PINS)
-        # float32 pins: every cuda-arm launch is the mma kernel's
-        per = {"S2048": 2, "S100": 2, "whisper": 18}
-        want = {name: {"flash_mma": n if backend == "cuda" else 0,
-                       "flash_simt": 0, "flash_wgmma": 0}
-                for name, n in per.items()}
-        check(pin_launches == want, f"{backend}: flash launches per "
-              f"prefill {pin_launches} != {want}")
-        if backend == "cuda":
-            launches["flash_mma"] = sum(n["flash_mma"]
-                                        for n in pin_launches.values())
+    launches["flash_mma"] = launches["flash_wgmma"] = 0
+    lm_pin_phase(torch, dev, LM_DENSE_PINS, "lm_pins", launches)
     launches["flash"] = 0           # the SIMT kernel: on no path
     torch.cuda.empty_cache()
 
@@ -1671,7 +2366,7 @@ def lm_phases(torch, dev, max_err, timing, launches) -> None:
               f"S={S}: the arms' bf16 logits differ by {diff} "
               f"(max |logit| {scale})")
     torch.cuda.synchronize()
-    launches["flash_wgmma"] = fa.LAUNCHES["flash_wgmma"]
+    launches["flash_wgmma"] += fa.LAUNCHES["flash_wgmma"]
     emit({"phase": "lm_memory", "peak_allocated_gib":
           torch.cuda.max_memory_allocated() / 2 ** 30,
           "flash_launches": dict(fa.LAUNCHES),
@@ -1694,9 +2389,17 @@ FAMILY_FLASH = {"qwen2-vl-7b": (14, "flash_wgmma", 14),
                 "granite-moe-3b-a800m": (16, "flash_wgmma", 16),
                 "mamba2-130m": (12, None, 0),
                 "zamba2-2.7b": (30, "flash_mma", 5)}
-# flash launches of each float32 pin's prefill on the kernels' arm (every
-# one the mma kernel's): two attention layers, none, one shared block
-FAMILY_PIN_FLASH = {"vl": 2, "granite": 2, "mamba2": 0, "zamba2": 1}
+# phase 11c: the four configurations first served on the card, at full
+# width in bf16; gemma-7b (28 layers, 8.54 B parameters, 17.1 GB) and
+# deepseek-7b (30, 6.91 B, 13.8 GB) whole, command-r-35b (4.19 B of embed
+# and unembed and 0.705 B a layer: 20 of 40 layers, 36.6 GB) and
+# phi3.5-moe (1.30 B a layer: 16 of 32, 41.7 GB) cut to half their depth,
+# as phase 11b cuts its families (neither fits the card whole); every
+# prefill's attention on flash_fwd_wgmma (gemma's at hd 256)
+NEW_FLASH = {"gemma-7b": (28, "flash_wgmma", 28),
+             "deepseek-7b": (30, "flash_wgmma", 30),
+             "command-r-35b": (20, "flash_wgmma", 20),
+             "phi3.5-moe-42b-a6.6b": (16, "flash_wgmma", 16)}
 
 
 def moe_flips(a, b, n_experts: int):
@@ -1740,18 +2443,27 @@ def device_breakdown(torch, fn, top: int = 6) -> dict:
                          for e in host[:top]]}
 
 
-def lm_family_phases(torch, dev, launches) -> None:
-    """Phase 11b: the vlm, moe, ssm and hybrid families on the card. (a)
-    their float32 pins of the JAX reference on both arms; (b) each family
-    at full width, cut to ``FAMILY_FLASH``'s depth, in bf16 with seeded
-    weights: ``serve.main``
+def lm_family_phases(torch, dev, launches, phase="11b",
+                     pins=LM_FAMILY_PINS, table=None,
+                     profile: bool = True) -> None:
+    """Phase 11b: the vlm, moe, ssm and hybrid families on the card
+    (phase 11c: gemma-7b, deepseek-7b, command-r-35b and phi3.5-moe:
+    ``pins`` ``LM_NEW_PINS``, ``table`` ``NEW_FLASH``, no profile). (a)
+    their float32 and bf16 pins of the JAX reference on both arms
+    (``lm_pin_phase``); (b) each configuration at full width, cut to
+    ``table``'s depth (``FAMILY_FLASH``), in bf16 with seeded weights:
+    ``serve.main``
     and ``generate`` (4 prompts of 32 tokens, 16 generated, a 128-slot
     cache), then ``make_prefill_step`` at B 4, S 4096 (qwen2-vl: 256
     vision tokens on a 16 x 16 grid and 3840 text tokens) on both arms in
     turns, the flash launches of every call asserted, the arms' logits
-    within ``LM_ARM_TOL``, granite's flipped expert choices between the
-    arms per layer, walls, tokens/s and the peak device memory. Adds the
-    kernels' arm's flash launches to ``launches``."""
+    within ``LM_ARM_TOL`` (a moe's also with the torch arm's expert choices
+    replayed on the kernels' arm; for ``ARM_ROUTED`` only so, and its
+    first layer's flips within ``ARM_FIRST_FLIPS``), a moe model's flipped
+    expert choices between the arms per layer, walls, tokens/s, the peak
+    device memory and, with
+    ``profile``, where one prefill's and four decode steps' time goes.
+    Adds the kernels' arm's flash launches to ``launches``."""
     import contextlib
     import io
 
@@ -1763,32 +2475,18 @@ def lm_family_phases(torch, dev, launches) -> None:
     from repro_torch.launch import serve, specs, steps
     from repro_torch.models import lm, moe
 
-    mark("11b")
+    mark(phase)
     t11 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    # -- a. the float32 pins, both arms ------------------------------------
-    for backend in ("cuda", "torch"):
-        t0 = time.perf_counter()
-        got, pin_launches = lm_pin_run(torch, dev, backend, LM_FAMILY_PINS)
-        torch.cuda.synchronize()
-        emit({"phase": "lm_family_pins", "backend": backend,
-              "results": got, "flash_launches": pin_launches,
-              "wall_s": round(time.perf_counter() - t0, 3)})
-        check_lm_pins(got, backend, LM_FAMILY_PINS)
-        want = {name: {"flash_mma": n if backend == "cuda" else 0,
-                       "flash_simt": 0, "flash_wgmma": 0}
-                for name, n in FAMILY_PIN_FLASH.items()}
-        check(pin_launches == want, f"{backend}: flash launches per "
-              f"prefill {pin_launches} != {want}")
-        if backend == "cuda":
-            launches["flash_mma"] += sum(FAMILY_PIN_FLASH.values())
+    # -- a. the float32 and bf16 pins, both arms ---------------------------
+    lm_pin_phase(torch, dev, pins, "lm_family_pins", launches)
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- b. full width, about half depth, bf16 ------------------------------
     S, Bp = 4096, 4
-    for arch, (depth, kernel, per) in FAMILY_FLASH.items():
+    for arch, (depth, kernel, per) in (table or FAMILY_FLASH).items():
         cfg = dataclasses.replace(configs.get_config(arch), n_layers=depth)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1840,12 +2538,22 @@ def lm_family_phases(torch, dev, launches) -> None:
 
             def recording(p, x, c, rec=rec):
                 gates, eidx = route(p, x, c)
-                rec.append(eidx)
+                rec.append((gates, eidx))
                 return gates, eidx
             moe.route = recording
             try:
                 logits[backend] = lm.prefill_fn(model, batch, cfg,
                                                 backend)[0][:, -1].float()
+            finally:
+                moe.route = route
+        if cfg.family == "moe":
+            # the kernels' arm again, each layer given the torch arm's
+            # expert choices and gates: the arms' attention alone
+            replayed = iter(routed["torch"])
+            moe.route = lambda p, x, c: next(replayed)
+            try:
+                logits["routed"] = lm.prefill_fn(model, batch, cfg,
+                                                 "cuda")[0][:, -1].float()
             finally:
                 moe.route = route
         for key in fa.LAUNCHES:
@@ -1875,33 +2583,37 @@ def lm_family_phases(torch, dev, launches) -> None:
                 "flash_kernel": kernel, "flash_launches_per_call": per,
                 "logit_max_abs_diff": diff, "logit_max_abs": scale,
                 "arm_gap_share": diff / scale, "equal_next_tokens": share}
-        # where the time goes: one kernels'-arm prefill and four decode
-        # steps against a 128-slot cache, under the profiler
-        cache = lm.init_cache(cfg, Bp, 128, dev)
-        serve_step = steps.make_serve_step(cfg)
-        tok = batch["tokens"][:, :1]
+        if profile:
+            # where the time goes: one kernels'-arm prefill and four decode
+            # steps against a 128-slot cache, under the profiler
+            cache = lm.init_cache(cfg, Bp, 128, dev)
+            serve_step = steps.make_serve_step(cfg)
+            tok = batch["tokens"][:, :1]
 
-        def decode4():
-            c = cache
-            for t in range(4):
-                b = {"token": tok, "pos": torch.full((Bp,), t,
-                                                     dtype=torch.int32,
-                                                     device=dev)}
-                if cfg.family == "vlm":
-                    b["positions3d"] = torch.full((3, Bp, 1), t,
-                                                  dtype=torch.int32,
-                                                  device=dev)
-                _, c = serve_step(model, c, b)
-        step = steps.make_prefill_step(cfg, "cuda")
-        emit({"phase": "lm_profile", "arch": cfg.name,
-              "prefill": device_breakdown(torch, lambda: step(model, batch)),
-              "decode_4_steps": device_breakdown(torch, decode4)})
-        del cache
+            def decode4():
+                c = cache
+                for t in range(4):
+                    b = {"token": tok, "pos": torch.full(
+                        (Bp,), t, dtype=torch.int32, device=dev)}
+                    if cfg.family == "vlm":
+                        b["positions3d"] = torch.full(
+                            (3, Bp, 1), t, dtype=torch.int32, device=dev)
+                    _, c = serve_step(model, c, b)
+            step = steps.make_prefill_step(cfg, "cuda")
+            emit({"phase": "lm_profile", "arch": cfg.name,
+                  "prefill": device_breakdown(
+                      torch, lambda: step(model, batch)),
+                  "decode_4_steps": device_breakdown(torch, decode4)})
+            del cache
         if cfg.family == "moe":
-            line["flipped_choices_per_layer"] = [
-                moe_flips(a, b, cfg.n_experts)
-                for a, b in zip(routed["cuda"], routed["torch"])]
-            line["choices_per_layer"] = Bp * S * cfg.top_k
+            flips = [moe_flips(a[1], b[1], cfg.n_experts)
+                     for a, b in zip(routed["cuda"], routed["torch"])]
+            routed_diff = float((logits["routed"]
+                                 - logits["torch"]).abs().max())
+            line.update(flipped_choices_per_layer=flips,
+                        choices_per_layer=Bp * S * cfg.top_k,
+                        routed_as_torch_max_abs_diff=routed_diff,
+                        routed_as_torch_gap_share=routed_diff / scale)
         emit(line)
         torch.cuda.synchronize()
         emit({"phase": "lm_memory", "arch": cfg.name,
@@ -1910,11 +2622,20 @@ def lm_family_phases(torch, dev, launches) -> None:
         check(torch.isfinite(logits["cuda"]).all()
               and torch.isfinite(logits["torch"]).all(),
               f"{arch}: non-finite logits")
-        check(diff <= LM_ARM_TOL * scale,
-              f"{arch}: the arms' bf16 logits differ by {diff} (max |logit| "
-              f"{scale})")
+        if cfg.family == "moe":
+            check(routed_diff <= LM_ARM_TOL * scale,
+                  f"{arch}: routed alike, the arms' bf16 logits differ by "
+                  f"{routed_diff} (max |logit| {scale})")
+        if arch in ARM_ROUTED:
+            check(flips[0] <= ARM_FIRST_FLIPS * Bp * S * cfg.top_k,
+                  f"{arch}: the arms' first layers chose {flips[0]} "
+                  f"experts apart")
+        else:
+            check(diff <= LM_ARM_TOL * scale,
+                  f"{arch}: the arms' bf16 logits differ by {diff} (max "
+                  f"|logit| {scale})")
         del model, logits, routed
-    emit({"phase": "lm_families_total",
+    emit({"phase": "lm_families_total", "phase_name": phase,
           "wall_s": round(time.perf_counter() - t11, 3)})
 
 
@@ -1932,13 +2653,14 @@ SSM_TRAIN = ["--arch", "mamba2-130m", "--steps", "20", "--batch", "8",
              "--seq", "256", "--lr", "1e-3", "--ckpt-every", "100"]
 
 
-def train_pin_run(torch, dev, backend, name, tree):
+def train_pin_run(torch, dev, backend, name, tree, remat=None):
     """The port's training pin ``name`` on ``dev`` through ``backend``:
     ``TRAIN_PIN_STEPS`` ``make_train_step`` calls from ``tree`` (the
-    reference layout) as float32 masters, on the pin's batches. Returns
-    each step's loss, grad norm and lr, and each step's flash launches
-    per kernel (counters zeroed just before the step, read just after).
-    ``tools/lm_pins.py --port`` runs it on the CPU."""
+    reference layout) as float32 masters, on the pin's batches, under
+    ``remat`` (``"none"`` unless given). Returns each step's loss,
+    grad norm and lr, and each step's flash launches per kernel (counters
+    zeroed just before the step, read just after). ``tools/lm_pins.py
+    --port`` runs it on the CPU."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
@@ -1950,7 +2672,7 @@ def train_pin_run(torch, dev, backend, name, tree):
     opt = adamw.AdamWConfig(**TRAIN_PIN_OPT)
     state = adamw.init_state(dict(model.named_parameters()), opt)
     step = steps.make_train_step(cfg, opt, backend,
-                                 loss_chunk=LM_TRAIN_PINS[name])
+                                 loss_chunk=LM_TRAIN_PINS[name], remat=remat)
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -2009,30 +2731,36 @@ def lm_train_phases(torch, dev, max_err, launches) -> float:
           "the training pins' batches differ from those they were computed "
           "on")
     failed = []
-    for backend in ("cuda", "torch"):
-        for name in LM_TRAIN_PINS:
-            t0 = time.perf_counter()
-            got, flash = train_pin_run(torch, dev, backend, name, tree)
-            emit({"phase": "lm_train_pins", "pin": name, "backend": backend,
-                  "results": got, "want": LM_PINS[name],
-                  "flash_launches_per_step": flash,
-                  "wall_s": round(time.perf_counter() - t0, 3)})
-            for key, tol in TRAIN_PIN_TOL.items():
-                if any(abs(g - w) > tol * abs(w) for g, w in
-                       zip(got[key], LM_PINS[name][key])):
-                    failed.append(f"{backend} {name}: {key} {got[key]} != "
-                                  f"reference {LM_PINS[name][key]} (rtol "
-                                  f"{tol})")
-            per = 2 if backend == "cuda" else 0
-            want = [{"flash_mma": per, "flash_simt": 0, "flash_wgmma": 0}] \
-                * TRAIN_PIN_STEPS
-            if flash != want:
-                failed.append(f"{backend} {name}: flash launches per step "
-                              f"{flash} != {want}")
-            if backend == "cuda":
-                launches["flash_mma"] += sum(f["flash_mma"] for f in flash)
-            gc.collect()
-            torch.cuda.empty_cache()
+    # the float32 pins on both arms, then "train" on the kernels' arm under
+    # remat="full" and "dots": a checkpointed block is recomputed in the
+    # backward, so its flash forward runs twice a step
+    for backend, name, remat in [(b, n, None) for b in ("cuda", "torch")
+                                 for n in LM_TRAIN_PINS] + [
+            ("cuda", "train", "full"), ("cuda", "train", "dots")]:
+        t0 = time.perf_counter()
+        got, flash = train_pin_run(torch, dev, backend, name, tree,
+                                   remat)
+        emit({"phase": "lm_train_pins", "pin": name, "backend": backend,
+              "remat": remat or "none",
+              "results": got, "want": LM_PINS[name],
+              "flash_launches_per_step": flash,
+              "wall_s": round(time.perf_counter() - t0, 3)})
+        for key, tol in TRAIN_PIN_TOL.items():
+            if any(abs(g - w) > tol * abs(w) for g, w in
+                   zip(got[key], LM_PINS[name][key])):
+                failed.append(f"{backend} {name} remat {remat}: {key} "
+                              f"{got[key]} != reference "
+                              f"{LM_PINS[name][key]} (rtol {tol})")
+        per = (4 if remat else 2) if backend == "cuda" else 0
+        want = [{"flash_mma": per, "flash_simt": 0, "flash_wgmma": 0}] \
+            * TRAIN_PIN_STEPS
+        if flash != want:
+            failed.append(f"{backend} {name}: flash launches per step "
+                          f"{flash} != {want}")
+        if backend == "cuda":
+            launches["flash_mma"] += sum(f["flash_mma"] for f in flash)
+        gc.collect()
+        torch.cuda.empty_cache()
     del tree
     check(not failed, "; ".join(failed))
 
@@ -2659,8 +3387,11 @@ def main() -> int:
     # -- 9-13. the LM phases, while the host process builds the meshes -----
     max_err = {k: 0 for k in KERNELS}
     timing, launches = {}, {}
+    prefetch_trees(dict.fromkeys(LM_PIN_ARCH[n] for n in LM_NEW_PINS))
     lm_phases(torch, dev, max_err, timing, launches)
     lm_family_phases(torch, dev, launches)
+    lm_family_phases(torch, dev, launches, "11c", LM_NEW_PINS, NEW_FLASH,
+                     profile=False)
     train_peak = lm_train_phases(torch, dev, max_err, launches)
     lm_mesh_phases(torch, dev, max_err, launches, train_peak)
     gc.collect()

@@ -19,7 +19,9 @@ re-homed on one card), the bitmask kernels at every tuned share count
 and a tuned engine against an untuned one, and the LM smoke configs'
 prefill and
 decode on both attention arms against the CPU (every family; the flash
-kernels at the moe and hybrid path shapes), and training: the flash
+kernels at the moe and hybrid path shapes; the bf16 smoke configs of
+gemma-7b at hd 256, command-r-35b and phi3.5-moe on both arms), and
+training: the flash
 kernels' autograd Function against the plain gradient, a train step on
 both arms. These tests need an NVIDIA card and
 ``nvcc``; elsewhere they skip with a reason. They import only the port, so
@@ -30,7 +32,9 @@ they run where JAX is not installed:
 
 import dataclasses
 import math
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1290,6 +1294,41 @@ def test_flash_kernel_at_the_new_path_shapes(cuda, config, H, KV, hd,
     torch.testing.assert_close(
         got.float(), flash_attention.flash_attention_ref(q, k, v).float(),
         rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch, head_dim, variant", [
+    ("gemma-7b", 256, "wgmma"), ("command-r-35b", None, "mma"),
+    ("phi3.5-moe-42b-a6.6b", None, "mma")])
+def test_bf16_smoke_configs_agree_on_both_arms(cuda, arch, head_dim,
+                                               variant):
+    """The configured bf16 smoke configs of gemma-7b (at head dim 256,
+    which sends its prefill to ``flash_fwd_wgmma``), command-r-35b and
+    phi3.5-moe (hd 16: ``flash_fwd_mma``): the kernels' arm's last-position
+    logits within ``chip_smoke.LM_ARM_TOL`` of the largest of the torch
+    arm's, every flash launch on the routed kernel, once per layer."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import LM_ARM_TOL
+    cfg = configs.get_smoke_config(arch)
+    assert cfg.dtype == "bfloat16"
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = lm.build(cfg, cuda)
+    on_card.load_state_dict(model.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 75),
+                                               dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(cuda)}
+    before = dict(flash_attention.LAUNCHES)
+    got, _ = lm.prefill_fn(on_card, batch, cfg, backend="cuda")
+    torch.cuda.synchronize()
+    n = {k: flash_attention.LAUNCHES[k] - before[k] for k in before}
+    want = {k: 0 for k in before}
+    want.update({"flash": cfg.n_layers, f"flash_{variant}": cfg.n_layers})
+    assert n == want
+    plain, _ = lm.prefill_fn(on_card, batch, cfg, backend="torch")
+    assert got.dtype == plain.dtype == torch.bfloat16
+    diff = float((got.float() - plain.float()).abs().max())
+    assert diff <= LM_ARM_TOL * float(plain.float().abs().max())
 
 
 # -- training: the flash kernels' gradient, a train step -------------------
